@@ -1,0 +1,21 @@
+"""Packed action batches."""
+
+from .batch import (
+    ActionBatch,
+    bucket_games,
+    pack_actions,
+    pad_batch_games,
+    pad_length,
+    unpack_values,
+)
+from .synthetic import synthetic_batch
+
+__all__ = [
+    'ActionBatch',
+    'bucket_games',
+    'pack_actions',
+    'pad_batch_games',
+    'pad_length',
+    'synthetic_batch',
+    'unpack_values',
+]

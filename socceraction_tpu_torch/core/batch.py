@@ -1,0 +1,221 @@
+"""The padded ``(G games, A actions)`` bundle of SPADL actions, as tensors.
+
+Port of ``socceraction_tpu/core/batch.py`` with the same semantics: games
+are left-aligned along the action axis and padded to a multiple of
+:data:`~socceraction_tpu_torch.config.ACTION_AXIS_ALIGNMENT`; team identity
+is reduced to ``is_home``; ``mask`` marks valid rows, ``row_index`` is each
+row's position in the packed frame (``-1`` on padding) and ``game_id`` is
+the game's index in the batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ACTION_AXIS_ALIGNMENT
+from ..device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:  # pandas is imported inside pack_actions only
+    import pandas as pd
+
+__all__ = [
+    'ActionBatch',
+    'bucket_games',
+    'pack_actions',
+    'pad_batch_games',
+    'pad_length',
+    'unpack_values',
+]
+
+_LANE = ACTION_AXIS_ALIGNMENT
+
+_FLOAT_COLS = ('time_seconds', 'start_x', 'start_y', 'end_x', 'end_y')
+_INT_COLS = ('type_id', 'result_id', 'bodypart_id', 'period_id')
+
+
+def pad_length(n: int, multiple: int = _LANE) -> int:
+    """Round ``n`` up to a multiple of ``multiple`` (minimum one tile)."""
+    return max(multiple, ((n + multiple - 1) // multiple) * multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class ActionBatch:
+    """A padded ``(G, A)`` struct-of-tensors bundle of SPADL actions.
+
+    Per-action fields have shape ``(G, A)``; ``n_actions`` and ``game_id``
+    are ``(G,)``. Every field lives on one device (:meth:`to` moves them
+    together).
+    """
+
+    type_id: torch.Tensor  # int32
+    result_id: torch.Tensor  # int32
+    bodypart_id: torch.Tensor  # int32
+    period_id: torch.Tensor  # int32
+    is_home: torch.Tensor  # bool: team_id == home_team_id
+    time_seconds: torch.Tensor  # float
+    start_x: torch.Tensor  # float
+    start_y: torch.Tensor  # float
+    end_x: torch.Tensor  # float
+    end_y: torch.Tensor  # float
+    mask: torch.Tensor  # bool (G, A): True on valid rows
+    n_actions: torch.Tensor  # int32 (G,): valid rows per game
+    game_id: torch.Tensor  # int32 (G,): game index in the batch
+    row_index: torch.Tensor  # int32 (G, A): row in the packed frame (-1 pad)
+
+    @property
+    def n_games(self) -> int:
+        """Number of games (leading axis)."""
+        return self.type_id.shape[0]
+
+    @property
+    def max_actions(self) -> int:
+        """Padded per-game action capacity (second axis)."""
+        return self.type_id.shape[1]
+
+    @property
+    def total_actions(self) -> int:
+        """Total number of valid (unpadded) actions, as a host int."""
+        return int(self.n_actions.sum())
+
+    @property
+    def device(self) -> torch.device:
+        """The device every field lives on."""
+        return self.type_id.device
+
+    def fields(self) -> Dict[str, torch.Tensor]:
+        """``{name: tensor}`` of every field, in declaration order."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def to(self, device: DeviceLike) -> 'ActionBatch':
+        """A copy with every field on ``device``."""
+        dev = resolve_device(device)
+        return ActionBatch(**{n: t.to(dev) for n, t in self.fields().items()})
+
+
+def _from_numpy(cols: Dict[str, np.ndarray], device: torch.device) -> ActionBatch:
+    return ActionBatch(
+        **{n: torch.from_numpy(np.ascontiguousarray(a)).to(device) for n, a in cols.items()}
+    )
+
+
+def pack_actions(
+    actions: 'pd.DataFrame',
+    home_team_ids: Optional[Dict[Any, Any]] = None,
+    *,
+    home_team_id: Optional[Any] = None,
+    max_actions: Optional[int] = None,
+    float_dtype: Any = np.float32,
+    device: DeviceLike = None,
+) -> Tuple[ActionBatch, List[Any]]:
+    """Pack a SPADL DataFrame (one or many games) into an :class:`ActionBatch`.
+
+    Same contract as the JAX package's ``pack_actions``: games keep their
+    order of first appearance, rows their order within the game; pass
+    ``home_team_ids`` (``game_id -> home_team_id``), a single
+    ``home_team_id``, or a frame with a ``home_team_id`` column. Returns the
+    batch (on ``device``, default ``cuda``) and the game ids in game-axis
+    order.
+    """
+    import pandas as pd
+
+    dev = resolve_device(device)
+    if 'game_id' not in actions.columns:
+        raise ValueError('actions frame must contain a game_id column')
+    if len(actions) == 0:
+        raise ValueError('cannot pack an empty actions frame')
+
+    gi, game_index = pd.factorize(actions['game_id'], sort=False)
+    game_ids = list(game_index)
+    n_games = len(game_ids)
+    pos = actions.groupby(gi, sort=False).cumcount().to_numpy()
+    n_actions = np.bincount(gi, minlength=n_games).astype(np.int32)
+
+    if home_team_ids is None:
+        if home_team_id is not None:
+            home_team_ids = {g: home_team_id for g in game_ids}
+        elif 'home_team_id' in actions.columns:
+            home_team_ids = (
+                actions.groupby('game_id', sort=False)['home_team_id'].first().to_dict()
+            )
+        else:
+            raise ValueError('home_team_ids (or home_team_id) is required')
+
+    longest = int(n_actions.max())
+    A = max_actions if max_actions is not None else pad_length(longest)
+    if longest > A:
+        raise ValueError(f'game of length {longest} exceeds max_actions={A}')
+
+    flat = gi * A + pos  # destination of every source row in a (G, A) grid
+
+    def scatter(values: np.ndarray, dtype: Any, fill: Any = 0) -> np.ndarray:
+        out = np.full(n_games * A, fill, dtype=dtype)
+        out[flat] = values
+        return out.reshape(n_games, A)
+
+    cols = {
+        c: scatter(actions[c].to_numpy(dtype=float_dtype), float_dtype)
+        for c in _FLOAT_COLS
+    }
+    cols.update(
+        {
+            c: scatter(actions[c].to_numpy(dtype=np.int64).astype(np.int32), np.int32)
+            for c in _INT_COLS
+        }
+    )
+    home_of_game = np.asarray([home_team_ids[g] for g in game_ids])
+    cols['is_home'] = scatter(
+        actions['team_id'].to_numpy() == home_of_game[gi], bool, False
+    )
+    cols['mask'] = scatter(np.ones(len(actions), dtype=bool), bool, False)
+    cols['n_actions'] = n_actions
+    cols['game_id'] = np.arange(n_games, dtype=np.int32)
+    cols['row_index'] = scatter(np.arange(len(actions), dtype=np.int32), np.int32, -1)
+    return _from_numpy(cols, dev), game_ids
+
+
+def bucket_games(n: int) -> int:
+    """Round a game count up to its shape bucket (the next power of two)."""
+    if n < 1:
+        raise ValueError(f'need at least one game, got {n}')
+    return 1 << (n - 1).bit_length()
+
+
+def pad_batch_games(batch: ActionBatch, n_games: int) -> ActionBatch:
+    """Pad a batch's game axis to ``n_games`` with masked padding games.
+
+    Padding games carry all-False masks, ``n_actions == 0`` and
+    ``row_index == -1``; their computed values are garbage by contract and
+    must be sliced away by the caller.
+    """
+    G = batch.n_games
+    if n_games == G:
+        return batch
+    if n_games < G:
+        raise ValueError(f'cannot pad {G} games down to {n_games}')
+
+    def pad(name: str, a: torch.Tensor) -> torch.Tensor:
+        fill = -1 if name == 'row_index' else 0
+        tail = a.new_full((n_games - G, *a.shape[1:]), fill)
+        return torch.cat([a, tail])
+
+    return ActionBatch(**{n: pad(n, t) for n, t in batch.fields().items()})
+
+
+def unpack_values(values: torch.Tensor, batch: ActionBatch) -> np.ndarray:
+    """Per-action output in the packed frame's row order, as numpy.
+
+    Padding rows are dropped and valid rows scattered back to the
+    positional order of the DataFrame that was packed. ``values`` has
+    shape ``(G, A)`` or ``(G, A, F)``.
+    """
+    arr = values.detach().cpu().numpy()
+    mask = batch.mask.cpu().numpy()
+    rows = batch.row_index.cpu().numpy()[mask]
+    picked = arr[mask]
+    out = np.empty_like(picked)
+    out[rows] = picked
+    return out

@@ -1,0 +1,98 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
+repository's ``build/kernels/`` (listed in ``.gitignore``) and loaded with
+``ctypes``. The library's file name carries a hash of the source and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: this module imports on machines with no
+CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ['BUILD_DIR', 'build_log', 'build_seconds', 'load_library']
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG / 'csrc'
+#: Where the shared libraries are built (inside the checkout, git-ignored).
+BUILD_DIR = _PKG.parent / 'build' / 'kernels'
+
+_NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a',
+    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+_paths: Dict[str, Path] = {}
+#: Seconds each library took to build in this process (0.0 when it was
+#: already on disk).
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError('no CUDA toolkit found (set CUDA_HOME); cannot build kernels')
+    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu`` library, built first if needed.
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``<lib>.log``. A failed build
+    raises with the compiler's output.
+    """
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        src = _SRC_DIR / f'{name}.cu'
+        digest = hashlib.sha256(src.read_bytes() + ' '.join(_NVCC_FLAGS).encode())
+        so = BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+        t0 = time.perf_counter()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # build to a temporary name, then rename: concurrent builders
+            # never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *_NVCC_FLAGS, '-o', tmp, str(src)],
+                    capture_output=True, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f'nvcc failed to build {src} (exit {proc.returncode}):\n'
+                        f'{proc.stdout}{proc.stderr}'
+                    )
+                Path(f'{so}.log').write_text(proc.stdout + proc.stderr)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        build_seconds[name] = time.perf_counter() - t0
+        _paths[name] = so
+        lib = _loaded[name] = ctypes.CDLL(str(so))
+        return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the loaded library ``name`` (empty when
+    the build log is gone)."""
+    log = Path(f'{_paths[name]}.log')
+    return log.read_text() if log.exists() else ''
