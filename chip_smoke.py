@@ -10,15 +10,25 @@ exits non-zero:
 
 1. card identity (``nvidia-smi`` name and power limit) and the f32
    precision settings (no TF32);
-2. build every hand-written kernel from ``socceraction_tpu_torch/csrc``;
+2. build every hand-written kernel from ``socceraction_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with its time, the plain version's time
    and its bound;
-4. the main path: ``VAEP.rate_batch`` on 512 games x 1664 actions with two
+4. the VAEP path: ``VAEP.rate_batch`` on 512 games x 1664 actions with two
    (128, 128) heads (seeded random weights carried through
    ``convert.mlp_from_jax_params``), checked against the materialized
    reference, with each kernel's launch count; then bf16 and int8 serving
-   against f32, and the synchronized f32 throughput.
+   against f32, and the synchronized f32 throughput;
+5. the xT path on 3072 games x 1664 actions (5,111,808 actions, about the
+   size of the full StatsBomb open data): four fits through the entry
+   points (``ExpectedThreat`` 16 x 12 dense and 192 x 125 matrix-free, and
+   20-group fleets through ``xt_counts``/``solve_xt`` at 16 x 12 and
+   ``solve_xt_matrix_free`` at 192 x 125), each with its segment-sum
+   launches, iterations, residual and wall time, and a profile of the
+   192 x 125 fit; then the same fits on the CPU through the port's plain
+   versions, which the card's must match (grids 1e-5, counts and
+   probabilities 1e-6, iterations within one, ratings 1e-5).
 
 Before the last line it prints one JSON object of kernel records
 (``{"kernels": [...]}``); the last line is
@@ -31,19 +41,23 @@ import json
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from socceraction_tpu_torch.convert import mlp_from_jax_params
+from socceraction_tpu_torch.core.batch import ActionBatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch.device import DeviceLike
 from socceraction_tpu_torch.ops import cuda_build
 from socceraction_tpu_torch.ops import gather_matmul as gm
+from socceraction_tpu_torch.ops import segment as seg
+from socceraction_tpu_torch.ops import xt as xtops
 from socceraction_tpu_torch.ops.features import compute_features
 from socceraction_tpu_torch.ops.fused import train_layout
 from socceraction_tpu_torch.vaep.base import VAEP, XFNS_DEFAULT
+from socceraction_tpu_torch.xthreat import ExpectedThreat
 
 #: The serving batch: 512 games of 1664 actions (851,968 rows).
 GAMES, ACTIONS = 512, 1664
@@ -54,6 +68,12 @@ K = 3
 #: (non-tensor-core) FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: The xT batch: 3072 games of 1664 actions (5,111,808 actions).
+XT_GAMES = 3072
+#: Groups of the xT fleet fits (``game_index % XT_GROUPS``).
+XT_GROUPS = 20
+#: Kernels this script builds.
+KERNELS = ('gather_matmul', 'segment_sum')
 
 
 def card_identity() -> str:
@@ -247,6 +267,212 @@ def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
         'top': [{'ms': ms, 'calls': n, 'kernel': key} for ms, n, key in rows[:top]],
     }
 
+def xt_fields(batch: ActionBatch) -> Tuple[torch.Tensor, ...]:
+    """The seven batch fields the xT kernels read."""
+    return (
+        batch.type_id, batch.result_id,
+        batch.start_x, batch.start_y, batch.end_x, batch.end_y,
+        batch.mask,
+    )
+
+
+def group_ids(batch: ActionBatch, n_groups: int = XT_GROUPS) -> torch.Tensor:
+    """``game_index % n_groups`` for every action slot, on the batch's device."""
+    g = torch.arange(batch.n_games, dtype=torch.int32, device=batch.device) % n_groups
+    return g[:, None].expand(batch.n_games, batch.max_actions).contiguous()
+
+
+def segment_operands(batch: ActionBatch, seed: int = 3) -> List[Tuple[str, int, torch.Tensor, torch.Tensor, bool]]:
+    """B2's operands at the xT path's shapes, from the xT batch.
+
+    ``(label, S, values, ids, exact)``: the 16 x 12 shot counts (0/1
+    values into 192 cells, held bitwise), and seeded real values on the
+    successful moves (the matrix-free payoff's shape) into the 24,000
+    cells of 192 x 125 and the 480,000 of its 20-group fleet.
+    """
+    f = xt_fields(batch)
+    coarse = xtops._action_stream(*f, l=16, w=12)
+    fine = xtops._action_stream(*f, l=192, w=125)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.random(fine.start_flat.numel(), dtype=np.float32), device=batch.device)
+    real = u * fine.is_success_move.to(torch.float32)
+    g = group_ids(batch).reshape(-1)
+    return [
+        ('16x12 shot counts', 192, coarse.is_shot.to(torch.float32), coarse.start_flat, True),
+        ('192x125 payoff', 24000, real, fine.start_flat, False),
+        ('192x125 x 20-group payoff', 480000, real, g * 24000 + fine.start_flat, False),
+    ]
+
+
+def check_segment_sum(label: str, s: int, vals: torch.Tensor, ids: torch.Tensor, exact: bool) -> Dict[str, Any]:
+    """B2 against its plain version on the card at one shape (phase 3)."""
+    got = seg.segment_sum(vals, ids, s)
+    want = seg.segment_sum_reference(vals, ids, s)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    if exact:
+        # integer-valued f32 sums are exact in any order
+        if not torch.equal(got, want):
+            raise RuntimeError(f'segment_sum {label}: counts differ from the plain version')
+    else:
+        # atomics add in another order than the plain version: atol/rtol 1e-5
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    ok = (ids >= 0) & (ids < s)
+    ids_clean = torch.where(ok, ids, 0).long()
+    vals_clean = torch.where(ok, vals, 0.0)
+    n = vals.numel()
+    bound_ms = (n * 8 + s * 4) / PEAK_BYTES_PER_S * 1e3
+    return {
+        'shape': label,
+        'n': n,
+        'segments': s,
+        'exact': exact,
+        'max_abs_err': max_abs,
+        'ms': time_ms(lambda: seg.segment_sum(vals, ids, s), reps=50),
+        'plain_ms': time_ms(lambda: seg.segment_sum_reference(vals, ids, s), reps=20),
+        # one PyTorch call computes the same function on ids already cleaned
+        'library_ms': time_ms(
+            lambda: torch.zeros(s, device=vals.device).scatter_add_(0, ids_clean, vals_clean),
+            reps=50,
+        ),
+        'bound_ms': bound_ms,
+        'bound_by': 'bytes',
+        'plan': seg.launch_plan(n, s),
+    }
+
+
+def _np(t: Any) -> Any:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _timed_fit(device: torch.device, fn: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
+    """Run one fit with the segment-sum count zeroed just before and read
+    just after, synchronized, with its wall time."""
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    out['wall_s'] = time.perf_counter() - t0
+    out['launches'] = seg.segment_sum.launches
+    return out
+
+
+def xt_fits(batch: ActionBatch, device: DeviceLike = None) -> Dict[str, Dict[str, Any]]:
+    """The four xT fits through the entry points (phase 5), on ``device``.
+
+    Each result holds host copies of the grid(s), the certificate, the
+    counts or probabilities, the ratings of the whole batch, the wall time
+    and the segment-sum launches of that fit alone.
+    """
+    dev = batch.device if device is None else torch.device(device)
+    fields = xt_fields(batch)
+    gid = group_ids(batch)
+
+    def model_fit(**kw: Any) -> Callable[[], Dict[str, Any]]:
+        def run() -> Dict[str, Any]:
+            m = ExpectedThreat(device=device, **kw).fit(batch)
+            return {
+                'solver': m.solver,
+                'grid': m.xT,
+                'iterations': np.asarray(m.n_iter),
+                'residual': m.solve_residual,
+                'converged': np.asarray(m.converged),
+                'probs': {
+                    'p_score': m.scoring_prob_matrix,
+                    'p_shot': m.shot_prob_matrix,
+                    'p_move': m.move_prob_matrix,
+                    **({} if m.transition_matrix is None else {'transition': m.transition_matrix}),
+                },
+                'counts': {},
+                'rate': m.rate(batch),
+            }
+        return run
+
+    def fleet_dense() -> Dict[str, Any]:
+        counts = xtops.xt_counts(*fields, l=16, w=12, group_id=gid, n_groups=XT_GROUPS)
+        probs = xtops.xt_probabilities(counts, l=16, w=12)
+        sol = xtops.solve_xt(probs)
+        return _fleet_record('dense', sol, probs, counts, fields, gid, 16, 12)
+
+    def fleet_matrix_free() -> Dict[str, Any]:
+        sol, probs = xtops.solve_xt_matrix_free(
+            *fields, l=192, w=125, group_id=gid, n_groups=XT_GROUPS
+        )
+        return _fleet_record('matrix-free', sol, probs, None, fields, gid, 192, 125)
+
+    return {
+        'ExpectedThreat 16x12': _timed_fit(dev, model_fit()),
+        'ExpectedThreat 192x125': _timed_fit(dev, model_fit(l=192, w=125)),
+        f'xt_counts/solve_xt 16x12 x {XT_GROUPS} groups': _timed_fit(dev, fleet_dense),
+        f'solve_xt_matrix_free 192x125 x {XT_GROUPS} groups': _timed_fit(dev, fleet_matrix_free),
+    }
+
+
+def _fleet_record(
+    solver: str, sol: Any, probs: Any, counts: Any, fields: Tuple[torch.Tensor, ...],
+    gid: torch.Tensor, l: int, w: int,
+) -> Dict[str, Any]:
+    rate = xtops.rate_actions(sol.grid, *fields, l=l, w=w, group_id=gid)
+    return {
+        'solver': solver,
+        'grid': _np(sol.grid),
+        'iterations': _np(sol.iterations),
+        'residual': float(sol.residual.max()),
+        'converged': _np(sol.converged),
+        'probs': {
+            k: _np(v) for k, v in probs._asdict().items() if v is not None
+        },
+        'counts': {} if counts is None else {k: _np(v) for k, v in counts._asdict().items()},
+        'rate': _np(rate),
+    }
+
+
+def compare_fits(card: Dict[str, Dict[str, Any]], cpu: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, float]]:
+    """Hold every card fit to the CPU fit of the same inputs; raise on any miss.
+
+    Grids within 1e-5 (the sweep's sums run in another order), counts and
+    probabilities within 1e-6 (counts are exact in any order), iterations
+    within one sweep (a residual at ``eps`` may exit one sweep apart), and
+    ratings within 1e-5 with their NaNs in the same places.
+    """
+    report = {}
+    for name, a in card.items():
+        b = cpu[name]
+        if not (np.asarray(a['converged']).all() and np.isfinite(a['grid']).all()):
+            raise RuntimeError(f'{name}: the card fit did not converge to a finite grid')
+        if a['grid'].shape != b['grid'].shape:
+            raise RuntimeError(f'{name}: grid shape {a["grid"].shape} != {b["grid"].shape}')
+        err = {'grid': float(np.abs(a['grid'] - b['grid']).max())}
+        for group in ('counts', 'probs'):
+            for k in a[group]:
+                err[k] = float(np.abs(np.asarray(a[group][k], np.float64) - b[group][k]).max())
+        it_gap = int(np.abs(a['iterations'].astype(np.int64) - b['iterations']).max())
+        nan_a, nan_b = np.isnan(a['rate']), np.isnan(b['rate'])
+        if not np.array_equal(nan_a, nan_b):
+            raise RuntimeError(f'{name}: rated actions differ between the card and the CPU')
+        err['rate'] = float(np.abs(a['rate'][~nan_a] - b['rate'][~nan_b]).max(initial=0.0))
+        limits = {k: 1e-5 if k in ('grid', 'rate') else 1e-6 for k in err}
+        bad = {k: v for k, v in err.items() if not v <= limits[k]}
+        if bad or it_gap > 1:
+            raise RuntimeError(f'{name}: card vs CPU outside limits: {bad}, iterations gap {it_gap}')
+        report[name] = {**err, 'iterations_gap': it_gap}
+    return report
+
+
+def xt_summary(fit: Dict[str, Any]) -> Dict[str, Any]:
+    """The printed line of one fit."""
+    its = np.asarray(fit['iterations'])
+    return {
+        'solver': fit['solver'],
+        'iterations': int(its) if its.ndim == 0 else its.tolist(),
+        'residual': fit['residual'],
+        'wall_s': fit['wall_s'],
+        'segment_sum_launches': fit['launches'],
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -257,11 +483,14 @@ def main() -> int:
     print(card)
     print(f'precision: {set_precision()}')
 
-    cuda_build.load_library('gather_matmul')
-    print(f"build: gather_matmul {cuda_build.build_seconds['gather_matmul']:.2f} s")
-    for line in cuda_build.build_log('gather_matmul').splitlines():
-        if 'registers' in line or 'spill' in line:
-            print(f'  ptxas: {line.strip()}')
+    t0 = time.perf_counter()
+    cuda_build.load_libraries(KERNELS)
+    print(f'build: {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s')
+    for name in KERNELS:
+        print(f"build: {name} {cuda_build.build_seconds[name]:.2f} s")
+        for line in cuda_build.build_log(name).splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
+                print(f'  ptxas: {line.strip()}')
 
     checks = {dtype: check_first_layer(device, dtype) for dtype in (torch.float32, torch.bfloat16)}
     for rec in checks.values():
@@ -312,7 +541,52 @@ def main() -> int:
     for row in prof['top']:
         print(f'  profile: {json.dumps(row)}')
 
+    del model, batch, values
+    torch.cuda.empty_cache()
+
+    # -- the xT path ---------------------------------------------------------
+    xt_batch = synthetic_batch(XT_GAMES, ACTIONS, seed=2)
+    n_xt = xt_batch.total_actions
+    seg_checks = [check_segment_sum(*ops) for ops in segment_operands(xt_batch)]
+    for rec in seg_checks:
+        print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
+    torch.cuda.synchronize()
+
+    # the entry points' default device (the card); each fit zeroes the
+    # segment-sum count just before it and reads it just after
+    card_fits = xt_fits(xt_batch)
+    # the same fits again, warm (first-use set-up of the libraries done)
+    warm = xt_fits(xt_batch)
+    for name, fit in card_fits.items():
+        line = {**xt_summary(fit), 'warm_wall_s': warm[name]['wall_s']}
+        print(f'xT path ({n_xt} actions, card): {name}: {json.dumps(line)}')
+        if fit['launches'] < 1:
+            raise RuntimeError(f'{name} did not launch the segment_sum kernel')
+    mf = card_fits['ExpectedThreat 192x125']
+    if mf['solver'] != 'matrix-free' or mf['launches'] != 3 + int(mf['iterations']):
+        raise RuntimeError(
+            f"the 192x125 fit launched segment_sum {mf['launches']} times, "
+            f"not 3 + {int(mf['iterations'])} iterations"
+        )
+    seg_launches = sum(fit['launches'] for fit in card_fits.values())
+    prof = device_breakdown(lambda: ExpectedThreat(l=192, w=125).fit(xt_batch))
+    print(
+        f"profile: one ExpectedThreat(192x125).fit, {prof['wall_ms']:.3f} ms wall under "
+        f"the profiler, {prof['kernel_ms']:.3f} ms of kernels ({card})"
+    )
+    for row in prof['top']:
+        print(f'  profile: {json.dumps(row)}')
+
+    t0 = time.perf_counter()
+    cpu_fits = xt_fits(xt_batch.to('cpu'), 'cpu')
+    print(f'xT path (CPU, plain versions): four fits in {time.perf_counter() - t0:.1f} s')
+    for name, fit in cpu_fits.items():
+        print(f'xT path ({n_xt} actions, CPU): {name}: {json.dumps(xt_summary(fit))}')
+    for name, err in compare_fits(card_fits, cpu_fits).items():
+        print(f'xT path: card vs CPU: {name}: {json.dumps(err)}')
+
     f32 = checks[torch.float32]
+    sweep = seg_checks[1]
     kernels = [{
         'name': 'gather_matmul',
         'route': 'cuda',
@@ -326,6 +600,23 @@ def main() -> int:
         'bound_by': f32['bound_by'],
         # no single PyTorch call computes bias + k masked gathers + x @ W
         'library_ms': None,
+    }, {
+        'name': 'segment_sum',
+        'route': 'cuda',
+        'source': 'socceraction_tpu_torch/csrc/segment_sum.cu',
+        'replaces': 'socceraction_tpu/ops/segment.py:94',
+        'launches': seg_launches,
+        'max_abs_err': max(rec['max_abs_err'] for rec in seg_checks),
+        # the 192 x 125 payoff shape, the one every matrix-free sweep runs
+        'ms': sweep['ms'],
+        'plain_ms': sweep['plain_ms'],
+        'bound_ms': sweep['bound_ms'],
+        'bound_by': sweep['bound_by'],
+        'library_ms': sweep['library_ms'],
+        'shapes': [
+            {k: rec[k] for k in ('shape', 'segments', 'ms', 'plain_ms', 'library_ms', 'bound_ms')}
+            for rec in seg_checks
+        ],
     }]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({

@@ -4,6 +4,7 @@ from .batch import (
     ActionBatch,
     bucket_games,
     pack_actions,
+    pack_row_values,
     pad_batch_games,
     pad_length,
     unpack_values,
@@ -14,6 +15,7 @@ __all__ = [
     'ActionBatch',
     'bucket_games',
     'pack_actions',
+    'pack_row_values',
     'pad_batch_games',
     'pad_length',
     'synthetic_batch',

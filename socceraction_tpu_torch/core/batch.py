@@ -26,6 +26,7 @@ __all__ = [
     'ActionBatch',
     'bucket_games',
     'pack_actions',
+    'pack_row_values',
     'pad_batch_games',
     'pad_length',
     'unpack_values',
@@ -203,6 +204,28 @@ def pad_batch_games(batch: ActionBatch, n_games: int) -> ActionBatch:
         return torch.cat([a, tail])
 
     return ActionBatch(**{n: pad(n, t) for n, t in batch.fields().items()})
+
+
+def pack_row_values(values: Any, batch: ActionBatch, *, fill: Any = 0) -> np.ndarray:
+    """Scatter per-row values into a batch's ``(G, A)`` layout, as numpy.
+
+    The inverse of :func:`unpack_values`: ``values`` has one entry per
+    valid action, in the positional row order of the packed frame, and
+    comes back as a ``(G, A)`` host array with ``fill`` in every padding
+    slot (grouped xT uses ``-1``, the "in no group" id every kernel drops).
+    The layout is read from ``batch.row_index``.
+    """
+    vals = np.asarray(values)
+    ri = batch.row_index.cpu().numpy()
+    valid = ri >= 0
+    if vals.shape[:1] != (int(valid.sum()),):
+        raise ValueError(
+            f'got {vals.shape[0]} values for a batch of {int(valid.sum())} '
+            'valid actions'
+        )
+    out = np.full(ri.shape, fill, dtype=vals.dtype)
+    out[valid] = vals[ri[valid]]
+    return out
 
 
 def unpack_values(values: torch.Tensor, batch: ActionBatch) -> np.ndarray:

@@ -18,10 +18,11 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ['BUILD_DIR', 'build_log', 'build_seconds', 'load_library']
+__all__ = ['BUILD_DIR', 'build_log', 'build_seconds', 'load_libraries', 'load_library']
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / 'csrc'
@@ -34,6 +35,8 @@ _NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+#: one lock per library, so different libraries build at the same time
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 _paths: Dict[str, Path] = {}
 #: Seconds each library took to build in this process (0.0 when it was
@@ -57,6 +60,8 @@ def load_library(name: str) -> ctypes.CDLL:
     raises with the compiler's output.
     """
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
@@ -89,6 +94,13 @@ def load_library(name: str) -> ctypes.CDLL:
         _paths[name] = so
         lib = _loaded[name] = ctypes.CDLL(str(so))
         return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build and load several libraries at once: one ``nvcc`` per source,
+    all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load_library, names)))
 
 
 def build_log(name: str) -> str:

@@ -51,6 +51,7 @@ actiontypes: List[str] = [
 ]
 
 PASS = actiontypes.index('pass')
+CROSS = actiontypes.index('cross')
 DRIBBLE = actiontypes.index('dribble')
 SHOT = actiontypes.index('shot')
 SHOT_PENALTY = actiontypes.index('shot_penalty')

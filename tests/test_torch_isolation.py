@@ -5,7 +5,8 @@
   The port's own name starts with ``socceraction_tpu``, so the check
   matches top-level module names exactly, never by prefix.
 - The modules ``chip_smoke.py`` runs import with those packages, and
-  ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked.
+  ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked; its xT
+  phase also runs so, at a tiny size on the CPU.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -25,7 +26,10 @@ import torch
 from socceraction_tpu_torch import convert
 from socceraction_tpu_torch.core import batch as tbatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
+from socceraction_tpu_torch import xthreat
+from socceraction_tpu_torch.device import resolve_device
 from socceraction_tpu_torch.ml.mlp import MLPClassifier
+from socceraction_tpu_torch.ops import segment
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -75,6 +79,12 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 import socceraction_tpu_torch.vaep.base, socceraction_tpu_torch.convert
 import socceraction_tpu_torch.ops.cuda_build
+import socceraction_tpu_torch.xthreat, socceraction_tpu_torch.ops.xt
+import socceraction_tpu_torch.ops.segment
+# the smoke's xT phase, at a tiny size on the CPU
+from socceraction_tpu_torch.core.synthetic import synthetic_batch
+fits = chip_smoke.xt_fits(synthetic_batch(4, 128, seed=2, device='cpu'), 'cpu')
+chip_smoke.compare_fits(fits, fits)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -113,6 +123,11 @@ ENTRY_POINTS = {
     'MLPClassifier.load': lambda: MLPClassifier.load('no-such-head.npz'),
     'mlp_from_jax_params': lambda: convert.mlp_from_jax_params(_params(), np.zeros(4), np.ones(4)),
     'ActionBatch.to': lambda: synthetic_batch(1, 128, device='cpu').to('cuda'),
+    'ExpectedThreat().fit': lambda: xthreat.ExpectedThreat().fit(synthetic_batch(1, 128, device='cpu')),
+    'xthreat.load_model': lambda: xthreat.load_model('no-such-surface.json'),
+    'segment_sum': lambda: segment.segment_sum(
+        torch.ones(3, device=resolve_device(None)), torch.zeros(3, dtype=torch.int32), 2
+    ),
 }
 
 
@@ -133,6 +148,14 @@ def test_default_device_is_the_current_card(monkeypatch):
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ENTRY_POINTS[entry]()
+
+
+def test_segment_sum_has_no_fallback_for_other_devices():
+    """Only CPU tensors take the plain version: another device raises."""
+    with pytest.raises(ValueError, match='no kernel'):
+        segment.segment_sum(
+            torch.ones(3, device='meta'), torch.zeros(3, dtype=torch.int32, device='meta'), 2
+        )
 
 
 def test_chip_smoke_fails_without_a_gpu():
