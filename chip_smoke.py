@@ -28,7 +28,18 @@ exits non-zero:
    launches, iterations, residual and wall time, and a profile of the
    192 x 125 fit; then the same fits on the CPU through the port's plain
    versions, which the card's must match (grids 1e-5, counts and
-   probabilities 1e-6, iterations within one, ratings 1e-5).
+   probabilities 1e-6, iterations within one, ratings 1e-5);
+6. the training path: B1 at the training shape (8192 rows, one 128-wide
+   head) against its plain version, with the backward's parts timed;
+   ``VAEP().fit_packed`` on 512 games x 1664 actions with (128, 128) heads,
+   minibatches of 8192 and 3 epochs (the JAX package's bench
+   configuration), its per-head epochs, losses, health and launch counts,
+   and the trained model's ``rate_batch`` against its reference; the same
+   fit on 64 games, on the card and on the CPU, held together (split,
+   statistics, first-step gradient, every parameter within 1e-4), then
+   fitted four more times on the card to show the fit reproducible, each
+   repeat held to the CPU's within 1e-4; and a profile of one training
+   epoch.
 
 Before the last line it prints one JSON object of kernel records
 (``{"kernels": [...]}``); the last line is
@@ -50,6 +61,7 @@ from socceraction_tpu_torch.convert import mlp_from_jax_params
 from socceraction_tpu_torch.core.batch import ActionBatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch.device import DeviceLike
+from socceraction_tpu_torch.ml import mlp as mlp_mod
 from socceraction_tpu_torch.ops import cuda_build
 from socceraction_tpu_torch.ops import fused as fused_ops
 from socceraction_tpu_torch.ops import gather_matmul as gm
@@ -57,7 +69,7 @@ from socceraction_tpu_torch.ops import segment as seg
 from socceraction_tpu_torch.ops import xt as xtops
 from socceraction_tpu_torch.ops.features import compute_features
 from socceraction_tpu_torch.ops.fused import train_layout
-from socceraction_tpu_torch.vaep.base import VAEP, XFNS_DEFAULT
+from socceraction_tpu_torch.vaep.base import VAEP, XFNS_DEFAULT, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 
 #: The serving batch: 512 games of 1664 actions (851,968 rows).
@@ -76,6 +88,15 @@ XT_GAMES = 3072
 XT_GROUPS = 20
 #: Kernels this script builds.
 KERNELS = ('gather_matmul', 'segment_sum')
+#: The JAX package's bench training configuration: (128, 128) heads,
+#: minibatches of 8192, 3 epochs, on the serving batch.
+TRAIN_PARAMS = {'hidden': HIDDEN, 'batch_size': 8192, 'max_epochs': 3}
+#: The card-against-CPU fit: 64 games (79,872 training rows, so the last
+#: minibatch wraps) at the JAX package's training-parity rate.
+PARITY_GAMES = 64
+PARITY_PARAMS = {**TRAIN_PARAMS, 'max_epochs': 2, 'learning_rate': 3e-4}
+#: Further card fits of the parity batch, each compared with the first.
+PARITY_REPEATS = 4
 
 
 def card_identity() -> str:
@@ -310,7 +331,8 @@ def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
 
     ``torch.profiler`` with CUDA activity; kernel rows are the events on
     the device. Returns the wall milliseconds under the profiler, the
-    summed kernel milliseconds and the ``top`` kernels by device time.
+    summed kernel milliseconds and launches, and the ``top`` kernels by
+    device time.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -333,6 +355,7 @@ def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
     return {
         'wall_ms': wall_ms,
         'kernel_ms': sum(r[0] for r in rows),
+        'kernel_calls': sum(r[1] for r in rows),
         'top': [{'ms': ms, 'calls': n, 'kernel': key} for ms, n, key in rows[:top]],
     }
 
@@ -546,6 +569,215 @@ def xt_summary(fit: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+# -- the training path -----------------------------------------------------------
+
+
+def check_training_first_layer(device: torch.device) -> Dict[str, Any]:
+    """B1 at the training shape (one minibatch of 8192 rows, one 128-wide
+    head) against its plain version, and the backward's parts, each timed
+    as a replayed graph (phase 6)."""
+    n, h, r = TRAIN_PARAMS['batch_size'], HIDDEN[0], 552
+    ops = first_layer_operands(device, torch.float32, n, seed=4, h=h)
+    tables, w, _, ids, x = ops
+    got = gm.fused_first_layer_quant(*ops)
+    want = gm.fused_first_layer_reference(*ops)
+    torch.cuda.synchronize()
+    # as at the serving shape: 3xTF32 on the tensor cores against an f32 product
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    g = torch.randn((n, h), generator=torch.Generator().manual_seed(5)).to(device)
+    k = ids.shape[1]
+    rows_bytes = n * h * 4 + n * 4 + r * h * 4
+    parts = {
+        # one table's cotangent; a step runs k of them
+        'segment_sum_rows': graph_ms(lambda: seg.segment_sum_rows(g, ids[:, 0], r), reps=50),
+        'd_w = x.T @ g': graph_ms(lambda: x.t() @ g, reps=50),
+        'd_bias = g.sum(0)': graph_ms(lambda: g.sum(0), reps=50),
+        # not run in training (x_dense is data), timed for the record
+        'd_x = g @ W.T': graph_ms(lambda: g @ w.t(), reps=50),
+    }
+    return {
+        'shape': {'n': n, 'k': k, 'r': r, 'h': h, 'd': x.shape[1], 'dtype': 'float32'},
+        'max_abs_err': float((got - want).abs().max()),
+        'ms': graph_ms(lambda: gm.fused_first_layer_quant(*ops), reps=50),
+        'plain_ms': graph_ms(lambda: gm.fused_first_layer_reference(*ops), reps=20),
+        **first_layer_bound(ops),
+        'backward_ms': parts,
+        'backward_step_ms': k * parts['segment_sum_rows'] + parts['d_w = x.T @ g'] + parts['d_bias = g.sum(0)'],
+        'segment_sum_rows_bytes_bound_ms': rows_bytes / PEAK_BYTES_PER_S * 1e3,
+    }
+
+
+def fit_vaep(batch: ActionBatch, params: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """``VAEP(device).fit_packed(batch, tree_params=params, random_state=0)``
+    with both kernels' counts zeroed just before and read just after,
+    synchronized, with its wall time and a record per head (phase 6)."""
+    dev = batch.device
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    model = VAEP(device=device).fit_packed(batch, tree_params=params, random_state=0)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {
+        'gather_matmul': gm.fused_first_layer_quant.launches,
+        'segment_sum': seg.segment_sum.launches,
+    }
+    n_train = len(split_rows(batch.n_games * batch.max_actions, 0.25, 0)[0])
+    steps = -(-n_train // params['batch_size'])
+    heads = {}
+    for col, clf in model._models.items():
+        health = clf.train_health_
+        heads[col] = {
+            'epochs': health['epochs'],
+            'steps_per_epoch': steps,
+            'epoch_s': health['epoch_seconds'],
+            'trained_actions_per_s': [n_train / sec for sec in health['epoch_seconds']],
+            'epoch_losses': health['epoch_losses'],
+            'val_losses': health['val_losses'],
+            'health': {k: v for k, v in health.items()
+                       if k not in ('epoch_seconds', 'epoch_losses', 'val_losses')},
+        }
+    return {'model': model, 'batch': batch, 'wall_s': wall, 'launches': launches,
+            'n_train': n_train, 'steps_per_epoch': steps, 'heads': heads}
+
+
+def check_fit(run: Dict[str, Any], params: Dict[str, Any]) -> None:
+    """Raise unless every head trained with finite health and a loss that
+    fell from the first epoch to the last, and, on the card, B1 launched on
+    every step and B2 for the statistics."""
+    steps = 0
+    for col, head in run['heads'].items():
+        health, losses = head['health'], head['epoch_losses']
+        if not health['finite']:
+            raise RuntimeError(f'head {col!r} trained to non-finite health: {health}')
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f'head {col!r}: the training loss did not fall: {losses}')
+        steps += head['epochs'] * head['steps_per_epoch']
+    if run['batch'].device.type != 'cuda':
+        return  # the plain versions launch nothing
+    if run['launches']['gather_matmul'] < steps:
+        raise RuntimeError(
+            f"fit_packed launched gather_matmul {run['launches']['gather_matmul']} times "
+            f'for {steps} training steps'
+        )
+    # k histograms into the combined ids, then k per one-hot block
+    if run['launches']['segment_sum'] < 15:
+        raise RuntimeError(f"the statistics pass launched segment_sum {run['launches']['segment_sum']} times, not 15")
+
+
+def head_trainer(model: VAEP, data: Any, params: Dict[str, Any]) -> Tuple[Any, Dict[str, torch.Tensor], Any]:
+    """A fresh scores head's epoch trainer, the rows it trains on and its
+    module, with the fitted model's statistics: a classifier of the same
+    seed starts from the same weights and draws the same permutations."""
+    clf = mlp_mod.MLPClassifier(**params, device=model.device)
+    head = model._models['scores']
+    module, rows, loss_fn, _, _, _ = clf._packed_problem(
+        (data.train, data.layout), data.y_train['scores'], names=model.xfns,
+        k=model.nb_prev_actions, mean=head.mean_, std=head.std_,
+    )
+    module.requires_grad_(True)
+    trainer = mlp_mod._EpochTrainer(
+        loss_fn, list(module.parameters()), int(data.train.weight.shape[0]),
+        clf.batch_size, clf.seed, clf.learning_rate,
+    )
+    return trainer, rows, module
+
+
+def first_step_gradients(model: VAEP, data: Any, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The gradient of the scores head's first training step."""
+    trainer, rows, module = head_trainer(model, data, params)
+    idx = trainer._permutation(0)[trainer.slot_pos[: trainer.batch_size]]
+    loss = trainer.loss_fn({name: t.index_select(0, idx) for name, t in rows.items()},
+                           trainer.slot_weight[0])
+    grads = torch.autograd.grad(loss, trainer.params)
+    return {name: _np(g) for (name, _), g in zip(module.named_parameters(), grads)}
+
+
+def max_param_gap(a: VAEP, b: VAEP, col: str) -> float:
+    """The largest difference of one head's parameters in two models."""
+    return max(
+        float((p - q.to(p.device)).abs().max())
+        for p, q in zip(a._models[col].module.parameters(), b._models[col].module.parameters())
+    )
+
+
+def compare_training(card: Dict[str, Any], cpu: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """Hold the card's fit to the CPU's on the same batch; raise on any miss.
+
+    Splits identical (rows, ids, weights, labels; the packed dense columns
+    within 1e-5, the feature kernels' trigonometry rounds apart on the
+    card); statistics with std within rtol 1e-6 and the mean within 1e-6
+    of max(|mean|, std); the first step's gradient within 1e-5 of its
+    largest entry per parameter; every trained parameter within 1e-4, the
+    JAX package's own training-parity bound.
+    """
+    a, b = card['model'], cpu['model']
+    batch_a, batch_b = card['batch'], cpu['batch']
+    da = a.training_set(batch_a, 0.25, 0)
+    db = b.training_set(batch_b, 0.25, 0)
+    if not (np.array_equal(da.train_rows, db.train_rows) and np.array_equal(da.val_rows, db.val_rows)):
+        raise RuntimeError('the card and the CPU split the rows differently')
+    for name in ('combo_ids', 'weight'):
+        if not np.array_equal(_np(getattr(da.train, name)), _np(getattr(db.train, name))):
+            raise RuntimeError(f'packed training {name} differ between the card and the CPU')
+    for col in da.y_train:
+        if not np.array_equal(_np(da.y_train[col]), _np(db.y_train[col])):
+            raise RuntimeError(f'{col} labels differ between the card and the CPU')
+    x_err = float(np.abs(_np(da.train.x_dense) - _np(db.train.x_dense)).max())
+    report: Dict[str, Any] = {'x_dense': x_err}
+    if not x_err <= 1e-5:
+        raise RuntimeError(f'packed dense columns differ by {x_err}')
+    for col in a._models:
+        ha, hb = a._models[col], b._models[col]
+        mean_a, mean_b = _np(ha.mean_).astype(np.float64), _np(hb.mean_).astype(np.float64)
+        std_a, std_b = _np(ha.std_).astype(np.float64), _np(hb.std_).astype(np.float64)
+        std_rel = float((np.abs(std_a - std_b) / std_b).max())
+        mean_rel = float((np.abs(mean_a - mean_b) / np.maximum(np.abs(mean_b), std_b)).max())
+        if not (std_rel <= 1e-6 and mean_rel <= 1e-6):
+            raise RuntimeError(f'{col} statistics: std {std_rel}, mean {mean_rel} relative')
+        gaps = {
+            name: float((p - q.to(p.device)).abs().max())
+            for (name, p), q in zip(ha.module.named_parameters(), hb.module.parameters())
+        }
+        worst = max(gaps, key=gaps.get)
+        # where in the first layer: the feature column, its kind and its
+        # mean (a one-hot column's activation frequency)
+        w_gap = (ha.module.Dense_0.weight - hb.module.Dense_0.weight.to(ha.device)).abs()
+        unit, column = divmod(int(w_gap.argmax()), w_gap.shape[1])
+        kind = next(kd for _, kd, off, width in da.layout.spans if off <= column < off + width)
+        report[col] = {
+            'std_rel': std_rel, 'mean_rel': mean_rel, 'param_gap': gaps[worst],
+            'param_gap_at': worst, 'param_gaps': gaps,
+            'dense_0_gap_at': {'unit': unit, 'column': column, 'kind': kind,
+                               'column_mean': float(mean_b[column])},
+        }
+        if not gaps[worst] <= 1e-4:
+            raise RuntimeError(f'{col}: card and CPU parameters differ by {gaps[worst]} at {worst}: {gaps}')
+    ga, gb = first_step_gradients(a, da, params), first_step_gradients(b, db, params)
+    grad_rel = {
+        name: float(np.abs(ga[name] - gb[name]).max() / max(np.abs(gb[name]).max(), 1e-30))
+        for name in ga
+    }
+    report['first_step_grad_rel'] = grad_rel
+    if not max(grad_rel.values()) <= 1e-5:
+        raise RuntimeError(f'first-step gradients differ: {grad_rel}')
+    return report
+
+
+def profile_epoch(model: VAEP, batch: ActionBatch, params: Dict[str, Any]) -> Dict[str, Any]:
+    """``torch.profiler`` over one training epoch of a fresh scores head on
+    the batch's training rows (no eval), after one warm-up epoch."""
+    trainer, rows, _ = head_trainer(model, model.training_set(batch, 0.25, 0), params)
+    state = mlp_mod.AdamState.zeros(trainer.params)
+    state, _, _ = trainer.run(state, 0, rows)
+    prof = device_breakdown(lambda: trainer.run(state, 1, rows), top=12)
+    prof['steps'] = trainer.steps
+    prof['idle_share'] = 1.0 - prof['kernel_ms'] / prof['wall_ms']
+    return prof
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -658,6 +890,71 @@ def main() -> int:
     for name, err in compare_fits(card_fits, cpu_fits).items():
         print(f'xT path: card vs CPU: {name}: {json.dumps(err)}')
 
+    del xt_batch, card_fits, warm, cpu_fits
+    torch.cuda.empty_cache()
+
+    # -- the training path -----------------------------------------------------
+    train_b1 = check_training_first_layer(device)
+    print(f'kernel gather_matmul at the training shape vs plain ({card}): {json.dumps(train_b1)}')
+    batch = synthetic_batch(GAMES, ACTIONS, seed=3)
+    run = fit_vaep(batch, TRAIN_PARAMS)
+    check_fit(run, TRAIN_PARAMS)
+    print(
+        f"training path ({batch.total_actions} actions, {run['n_train']} training rows, "
+        f"{json.dumps(TRAIN_PARAMS)}, card): fit_packed {run['wall_s']:.3f} s, "
+        f"launches {json.dumps(run['launches'])} ({card})"
+    )
+    for col, head in run['heads'].items():
+        print(f'training path: head {col}: {json.dumps(head)}')
+    model = run['model']
+    values = model.rate_batch(batch)
+    ref = model.rate_batch_reference(batch)
+    err = float((values - ref).abs().max())
+    print(f'training path: trained model, max |rate_batch - rate_batch_reference| = {err:.3e} (limit 1e-5)')
+    if not (bool(torch.isfinite(values).all()) and err <= 1e-5):
+        raise RuntimeError(f'the trained model rates {err} from its reference')
+    del values, ref
+    prof = profile_epoch(model, batch, TRAIN_PARAMS)
+    print(
+        f"profile: one training epoch of one head ({prof['steps']} steps of "
+        f"{TRAIN_PARAMS['batch_size']} rows), {prof['wall_ms']:.3f} ms wall under the profiler, "
+        f"{prof['kernel_ms']:.3f} ms of kernels in {prof['kernel_calls']} launches, device idle "
+        f"{prof['idle_share']:.3f} ({card})"
+    )
+    for row in prof['top']:
+        print(f'  profile: {json.dumps(row)}')
+    del model, batch, run['model']
+    torch.cuda.empty_cache()
+
+    pbatch = synthetic_batch(PARITY_GAMES, ACTIONS, seed=5)
+    card_run = fit_vaep(pbatch, PARITY_PARAMS)
+    check_fit(card_run, PARITY_PARAMS)
+    t0 = time.perf_counter()
+    cpu_run = fit_vaep(pbatch.to('cpu'), PARITY_PARAMS, 'cpu')
+    print(f'training path (CPU, plain versions): fit_packed in {time.perf_counter() - t0:.1f} s')
+    check_fit(cpu_run, PARITY_PARAMS)
+    parity = compare_training(card_run, cpu_run, PARITY_PARAMS)
+    print(
+        f"training path: card vs CPU ({PARITY_GAMES} games, {card_run['n_train']} training rows, "
+        f"{json.dumps(PARITY_PARAMS)}): {json.dumps(parity)}"
+    )
+    # the card's fit is reproducible (no atomics in the training step):
+    # the same fit is repeated, and every repeat held to the CPU's too
+    gaps = {col: {'card_vs_cpu': [parity[col]['param_gap']], 'card_vs_card': []}
+            for col in card_run['model']._models}
+    for _ in range(PARITY_REPEATS):
+        repeat = fit_vaep(pbatch, PARITY_PARAMS)['model']
+        for col, g in gaps.items():
+            g['card_vs_cpu'].append(max_param_gap(repeat, cpu_run['model'], col))
+            g['card_vs_card'].append(max_param_gap(repeat, card_run['model'], col))
+            if not g['card_vs_cpu'][-1] <= 1e-4:
+                raise RuntimeError(f"{col}: a repeated card fit is {g['card_vs_cpu'][-1]} from the CPU's")
+        del repeat
+    print(
+        f'training path: the card fit {1 + PARITY_REPEATS} times, max parameter gap per fit '
+        f'(the first fit is card_vs_card\'s reference): {json.dumps(gaps)}'
+    )
+
     f32 = checks[torch.float32]
     sweep = seg_checks[1]
     kernels = [{
@@ -665,8 +962,14 @@ def main() -> int:
         'route': 'cuda',
         'source': 'socceraction_tpu_torch/csrc/gather_matmul.cu',
         'replaces': 'socceraction_tpu/ops/gather_matmul.py:117',
-        'launches': launches['gather_matmul'],
-        'max_abs_err': max(rec['max_abs_err'] for rec in checks.values()),
+        'launches': launches['gather_matmul'] + run['launches']['gather_matmul'],
+        'launches_by_path': {
+            'rate_batch': launches['gather_matmul'],
+            'fit_packed': run['launches']['gather_matmul'],
+        },
+        'max_abs_err': max(
+            max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err']
+        ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
         'bound_ms': f32['bound_ms'],
@@ -681,13 +984,18 @@ def main() -> int:
             for rec in checks.values()
         ],
         'main_path_operands': {k: main_b1[k] for k in ('shape', 'distinct_ids', 'ms', 'bound_ms')},
+        'training_shape': {k: train_b1[k] for k in (
+            'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'backward_ms',
+            'backward_step_ms',
+        )},
         'ptxas': cuda_build.ptxas_report('gather_matmul'),
     }, {
         'name': 'segment_sum',
         'route': 'cuda',
         'source': 'socceraction_tpu_torch/csrc/segment_sum.cu',
         'replaces': 'socceraction_tpu/ops/segment.py:94',
-        'launches': seg_launches,
+        'launches': seg_launches + run['launches']['segment_sum'],
+        'launches_by_path': {'xT fits': seg_launches, 'fit_packed': run['launches']['segment_sum']},
         'max_abs_err': max(rec['max_abs_err'] for rec in seg_checks),
         # the 192 x 125 payoff shape, the one every matrix-free sweep runs
         'ms': sweep['ms'],

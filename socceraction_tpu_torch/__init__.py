@@ -9,10 +9,13 @@ every constant it needs. Entry points (:class:`~.vaep.base.VAEP`,
 run on ``cuda`` unless the caller passes ``device='cpu'``, and raise when
 no GPU is present and the CPU was not asked for.
 
-Ported so far: VAEP serving (``VAEP.rate_batch`` on the fused fold), with
-the fused gather + matmul first layer as a hand-written CUDA kernel
-(``csrc/gather_matmul.cu``); and xT (``xthreat.ExpectedThreat``, dense and
-matrix-free, single grids and fleets), with the segment sum under every
-count and matrix-free sweep as a hand-written CUDA kernel
+Ported so far: VAEP serving (``VAEP.rate_batch`` on the fused fold) and
+training (``VAEP.fit_packed``, both MLP heads with Adam on the fused
+fold, ``save_model`` in the JAX package's checkpoint format), with the
+fused gather + matmul first layer as a hand-written CUDA kernel
+(``csrc/gather_matmul.cu``) in serving and in every training step; and
+xT (``xthreat.ExpectedThreat``, dense and matrix-free, single grids and
+fleets), with the segment sum under every count, matrix-free sweep and
+training statistics pass as a hand-written CUDA kernel
 (``csrc/segment_sum.cu``).
 """

@@ -1,11 +1,14 @@
-"""Carry weights from the JAX package's checkpoints into the port.
+"""Carry weights between the JAX package's checkpoints and the port.
 
 The JAX package stores an MLP head as a flax parameter pytree,
 ``{'params': {'Dense_i': {'kernel': (in, out), 'bias': (out,)}}}``,
 serialized with flax's msgpack encoding. :func:`params_from_msgpack`
-decodes that encoding without flax, and :func:`mlp_from_jax_params` builds
-the port's :class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier` from the
-numpy pytree. ``msgpack`` is imported inside the decoder only.
+decodes that encoding without flax and :func:`params_to_msgpack` writes
+it; :func:`module_from_jax_params` and :func:`mlp_from_jax_params` build
+the port's :class:`~socceraction_tpu_torch.ml.mlp.MLP` and
+:class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier` from the numpy
+pytree, and :func:`jax_params_from_mlp` gives it back. ``msgpack`` is
+imported inside the two codec functions only.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import torch
 from .device import DeviceLike, resolve_device
 from .ml.mlp import MLP, MLPClassifier
 
-__all__ = ['mlp_from_jax_params', 'params_from_msgpack']
+__all__ = [
+    'jax_params_from_mlp',
+    'mlp_from_jax_params',
+    'module_from_jax_params',
+    'params_from_msgpack',
+    'params_to_msgpack',
+]
 
 #: flax's msgpack extension type of an ndarray leaf
 #: (``flax.serialization._MsgpackExtType.ndarray``).
@@ -55,22 +64,33 @@ def params_from_msgpack(raw: bytes) -> Dict[str, Any]:
     return tree
 
 
-def mlp_from_jax_params(
-    params: Mapping[str, Any],
-    mean: Any,
-    std: Any,
-    *,
-    quantize: str = 'none',
-    device: DeviceLike = None,
-) -> MLPClassifier:
-    """The port's classifier from a flax ``_MLP`` pytree of numpy arrays.
+def params_to_msgpack(tree: Mapping[str, Any]) -> bytes:
+    """Encode a nested dict of numpy arrays as flax's ``to_bytes`` does.
+
+    Keys are written in the dict's order and each array leaf as
+    ``ExtType(1, packb((shape, dtype name, C-order bytes)))``, so the JAX
+    package's ``serialization.from_bytes`` reads the result.
+    """
+    import msgpack
+
+    def encode(node: Any) -> Any:
+        if isinstance(node, Mapping):
+            return {str(key): encode(value) for key, value in node.items()}
+        arr = np.asarray(node)
+        payload = msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes('C')), use_bin_type=True)
+        return msgpack.ExtType(_EXT_NDARRAY, payload)
+
+    return msgpack.packb(encode(tree), strict_types=True)
+
+
+def module_from_jax_params(params: Mapping[str, Any]) -> MLP:
+    """The port's :class:`MLP`, on the CPU, from a flax ``_MLP`` pytree.
 
     Flax stores ``kernel`` as ``(in, out)``; ``nn.Linear.weight`` is
     ``(out, in)``, so each kernel is transposed. Layer widths come from the
     kernels' shapes and must chain (``Dense_i`` out == ``Dense_{i+1}`` in,
     one output unit at the end).
     """
-    dev = resolve_device(device)
     layers = params['params']
     n_layers = len(layers)
     names = [f'Dense_{i}' for i in range(n_layers)]
@@ -97,8 +117,37 @@ def mlp_from_jax_params(
             layer = getattr(module, name)
             layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(kern.T)))
             layer.bias.copy_(torch.from_numpy(b))
-    return MLPClassifier(
-        module.to(dev),
+    return module
+
+
+def jax_params_from_mlp(module: MLP) -> Dict[str, Any]:
+    """The flax ``_MLP`` pytree of numpy f32 arrays of a port's
+    :class:`MLP`, kernels transposed back to ``(in, out)``."""
+    # flax's init orders each layer's leaves bias, kernel: the same order
+    # gives the same msgpack bytes
+    return {'params': {
+        f'Dense_{i}': {
+            'bias': layer.bias.detach().cpu().numpy().astype(np.float32),
+            'kernel': np.ascontiguousarray(layer.weight.detach().cpu().numpy().T, dtype=np.float32),
+        }
+        for i, layer in enumerate(module.layers())
+    }}
+
+
+def mlp_from_jax_params(
+    params: Mapping[str, Any],
+    mean: Any,
+    std: Any,
+    *,
+    quantize: str = 'none',
+    device: DeviceLike = None,
+) -> MLPClassifier:
+    """The port's fitted classifier from a flax ``_MLP`` pytree of numpy
+    arrays and its statistics, on ``device``
+    (:func:`module_from_jax_params`)."""
+    dev = resolve_device(device)
+    return MLPClassifier.from_module(
+        module_from_jax_params(params).to(dev),
         torch.as_tensor(np.asarray(mean, dtype=np.float32), device=dev),
         torch.as_tensor(np.asarray(std, dtype=np.float32), device=dev),
         quantize=quantize,

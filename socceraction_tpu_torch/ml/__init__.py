@@ -1,5 +1,5 @@
-"""Probability heads."""
+"""Probability heads and their learners."""
 
-from .mlp import MLP, MLPClassifier
+from .mlp import MLP, AdamState, MLPClassifier
 
-__all__ = ['MLP', 'MLPClassifier']
+__all__ = ['AdamState', 'MLP', 'MLPClassifier']

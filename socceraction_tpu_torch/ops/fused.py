@@ -1,6 +1,6 @@
-"""Fused first-layer MLP serving: one-hot features as combined-table gathers.
+"""Fused first-layer MLP: one-hot features as combined-table gathers.
 
-Port of the serving half of ``socceraction_tpu/ops/fused.py``. With the
+Port of ``socceraction_tpu/ops/fused.py``. With the
 default transformers, 513 of the 568 feature columns at ``k = 3`` are
 one-hots, and every one-hot id of a game state is a function of its
 (type, result, bodypart) triple. So each state's one-hot blocks fold into
@@ -14,10 +14,19 @@ into the weights (``W/σ``) and the bias (``b - μ·W/σ``). Both heads of a
 VAEP model stack their first layers to width ``H_a + H_b``, so one gather
 per state and one dense product serve both.
 
-The fold is built once per model (:func:`prepare_pair_fold`), optionally
-quantized (:mod:`.quant`), and every dispatch goes through the fused
-gather + matmul first layer (:mod:`.gather_matmul`): on the card that is
-the CUDA kernel, in every quantize mode.
+The serving fold is built once per model (:func:`prepare_pair_fold`),
+optionally quantized (:mod:`.quant`), and every dispatch goes through the
+fused gather + matmul first layer (:mod:`.gather_matmul`): on the card
+that is the CUDA kernel, in every quantize mode.
+
+Training keeps the batch packed too (:func:`build_train_states`): the raw
+dense columns, the per-state combined ids and a validity weight per row.
+:func:`fused_train_logits` re-folds the combined tables from the master
+``Dense_0`` weights every step, so gradients reach the ordinary
+parameters, and runs the differentiable first layer, whose forward is the
+same kernel. :func:`packed_feature_stats` standardizes without the
+feature matrix: a one-hot column's moments are a function of its
+activation frequency, read off segment-sum histograms of the ids.
 """
 
 from __future__ import annotations
@@ -29,22 +38,31 @@ import torch
 from ..core.batch import ActionBatch
 from ..spadl import config as spadlconfig
 from .features import KERNELS, _States, kernel_width
-from .gather_matmul import fused_first_layer_quant
+from .gather_matmul import fused_first_layer, fused_first_layer_quant
 from .quant import (
     QuantizedArray,
     check_quantize_mode,
     dequantize,
+    fake_quant,
     quantize_columns,
     quantize_with_scale,
 )
+from .segment import segment_sum, segment_sum_rows
 
 __all__ = [
     'FusedRegistry',
     'PreparedPair',
     'STANDARD_REGISTRY',
     'TrainLayout',
+    'TrainStates',
+    'build_train_states',
+    'concat_train_states',
+    'fused_train_logits',
+    'packed_feature_stats',
     'pair_probs_prepared',
     'prepare_pair_fold',
+    'table_lookup',
+    'take_train_states',
     'train_layout',
 ]
 
@@ -178,16 +196,30 @@ def _dense_subkernel(Wk: torch.Tensor, dense_spans: List[Tuple[int, int]]) -> to
     return torch.cat([Wk[off : off + width] for off, width in dense_spans])
 
 
-def _hidden_chain(mlp: Any, h: torch.Tensor) -> torch.Tensor:
+def _hidden_chain(
+    mlp: Any, h: torch.Tensor, hidden_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
     """relu + the remaining layers of ``mlp`` on first-layer activations
-    -> logits ``h.shape[:-1]``."""
+    -> logits ``h.shape[:-1]``.
+
+    ``hidden_dtype`` (e.g. ``torch.bfloat16``) casts the post-relu hidden
+    pipeline, activations and hidden-layer weights, to a narrower type,
+    rounding after each product and each bias add as the JAX package's
+    ``x @ kern + bias`` does; the logit head goes back to the type of ``h``.
+    """
     n_hidden = len(mlp.hidden)
     if n_hidden == 0:
         return h[..., 0]  # Dense_0 is the one-unit output layer
     x = torch.relu(h)
+    if hidden_dtype is None:
+        for li in range(1, n_hidden):
+            x = torch.relu(getattr(mlp, f'Dense_{li}')(x))
+        return getattr(mlp, f'Dense_{n_hidden}')(x)[..., 0]
+    x = x.to(hidden_dtype)
     for li in range(1, n_hidden):
-        x = torch.relu(getattr(mlp, f'Dense_{li}')(x))
-    return getattr(mlp, f'Dense_{n_hidden}')(x)[..., 0]
+        d = getattr(mlp, f'Dense_{li}')
+        x = torch.relu(x @ d.weight.to(hidden_dtype).t() + d.bias.to(hidden_dtype))
+    return getattr(mlp, f'Dense_{n_hidden}')(x.to(h.dtype))[..., 0]
 
 
 class PreparedPair(NamedTuple):
@@ -327,3 +359,170 @@ def pair_probs_prepared(
     a = _hidden_chain(clf_a.module, h[..., : prep.h_a_width])
     b = _hidden_chain(clf_b.module, h[..., prep.h_a_width :])
     return torch.sigmoid(a), torch.sigmoid(b)
+
+
+# -- training ------------------------------------------------------------------
+
+
+class TrainStates(NamedTuple):
+    """Packed per-action training rows, flattened over ``(G, A)``.
+
+    ``x_dense`` holds the raw (unstandardized) dense columns:
+    standardization folds into the weights at apply time, as in serving.
+    Padding rows carry ``weight == 0`` and count in no loss.
+    """
+
+    x_dense: torch.Tensor  # (N, D) f32 raw dense feature columns
+    combo_ids: torch.Tensor  # (N, k) int32 combined categorical id per state
+    weight: torch.Tensor  # (N,) f32 validity weight (0 on padding rows)
+
+
+def build_train_states(
+    batch: ActionBatch,
+    *,
+    names: Sequence[str],
+    k: int,
+    registry: FusedRegistry = STANDARD_REGISTRY,
+) -> Tuple[TrainStates, TrainLayout]:
+    """Pack a batch into its training representation and layout.
+
+    The dense sub-tensor (55 of the 568 columns at the defaults), the
+    combined ids and the validity weights; the feature matrix is never
+    formed.
+    """
+    layout = train_layout(names, k, registry)
+    s = registry.make_states(batch, k)
+    x_dense, ids = _packed_rows(s, batch, names=names, k=k, registry=registry)
+    weight = batch.mask.reshape(-1).to(torch.float32)
+    return TrainStates(x_dense, ids, weight), layout
+
+
+def concat_train_states(chunks: Sequence[TrainStates]) -> TrainStates:
+    """Concatenate training states along the row axis."""
+    if not chunks:
+        raise ValueError('cannot concatenate zero TrainStates chunks')
+    if len(chunks) == 1:
+        return chunks[0]
+    return TrainStates(*(torch.cat(parts) for parts in zip(*chunks)))
+
+
+def take_train_states(states: TrainStates, rows: torch.Tensor) -> TrainStates:
+    """The training states of ``rows`` (an index tensor on their device)."""
+    return TrainStates(*(t.index_select(0, rows) for t in states))
+
+
+def packed_feature_stats(
+    states: TrainStates,
+    layout: TrainLayout,
+    registry: FusedRegistry = STANDARD_REGISTRY,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-feature-column ``(mean, std)`` f32 from the packed form.
+
+    Equals ``X.mean(0)`` / ``X.std(0)`` over the valid rows of the feature
+    matrix without building it. A one-hot column's moments are
+    ``μ = p``, ``σ = √(p(1 - p))``, with ``p`` read off weight histograms
+    of the combined ids: one :func:`~.segment.segment_sum` of the rows
+    into the combined ids per state, then one of each histogram into each
+    block's own rows (``k + k · blocks`` launches of kernel B2 on the
+    card). Dense columns use weighted two-pass moments, accumulated in
+    float64 so that the card and the CPU, which reduce in other orders,
+    agree to the last f32 bit or so. ``std`` is raw (zero where a column is
+    constant); callers guard it.
+    """
+    w = states.weight
+    n = torch.clamp(w.sum(), min=1.0)
+    combo = torch.arange(registry.combo_size, device=w.device)
+    counts = [
+        segment_sum(w, states.combo_ids[:, i], registry.combo_size) for i in range(layout.k)
+    ]
+    mean_parts: List[torch.Tensor] = []
+    var_parts: List[torch.Tensor] = []
+    w64, n64 = w.to(torch.float64), n.to(torch.float64)
+    dense_off = 0
+    for name, kind, _off, width in layout.spans:
+        if kind == 'onehot':
+            per = width // layout.k
+            rows = registry.combo_rows[name](combo)
+            for i in range(layout.k):
+                p = segment_sum(counts[i], rows, per) / n
+                mean_parts.append(p)
+                var_parts.append(p * (1.0 - p))
+        else:
+            x = states.x_dense[:, dense_off : dense_off + width].to(torch.float64)
+            dense_off += width
+            mu = (w64 @ x) / n64
+            var = (w64 @ torch.square(x - mu)) / n64  # two-pass, like np.std
+            mean_parts.append(mu.to(torch.float32))
+            var_parts.append(var.to(torch.float32))
+    return (
+        torch.cat(mean_parts).to(torch.float32),
+        torch.sqrt(torch.cat(var_parts)).to(torch.float32),
+    )
+
+
+class _TableLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, table: torch.Tensor, ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.num_rows = num_rows
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None, None]:
+        (ids,) = ctx.saved_tensors
+        return segment_sum_rows(g, ids, ctx.num_rows), None, None
+
+
+def table_lookup(table: torch.Tensor, ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """``table[ids]`` whose backward is the row segment sum of the cotangent.
+
+    The per-gather form of the fused first layer's table term (the JAX
+    package's ``table_lookup``): ids lie in ``[0, num_rows)``.
+    """
+    return _TableLookup.apply(table, ids, num_rows)
+
+
+def fused_train_logits(
+    mlp: Any,
+    x_dense: torch.Tensor,
+    combo_ids: torch.Tensor,
+    *,
+    layout: TrainLayout,
+    mean: Optional[torch.Tensor] = None,
+    std: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    quantize: str = 'none',
+    registry: FusedRegistry = STANDARD_REGISTRY,
+) -> torch.Tensor:
+    """Differentiable logits ``(N,)`` of ``mlp`` over packed training rows.
+
+    The same function of the parameters as ``mlp((features - mean) /
+    std)`` on the feature matrix: standardization folds into ``Dense_0``
+    (:func:`_standardized_first_layer`), the per-state combined tables are
+    folded from its rows every call, and the first layer runs through
+    :func:`~.gather_matmul.fused_first_layer` (kernel B1 on the card, the
+    plain version on the CPU), in f32 whatever ``compute_dtype`` is, as the
+    JAX package's fused-kernel branch does. ``compute_dtype`` narrows the
+    post-relu hidden pipeline (:func:`_hidden_chain`). ``quantize`` other
+    than ``'none'`` trains quantization-aware: the tables and the dense
+    sub-kernel pass through :func:`~.quant.fake_quant`.
+    """
+    check_quantize_mode(quantize)
+    Wk, bias = _standardized_first_layer(mlp, mean, std)
+    if Wk.shape[0] != layout.n_features:
+        raise ValueError(
+            f'first-layer kernel has {Wk.shape[0]} input rows but the '
+            f'feature layout ({layout.names!r}, k={layout.k}) emits '
+            f'{layout.n_features} columns'
+        )
+    blocks, dense_spans = _layout_split(layout)
+    tables = fake_quant(
+        torch.stack([_combined_table(Wk, i, blocks, registry) for i in range(layout.k)]),
+        quantize,
+    )
+    if dense_spans and x_dense.shape[1]:
+        w_dense = fake_quant(_dense_subkernel(Wk, dense_spans), quantize)
+    else:
+        w_dense = Wk.new_zeros((0, Wk.shape[1]))
+    h = fused_first_layer(tables, w_dense, bias, combo_ids, x_dense)
+    return _hidden_chain(mlp, h, compute_dtype)

@@ -1,21 +1,29 @@
 """Fused gather + dense first layer: ``bias + Σ tables[i][ids[:, i]] + x @ W``.
 
-Port of ``socceraction_tpu/ops/gather_matmul.py`` (the serving forward).
-On a CUDA tensor :func:`fused_first_layer_quant` launches the hand-written
-kernel ``csrc/gather_matmul.cu`` (built for ``sm_90a`` at first use); on a
-CPU tensor it runs :func:`fused_first_layer_reference`, the plain PyTorch
+Port of ``socceraction_tpu/ops/gather_matmul.py``. On a CUDA tensor
+:func:`fused_first_layer_quant` launches the hand-written kernel
+``csrc/gather_matmul.cu`` (built for ``sm_90a`` at first use); on a CPU
+tensor it runs :func:`fused_first_layer_reference`, the plain PyTorch
 version of the same function, which the tests hold against the JAX
 package. There is no fallback from one to the other: a CUDA call launches
 the kernel or raises.
+
+:func:`fused_first_layer` is the differentiable entry the trainer uses:
+its forward is the same kernel on f32 operands, its backward plain
+PyTorch, as the JAX package's custom VJP computes it with XLA: a row
+segment sum per table and two products.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ['fused_first_layer_quant', 'fused_first_layer_reference']
+from .segment import segment_sum_rows
+
+__all__ = ['fused_first_layer', 'fused_first_layer_quant', 'fused_first_layer_reference']
 
 #: Shared memory a block may use on Hopper (bytes, opt-in dynamic limit).
 _MAX_SMEM = 232448
@@ -142,3 +150,63 @@ def fused_first_layer_quant(
 
 #: Kernel launches made through :func:`fused_first_layer_quant` (CUDA only).
 fused_first_layer_quant.launches = 0
+
+
+class _FusedFirstLayer(torch.autograd.Function):
+    """Forward: kernel B1 (or its plain version on the CPU). Backward: the
+    JAX package's ``_ffl_bwd``, in plain PyTorch."""
+
+    @staticmethod
+    def forward(
+        ctx: Any,
+        tables: torch.Tensor,
+        w_dense: torch.Tensor,
+        bias: torch.Tensor,
+        ids: torch.Tensor,
+        x_dense: torch.Tensor,
+    ) -> torch.Tensor:
+        ctx.save_for_backward(ids, x_dense, w_dense)
+        ctx.num_rows = tables.shape[1]
+        return fused_first_layer_quant(tables, w_dense, bias, ids, x_dense)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+        ids, x_dense, w_dense = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g = g.to(torch.float32)
+        d_tables = d_w = d_bias = d_x = None
+        if need[0]:
+            d_tables = torch.stack(
+                [segment_sum_rows(g, ids[:, i], ctx.num_rows) for i in range(ids.shape[1])]
+            )
+        if need[1]:
+            d_w = x_dense.t() @ g
+        if need[2]:
+            d_bias = g.sum(0)
+        if need[4]:  # in training x_dense is data: skipped
+            d_x = g @ w_dense.t()
+        return d_tables, d_w, d_bias, None, d_x
+
+
+def fused_first_layer(
+    tables: torch.Tensor,
+    w_dense: torch.Tensor,
+    bias: torch.Tensor,
+    ids: torch.Tensor,
+    x_dense: torch.Tensor,
+) -> torch.Tensor:
+    """Differentiable fused first layer over packed rows -> ``(N, H)`` f32.
+
+    ``tables`` ``(k, R, H)``, ``w_dense`` ``(D, H)``, ``bias`` ``(H,)`` and
+    ``x_dense`` ``(N, D)`` are f32, ``ids`` ``(N, k)`` int32. The forward is
+    :func:`fused_first_layer_quant` (kernel B1 on a CUDA tensor, counted in
+    ``fused_first_layer_quant.launches``). The backward gives
+    ``d_tables[i]``, the row segment sum of the cotangent by ``ids[:, i]``
+    (ids outside ``[0, R)`` add nothing), ``d_w_dense = x_denseᵀ g``,
+    ``d_bias = Σ g`` and, only where autograd asks for it,
+    ``d_x_dense = g W_denseᵀ``. The products follow the global matmul
+    precision: the parity contract wants TF32 off on the card.
+    """
+    if tables.dtype != torch.float32:
+        raise TypeError(f'the differentiable first layer takes f32 tables, got {tables.dtype}')
+    return _FusedFirstLayer.apply(tables, w_dense, bias, ids, x_dense)

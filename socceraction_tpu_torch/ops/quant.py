@@ -1,6 +1,6 @@
 """Narrow-precision storage for the fused combined tables.
 
-Port of ``socceraction_tpu/ops/quant.py`` (serving half). Three formats:
+Port of ``socceraction_tpu/ops/quant.py``. Three formats:
 
 - ``'none'``: f32 storage;
 - ``'bf16'``: bfloat16 storage, widened inside the first-layer kernel;
@@ -11,12 +11,13 @@ Port of ``socceraction_tpu/ops/quant.py`` (serving half). Three formats:
 
 Accumulation stays f32 everywhere. From the same f32 tables the port
 produces the same bytes as the JAX package: every step is an elementwise
-f32 operation with the same rounding (round half to even).
+f32 operation with the same rounding (round half to even). Training
+sees the same rounding through :func:`fake_quant`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,6 +27,7 @@ __all__ = [
     'QuantizedArray',
     'check_quantize_mode',
     'dequantize',
+    'fake_quant',
     'quantize_columns',
     'quantize_with_scale',
     'quantized_nbytes',
@@ -141,6 +143,32 @@ def dequantize(
     if resid is not None:
         x = x + (_unpack_codes(resid, x.shape[-1]) - 1.5) / _CODES_PER_BYTE
     return x * scale
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize -> dequantize forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx: Any, t: torch.Tensor, mode: str) -> torch.Tensor:
+        return dequantize(*quantize_columns(t, mode))
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return g, None
+
+
+def fake_quant(t: torch.Tensor, mode: str) -> torch.Tensor:
+    """Quantize-dequantize round trip with a straight-through gradient.
+
+    The quantization-aware training hook of the fused training fold: the
+    per-state tables and the dense sub-kernel pass through it every step,
+    so the loss sees exactly the values quantized serving gathers, while
+    the backward skips the (non-differentiable) rounding:
+    ``d fake_quant / d t = 1``. ``mode='none'`` is the identity.
+    """
+    if check_quantize_mode(mode) == 'none':
+        return t
+    return _FakeQuant.apply(t, mode)
 
 
 def quantized_nbytes(q: QuantizedArray) -> int:

@@ -194,12 +194,21 @@ def segment_sum_rows(
 ) -> torch.Tensor:
     """Sum ``(N, H)`` rows into ``(num_segments, H)`` buckets by id.
 
-    The backward of the fused first layer's table gather. Plain
-    ``index_add_`` on every device (the JAX package computes it with XLA,
-    not Pallas); ids outside ``[0, num_segments)`` add nothing.
+    The backward of the fused first layer's table gather, in plain
+    PyTorch and split by device as the JAX package's ``segment_sum_rows``
+    is (XLA, not Pallas): on the card the product of the ids' transposed
+    one-hot matrix with the rows (``segment_sum_rows_onehot``, its TPU
+    form), on the CPU ``index_add_`` in row order. Ids outside ``[0,
+    num_segments)`` add nothing. Both add in a fixed order on every run:
+    the card's ``index_add_`` would add with atomics, in another order
+    each run, and a fit whose parameters move from run to run cannot be
+    held to the CPU's.
     """
     values = values.reshape(-1, values.shape[-1])
     ids = segment_ids.reshape(-1).long()
+    if values.is_cuda:
+        segments = torch.arange(num_segments, device=ids.device)
+        return (segments[:, None] == ids[None, :]).to(values.dtype) @ values
     ok = (ids >= 0) & (ids < num_segments)
     out = torch.zeros(
         (num_segments, values.shape[-1]), dtype=values.dtype, device=values.device

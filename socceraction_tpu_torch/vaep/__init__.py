@@ -1,4 +1,4 @@
-"""VAEP serving."""
+"""VAEP: training and serving."""
 
 from .base import VAEP, load_model
 

@@ -1,27 +1,34 @@
-"""VAEP serving: valuing actions by estimating probabilities.
+"""VAEP: valuing actions by estimating probabilities.
 
-Port of the serving side of ``socceraction_tpu/vaep/base.py``. A
-:class:`VAEP` holds a scores head and a concedes head
-(:class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier`) and rates packed
-batches:
+Port of ``socceraction_tpu/vaep/base.py``. A :class:`VAEP` holds a scores
+head and a concedes head
+(:class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier`), trains them from
+packed batches and rates packed batches:
 
-- :meth:`VAEP.rate_batch` is the main path: both heads' first layers
+- :meth:`VAEP.fit_packed` packs the training states, computes labels and
+  standardization statistics from the packed form and trains both heads
+  with Adam through the fused first layer (the CUDA kernel on the card),
+  early-stopping on a validation split;
+- :meth:`VAEP.rate_batch` is the serving path: both heads' first layers
   folded once into combined tables (optionally bf16/int8), one fused
-  gather + matmul first layer per batch (the CUDA kernel on the card),
-  the hidden chains, and the VAEP formula;
+  gather + matmul first layer per batch, the hidden chains, and the VAEP
+  formula;
 - :meth:`VAEP.rate_batch_reference` is the same function through the
   materialized feature tensor, in plain PyTorch, for parity checks.
 
-:func:`load_model` reads a directory written by the JAX package's
-``VAEP.save_model`` (its ``meta.json`` gates and sha256 checks included).
+:meth:`VAEP.save_model` writes, and :func:`load_model` reads, the JAX
+package's checkpoint directory (``meta.json`` with its format stamp and
+sha256 checksums, flax-msgpack heads), so a model moves between the two
+packages either way.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
-from typing import TYPE_CHECKING, Any, Dict, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,10 +36,23 @@ import torch
 from ..config import NB_PREV_ACTIONS
 from ..core.batch import ActionBatch, bucket_games, pack_actions, pad_batch_games, unpack_values
 from ..device import DeviceLike, resolve_device
+from ..ml.learners import PACKED_LEARNERS
 from ..ml.mlp import MLPClassifier
 from ..ops.features import KERNELS, compute_features
 from ..ops.formula import vaep_values
-from ..ops.fused import PreparedPair, pair_probs_prepared, prepare_pair_fold, train_layout
+from ..ops.fused import (
+    PreparedPair,
+    TrainLayout,
+    TrainStates,
+    build_train_states,
+    concat_train_states,
+    packed_feature_stats,
+    pair_probs_prepared,
+    prepare_pair_fold,
+    take_train_states,
+    train_layout,
+)
+from ..ops.labels import scores_concedes
 from ..ops.quant import check_quantize_mode
 
 if TYPE_CHECKING:  # pandas is imported inside rate() only
@@ -69,7 +89,41 @@ _LABELS = ('scores', 'concedes')
 
 
 class NotFittedError(ValueError):
-    """Raised when a model without heads is asked to rate."""
+    """Raised when a model without heads is asked to rate or save."""
+
+
+class TrainingSet(NamedTuple):
+    """The packed rows :meth:`VAEP.fit_packed` trains on, split.
+
+    ``train_rows``/``val_rows`` are the host row indices of the split;
+    ``val`` and ``y_val`` are ``None`` without a validation split.
+    """
+
+    train: TrainStates
+    val: Optional[TrainStates]
+    y_train: Dict[str, torch.Tensor]
+    y_val: Optional[Dict[str, torch.Tensor]]
+    layout: TrainLayout
+    train_rows: np.ndarray
+    val_rows: np.ndarray
+
+
+def split_rows(
+    n_rows: int, val_size: float, random_state: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's train/validation row split, with numpy.
+
+    ``default_rng(random_state).permutation(n_rows)`` (the global numpy
+    generator without a seed), cut at ``floor(n_rows * (1 - val_size))``;
+    the reference's quirk is kept: the row at the cut is in neither part.
+    The JAX package splits with the same draws.
+    """
+    if random_state is not None:
+        idx = np.random.default_rng(random_state).permutation(n_rows)
+    else:
+        idx = np.random.permutation(n_rows)
+    cut = math.floor(n_rows * (1 - val_size))
+    return idx[:cut], idx[cut + 1 :]
 
 
 class VAEP:
@@ -115,6 +169,199 @@ class VAEP:
         self._pair_prep: Optional[Tuple[Any, PreparedPair]] = None
         #: int8 scales restored from a quantized checkpoint (or None)
         self._quant_scales: Optional[Dict[str, torch.Tensor]] = None
+
+    # -- fitting -------------------------------------------------------------
+
+    @staticmethod
+    def _iter_packed(batches: Any) -> Iterator[Any]:
+        """``fit_packed``'s input as an iterator of batches or
+        ``(batch, game_ids)`` pairs."""
+        if isinstance(batches, ActionBatch):
+            return iter([batches])
+        if isinstance(batches, tuple) and len(batches) == 2 and isinstance(batches[0], ActionBatch):
+            return iter([batches])  # one (batch, game_ids) pair
+        return iter(batches)
+
+    def training_set(
+        self, batches: Any, val_size: float = 0.25, random_state: Optional[int] = None
+    ) -> TrainingSet:
+        """Pack ``batches``, label them and split the rows (:func:`split_rows`).
+
+        The first part of :meth:`fit_packed`, on the model's device; a
+        check of two fits can compare what each trained on.
+        """
+        chunks: List[TrainStates] = []
+        label_chunks: List[Tuple[torch.Tensor, ...]] = []
+        layout = None
+        for item in self._iter_packed(batches):
+            batch = item[0] if isinstance(item, (tuple, list)) else item
+            if batch.device != self.device:
+                raise ValueError(f'batch lives on {batch.device}, the model on {self.device}')
+            states, chunk_layout = build_train_states(
+                batch, names=self.xfns, k=self.nb_prev_actions
+            )
+            if layout is None:
+                layout = chunk_layout
+            elif chunk_layout != layout:
+                raise ValueError('packed chunks disagree on feature layout')
+            chunks.append(states)
+            label_chunks.append(
+                tuple(t.reshape(-1).to(torch.float32) for t in scores_concedes(batch))
+            )
+        if layout is None:
+            raise ValueError('fit_packed received no batches')
+        states = concat_train_states(chunks)
+        labels = {
+            col: torch.cat([c[i] for c in label_chunks]) for i, col in enumerate(_LABELS)
+        }
+        train_rows, val_rows = split_rows(int(states.weight.shape[0]), val_size, random_state)
+        tr = torch.as_tensor(train_rows, device=self.device)
+        va = torch.as_tensor(val_rows, device=self.device)
+        with_val = val_size > 0
+        return TrainingSet(
+            train=take_train_states(states, tr),
+            val=take_train_states(states, va) if with_val else None,
+            y_train={col: y.index_select(0, tr) for col, y in labels.items()},
+            y_val={col: y.index_select(0, va) for col, y in labels.items()} if with_val else None,
+            layout=layout,
+            train_rows=train_rows,
+            val_rows=val_rows,
+        )
+
+    def fit_packed(
+        self,
+        batches: Any,
+        learner: str = 'mlp',
+        val_size: float = 0.25,
+        tree_params: Optional[Dict[str, Any]] = None,
+        fit_params: Optional[Dict[str, Any]] = None,
+        random_state: Optional[int] = None,
+        warm_start: Optional['VAEP'] = None,
+    ) -> 'VAEP':
+        """Fit both probability heads from packed game states.
+
+        Parameters
+        ----------
+        batches
+            An :class:`~socceraction_tpu_torch.core.batch.ActionBatch` on
+            the model's device, an iterable of them, or an iterable of
+            ``(batch, game_ids)`` pairs.
+        learner : str
+            ``'mlp'``: the fused MLP head. The sequence head (``'seq'``) is
+            not ported yet; tree learners need the feature matrix.
+        val_size : float
+            Row fraction held out for early stopping (reference: 0.25).
+        tree_params, fit_params : dict, optional
+            :class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier` arguments
+            and ``fit_packed`` arguments of each head.
+        random_state : int, optional
+            Seed of the train/validation split (:func:`split_rows`).
+        warm_start : VAEP, optional
+            A fitted model of the same feature layout whose heads seed this
+            fit: its parameters and Adam state, its hyperparameters (unless
+            ``tree_params`` overrides them) and its standardization
+            statistics, which the copied weights are a function of. It is
+            never changed.
+
+        One statistics pass over the training rows serves both heads. The
+        cached serving fold is dropped, so the next rating folds the new
+        heads.
+        """
+        if learner == 'seq':
+            raise ValueError("learner 'seq': the sequence head is not ported yet")
+        if learner not in PACKED_LEARNERS:
+            raise ValueError(
+                f'learner {learner!r} has no packed fit path (supported: '
+                f'{sorted(PACKED_LEARNERS)}); tree learners need the materialized '
+                'feature matrix'
+            )
+        data = self.training_set(batches, val_size, random_state)
+        warm_models: Dict[str, MLPClassifier] = {}
+        if warm_start is not None:
+            warm_models = dict(warm_start._models)
+            if not warm_models:
+                raise ValueError('warm_start must be a fitted model')
+        warm_head = next(iter(warm_models.values()), None)
+        if warm_head is not None:
+            if warm_head.mean_.shape[0] != data.layout.n_features:
+                raise ValueError(
+                    'warm_start model has a different feature layout '
+                    f'({warm_head.mean_.shape[0]} features vs {data.layout.n_features}); '
+                    'warm starts require an unchanged layout'
+                )
+            mean = warm_head.mean_.to(self.device)
+            std = warm_head.std_.to(self.device)
+        else:
+            mean, raw_std = packed_feature_stats(data.train, data.layout)
+            std = torch.where(raw_std > 0, raw_std, 1.0)
+        fit_fn = PACKED_LEARNERS[learner]
+        models = {}
+        for col in _LABELS:
+            eval_set = None
+            if data.val is not None:
+                eval_set = [((data.val, data.layout), data.y_val[col])]
+            head_tree, head_fit = tree_params, fit_params
+            warm = warm_models.get(col)
+            if warm is not None:
+                head_tree = {**warm._hyperparameters(), **(tree_params or {})}
+                head_fit = {
+                    'init_params': warm.module,
+                    **({} if warm.opt_state_ is None else {'init_opt_state': warm.opt_state_}),
+                    **(fit_params or {}),
+                }
+            models[col] = fit_fn(
+                (data.train, data.layout), data.y_train[col], eval_set, head_tree, head_fit,
+                names=self.xfns, k=self.nb_prev_actions, mean=mean, std=std,
+                device=self.device,
+            )
+        self._models = models
+        # pinned int8 scales describe the weights they were derived from
+        self._pair_prep = None
+        self._quant_scales = None
+        return self
+
+    # -- saving ----------------------------------------------------------------
+
+    def save_model(self, path: str) -> None:
+        """Write the model as the JAX package's ``save_model`` does.
+
+        ``models/<head>.npz`` per head (:meth:`MLPClassifier.save`),
+        ``models/quant_scales.npz`` with the fold's int8 scales when the
+        model serves int8, and ``meta.json`` with the format stamp (the
+        oldest reader that can load it: 2 with a quantize mode, else 1)
+        and every artifact's sha256. Both packages' ``load_model`` read it.
+        """
+        if not self._models:
+            raise NotFittedError('fit the model before saving')
+        os.makedirs(os.path.join(path, 'models'), exist_ok=True)
+        artifacts = []
+        for col, model in self._models.items():
+            model.save(os.path.join(path, 'models', f'{col}.npz'))
+            artifacts.append(f'models/{col}.npz')
+        quantize = self.quantize
+        if quantize == 'int8':
+            prep = self._prepared_pair()
+            np.savez(
+                os.path.join(path, _QUANT_SCALES_ARTIFACT),
+                table_scale=prep.tables.scale.cpu().numpy(),
+                w_dense_scale=prep.w_dense.scale.cpu().numpy(),
+            )
+            artifacts.append(_QUANT_SCALES_ARTIFACT)
+        meta = {
+            'format_version': 2 if quantize != 'none' else 1,
+            'class': 'VAEP',
+            'nb_prev_actions': self.nb_prev_actions,
+            # the JAX package's loader builds its model with this backend
+            'backend': 'jax',
+            'xfns': list(self.xfns),
+            'heads': dict.fromkeys(self._models, 'mlp'),
+            **({'quantize': quantize} if quantize != 'none' else {}),
+            'checksums': {
+                rel: _file_sha256(os.path.join(path, rel)) for rel in sorted(artifacts)
+            },
+        }
+        with open(os.path.join(path, 'meta.json'), 'w') as f:
+            json.dump(meta, f, indent=2)
 
     # -- quantized serving fold --------------------------------------------
 

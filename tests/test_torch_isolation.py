@@ -6,7 +6,7 @@
   matches top-level module names exactly, never by prefix.
 - The modules ``chip_smoke.py`` runs import with those packages, and
   ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked; its xT
-  phase also runs so, at a tiny size on the CPU.
+  and training phases also run so, at a tiny size on the CPU.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -85,6 +85,12 @@ import socceraction_tpu_torch.ops.segment
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 fits = chip_smoke.xt_fits(synthetic_batch(4, 128, seed=2, device='cpu'), 'cpu')
 chip_smoke.compare_fits(fits, fits)
+# and its training phase
+import socceraction_tpu_torch.ml.learners
+params = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 2}
+run = chip_smoke.fit_vaep(synthetic_batch(2, 256, seed=5, device='cpu'), params, 'cpu')
+chip_smoke.check_fit(run, params)
+chip_smoke.compare_training(run, run, params)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -128,6 +134,8 @@ ENTRY_POINTS = {
     'segment_sum': lambda: segment.segment_sum(
         torch.ones(3, device=resolve_device(None)), torch.zeros(3, dtype=torch.int32), 2
     ),
+    'MLPClassifier': lambda: MLPClassifier(hidden=(8,)),
+    'VAEP(cpu).fit_packed(cuda batch)': lambda: VAEP(device='cpu').fit_packed(synthetic_batch(1, 128)),
 }
 
 
