@@ -1,13 +1,18 @@
 """Carry weights between the JAX package's checkpoints and the port.
 
 The JAX package stores an MLP head as a flax parameter pytree,
-``{'params': {'Dense_i': {'kernel': (in, out), 'bias': (out,)}}}``,
-serialized with flax's msgpack encoding. :func:`params_from_msgpack`
-decodes that encoding without flax and :func:`params_to_msgpack` writes
-it; :func:`module_from_jax_params` and :func:`mlp_from_jax_params` build
-the port's :class:`~socceraction_tpu_torch.ml.mlp.MLP` and
+``{'params': {'Dense_i': {'kernel': (in, out), 'bias': (out,)}}}``, and a
+GRU sequence head as a plain nested dict, ``{'embed', 'gru': {...},
+'readout': {...}}``, both serialized with flax's msgpack encoding.
+:func:`params_from_msgpack` decodes that encoding without flax and
+:func:`params_to_msgpack` writes it; :func:`module_from_jax_params` and
+:func:`mlp_from_jax_params` build the port's
+:class:`~socceraction_tpu_torch.ml.mlp.MLP` and
 :class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier` from the numpy
-pytree, and :func:`jax_params_from_mlp` gives it back. ``msgpack`` is
+pytree, and :func:`jax_params_from_mlp` gives it back;
+:func:`seq_module_from_jax_params` and :func:`jax_params_from_seq_module`
+do the same for the seq head's
+:class:`~socceraction_tpu_torch.seq.model.SeqModule`. ``msgpack`` is
 imported inside the two codec functions only.
 """
 
@@ -20,13 +25,16 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .ml.mlp import MLP, MLPClassifier
+from .seq.model import SeqModule, seq_param_shapes
 
 __all__ = [
     'jax_params_from_mlp',
+    'jax_params_from_seq_module',
     'mlp_from_jax_params',
     'module_from_jax_params',
     'params_from_msgpack',
     'params_to_msgpack',
+    'seq_module_from_jax_params',
 ]
 
 #: flax's msgpack extension type of an ndarray leaf
@@ -152,3 +160,52 @@ def mlp_from_jax_params(
         torch.as_tensor(np.asarray(std, dtype=np.float32), device=dev),
         quantize=quantize,
     )
+
+
+def seq_module_from_jax_params(params: Mapping[str, Any]) -> SeqModule:
+    """The port's :class:`SeqModule`, on the CPU, from the JAX package's seq
+    parameter tree (numpy arrays). The dimensions come from the leaves,
+    whose structure and shapes must be those of
+    :func:`~socceraction_tpu_torch.seq.model.seq_param_shapes`."""
+    try:
+        embed = np.asarray(params['embed'])
+        dims = {
+            'combo_size': embed.shape[0],
+            'embed_dim': embed.shape[1],
+            'hidden': np.asarray(params['gru']['uz']).shape[0],
+            'readout': np.asarray(params['readout']['w1']).shape[1],
+        }
+        dims['n_dense'] = np.asarray(params['readout']['w1']).shape[0] - dims['hidden']
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f'not a seq parameter tree ({type(e).__name__}: {e})') from e
+    want = seq_param_shapes(**dims)
+    got = {
+        'embed': embed.shape,
+        'gru': {n: np.shape(a) for n, a in params['gru'].items()},
+        'readout': {n: np.shape(a) for n, a in params['readout'].items()},
+    }
+    if sorted(params) != sorted(want) or got != want:
+        raise ValueError(f'seq parameter shapes {got} do not form a head; expected {want}')
+    module = SeqModule(**dims)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            node: Any = params
+            for part in name.split('.'):
+                node = node[part]
+            # copies: decoded leaves are read-only views of the msgpack buffer
+            p.copy_(torch.from_numpy(np.array(node, dtype=np.float32)))
+    return module
+
+
+def jax_params_from_seq_module(module: SeqModule) -> Dict[str, Any]:
+    """The JAX package's seq parameter tree of numpy f32 arrays, keys in
+    sorted order at every level (the order the JAX package's tree
+    functions leave them in, so the msgpack bytes are the same)."""
+    tree: Dict[str, Any] = {}
+    for name, p in sorted(module.named_parameters()):
+        *groups, leaf = name.split('.')
+        node = tree
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = p.detach().cpu().numpy().astype(np.float32)
+    return tree

@@ -2,8 +2,10 @@
 
 from .batch import (
     ActionBatch,
+    AtomicActionBatch,
     bucket_games,
     pack_actions,
+    pack_atomic_actions,
     pack_row_values,
     pad_batch_games,
     pad_length,
@@ -13,8 +15,10 @@ from .synthetic import synthetic_batch
 
 __all__ = [
     'ActionBatch',
+    'AtomicActionBatch',
     'bucket_games',
     'pack_actions',
+    'pack_atomic_actions',
     'pack_row_values',
     'pad_batch_games',
     'pad_length',

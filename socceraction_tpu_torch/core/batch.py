@@ -1,4 +1,5 @@
-"""The padded ``(G games, A actions)`` bundle of SPADL actions, as tensors.
+"""The padded ``(G games, A actions)`` bundle of SPADL or Atomic-SPADL
+actions, as tensors.
 
 Port of ``socceraction_tpu/core/batch.py`` with the same semantics: games
 are left-aligned along the action axis and padded to a multiple of
@@ -24,8 +25,10 @@ if TYPE_CHECKING:  # pandas is imported inside pack_actions only
 
 __all__ = [
     'ActionBatch',
+    'AtomicActionBatch',
     'bucket_games',
     'pack_actions',
+    'pack_atomic_actions',
     'pack_row_values',
     'pad_batch_games',
     'pad_length',
@@ -36,6 +39,8 @@ _LANE = ACTION_AXIS_ALIGNMENT
 
 _FLOAT_COLS = ('time_seconds', 'start_x', 'start_y', 'end_x', 'end_y')
 _INT_COLS = ('type_id', 'result_id', 'bodypart_id', 'period_id')
+_ATOMIC_FLOAT_COLS = ('time_seconds', 'x', 'y', 'dx', 'dy')
+_ATOMIC_INT_COLS = ('type_id', 'bodypart_id', 'period_id')
 
 
 def pad_length(n: int, multiple: int = _LANE) -> int:
@@ -43,29 +48,11 @@ def pad_length(n: int, multiple: int = _LANE) -> int:
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
 
-@dataclasses.dataclass(frozen=True)
-class ActionBatch:
-    """A padded ``(G, A)`` struct-of-tensors bundle of SPADL actions.
-
-    Per-action fields have shape ``(G, A)``; ``n_actions`` and ``game_id``
-    are ``(G,)``. Every field lives on one device (:meth:`to` moves them
-    together).
-    """
-
-    type_id: torch.Tensor  # int32
-    result_id: torch.Tensor  # int32
-    bodypart_id: torch.Tensor  # int32
-    period_id: torch.Tensor  # int32
-    is_home: torch.Tensor  # bool: team_id == home_team_id
-    time_seconds: torch.Tensor  # float
-    start_x: torch.Tensor  # float
-    start_y: torch.Tensor  # float
-    end_x: torch.Tensor  # float
-    end_y: torch.Tensor  # float
-    mask: torch.Tensor  # bool (G, A): True on valid rows
-    n_actions: torch.Tensor  # int32 (G,): valid rows per game
-    game_id: torch.Tensor  # int32 (G,): game index in the batch
-    row_index: torch.Tensor  # int32 (G, A): row in the packed frame (-1 pad)
+class _PackedBatch:
+    """What every packed batch class shares: shape properties, its fields
+    in declaration order and a move to another device. Per-action fields
+    have shape ``(G, A)``; ``n_actions`` and ``game_id`` are ``(G,)``.
+    Every field lives on one device."""
 
     @property
     def n_games(self) -> int:
@@ -91,36 +78,75 @@ class ActionBatch:
         """``{name: tensor}`` of every field, in declaration order."""
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
 
-    def to(self, device: DeviceLike) -> 'ActionBatch':
+    def to(self, device: DeviceLike) -> Any:
         """A copy with every field on ``device``."""
         dev = resolve_device(device)
-        return ActionBatch(**{n: t.to(dev) for n, t in self.fields().items()})
+        return type(self)(**{n: t.to(dev) for n, t in self.fields().items()})
 
 
-def _from_numpy(cols: Dict[str, np.ndarray], device: torch.device) -> ActionBatch:
-    return ActionBatch(
+@dataclasses.dataclass(frozen=True)
+class ActionBatch(_PackedBatch):
+    """A padded ``(G, A)`` struct-of-tensors bundle of SPADL actions."""
+
+    type_id: torch.Tensor  # int32
+    result_id: torch.Tensor  # int32
+    bodypart_id: torch.Tensor  # int32
+    period_id: torch.Tensor  # int32
+    is_home: torch.Tensor  # bool: team_id == home_team_id
+    time_seconds: torch.Tensor  # float
+    start_x: torch.Tensor  # float
+    start_y: torch.Tensor  # float
+    end_x: torch.Tensor  # float
+    end_y: torch.Tensor  # float
+    mask: torch.Tensor  # bool (G, A): True on valid rows
+    n_actions: torch.Tensor  # int32 (G,): valid rows per game
+    game_id: torch.Tensor  # int32 (G,): game index in the batch
+    row_index: torch.Tensor  # int32 (G, A): row in the packed frame (-1 pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class AtomicActionBatch(_PackedBatch):
+    """A padded ``(G, A)`` struct-of-tensors bundle of Atomic-SPADL actions:
+    a location and a displacement ``(x, y, dx, dy)`` per row and no result
+    (outcomes are action types)."""
+
+    type_id: torch.Tensor  # int32
+    bodypart_id: torch.Tensor  # int32
+    period_id: torch.Tensor  # int32
+    is_home: torch.Tensor  # bool
+    time_seconds: torch.Tensor  # float
+    x: torch.Tensor  # float
+    y: torch.Tensor  # float
+    dx: torch.Tensor  # float
+    dy: torch.Tensor  # float
+    mask: torch.Tensor  # bool (G, A)
+    n_actions: torch.Tensor  # int32 (G,)
+    game_id: torch.Tensor  # int32 (G,)
+    row_index: torch.Tensor  # int32 (G, A), -1 on padding
+
+
+def _from_numpy(
+    cols: Dict[str, np.ndarray], device: torch.device, cls: Any = ActionBatch
+) -> Any:
+    return cls(
         **{n: torch.from_numpy(np.ascontiguousarray(a)).to(device) for n, a in cols.items()}
     )
 
 
-def pack_actions(
+def _pack_frame(
     actions: 'pd.DataFrame',
-    home_team_ids: Optional[Dict[Any, Any]] = None,
-    *,
-    home_team_id: Optional[Any] = None,
-    max_actions: Optional[int] = None,
-    float_dtype: Any = np.float32,
-    device: DeviceLike = None,
-) -> Tuple[ActionBatch, List[Any]]:
-    """Pack a SPADL DataFrame (one or many games) into an :class:`ActionBatch`.
-
-    Same contract as the JAX package's ``pack_actions``: games keep their
-    order of first appearance, rows their order within the game; pass
-    ``home_team_ids`` (``game_id -> home_team_id``), a single
-    ``home_team_id``, or a frame with a ``home_team_id`` column. Returns the
-    batch (on ``device``, default ``cuda``) and the game ids in game-axis
-    order.
-    """
+    home_team_ids: Optional[Dict[Any, Any]],
+    home_team_id: Optional[Any],
+    max_actions: Optional[int],
+    float_dtype: Any,
+    device: DeviceLike,
+    float_cols: Tuple[str, ...],
+    int_cols: Tuple[str, ...],
+    cls: Any,
+) -> Tuple[Any, List[Any]]:
+    """The packing shared by both action languages: group the frame by
+    game, left-align, pad, and build a ``cls`` batch from ``float_cols``,
+    ``int_cols`` and the derived fields."""
     import pandas as pd
 
     dev = resolve_device(device)
@@ -159,12 +185,12 @@ def pack_actions(
 
     cols = {
         c: scatter(actions[c].to_numpy(dtype=float_dtype), float_dtype)
-        for c in _FLOAT_COLS
+        for c in float_cols
     }
     cols.update(
         {
             c: scatter(actions[c].to_numpy(dtype=np.int64).astype(np.int32), np.int32)
-            for c in _INT_COLS
+            for c in int_cols
         }
     )
     home_of_game = np.asarray([home_team_ids[g] for g in game_ids])
@@ -175,7 +201,49 @@ def pack_actions(
     cols['n_actions'] = n_actions
     cols['game_id'] = np.arange(n_games, dtype=np.int32)
     cols['row_index'] = scatter(np.arange(len(actions), dtype=np.int32), np.int32, -1)
-    return _from_numpy(cols, dev), game_ids
+    return _from_numpy(cols, dev, cls), game_ids
+
+
+def pack_actions(
+    actions: 'pd.DataFrame',
+    home_team_ids: Optional[Dict[Any, Any]] = None,
+    *,
+    home_team_id: Optional[Any] = None,
+    max_actions: Optional[int] = None,
+    float_dtype: Any = np.float32,
+    device: DeviceLike = None,
+) -> Tuple[ActionBatch, List[Any]]:
+    """Pack a SPADL DataFrame (one or many games) into an :class:`ActionBatch`.
+
+    Same contract as the JAX package's ``pack_actions``: games keep their
+    order of first appearance, rows their order within the game; pass
+    ``home_team_ids`` (``game_id -> home_team_id``), a single
+    ``home_team_id``, or a frame with a ``home_team_id`` column. Returns the
+    batch (on ``device``, default ``cuda``) and the game ids in game-axis
+    order.
+    """
+    return _pack_frame(
+        actions, home_team_ids, home_team_id, max_actions, float_dtype, device,
+        _FLOAT_COLS, _INT_COLS, ActionBatch,
+    )
+
+
+def pack_atomic_actions(
+    actions: 'pd.DataFrame',
+    home_team_ids: Optional[Dict[Any, Any]] = None,
+    *,
+    home_team_id: Optional[Any] = None,
+    max_actions: Optional[int] = None,
+    float_dtype: Any = np.float32,
+    device: DeviceLike = None,
+) -> Tuple[AtomicActionBatch, List[Any]]:
+    """Pack an Atomic-SPADL DataFrame into an :class:`AtomicActionBatch`:
+    :func:`pack_actions`'s contract for frames with ``x, y, dx, dy`` and no
+    result column."""
+    return _pack_frame(
+        actions, home_team_ids, home_team_id, max_actions, float_dtype, device,
+        _ATOMIC_FLOAT_COLS, _ATOMIC_INT_COLS, AtomicActionBatch,
+    )
 
 
 def bucket_games(n: int) -> int:
@@ -185,9 +253,10 @@ def bucket_games(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def pad_batch_games(batch: ActionBatch, n_games: int) -> ActionBatch:
+def pad_batch_games(batch: Any, n_games: int) -> Any:
     """Pad a batch's game axis to ``n_games`` with masked padding games.
 
+    Works on either batch class and returns the batch's own class.
     Padding games carry all-False masks, ``n_actions == 0`` and
     ``row_index == -1``; their computed values are garbage by contract and
     must be sliced away by the caller.
@@ -203,10 +272,10 @@ def pad_batch_games(batch: ActionBatch, n_games: int) -> ActionBatch:
         tail = a.new_full((n_games - G, *a.shape[1:]), fill)
         return torch.cat([a, tail])
 
-    return ActionBatch(**{n: pad(n, t) for n, t in batch.fields().items()})
+    return type(batch)(**{n: pad(n, t) for n, t in batch.fields().items()})
 
 
-def pack_row_values(values: Any, batch: ActionBatch, *, fill: Any = 0) -> np.ndarray:
+def pack_row_values(values: Any, batch: Any, *, fill: Any = 0) -> np.ndarray:
     """Scatter per-row values into a batch's ``(G, A)`` layout, as numpy.
 
     The inverse of :func:`unpack_values`: ``values`` has one entry per
@@ -228,7 +297,7 @@ def pack_row_values(values: Any, batch: ActionBatch, *, fill: Any = 0) -> np.nda
     return out
 
 
-def unpack_values(values: torch.Tensor, batch: ActionBatch) -> np.ndarray:
+def unpack_values(values: torch.Tensor, batch: Any) -> np.ndarray:
     """Per-action output in the packed frame's row order, as numpy.
 
     Padding rows are dropped and valid rows scattered back to the

@@ -689,11 +689,8 @@ bool aligned(const void* p, uintptr_t bytes) {
 template <typename T, bool VEC, bool MULTI>
 cudaError_t launch_as(const T* tables, const T* w, const float* bias, const int32_t* ids,
                       const float* x, float* out, int n, int k, int r, int h, int d, int kc,
-                      cudaStream_t stream) {
+                      bool x_bulk, cudaStream_t stream) {
   const size_t smem = smem_bytes(k, kc);
-  // several passes copy x row by row: each row's part a 16-byte multiple
-  // (kc is a multiple of 8 there)
-  const bool x_bulk = aligned(x, 16) && (!MULTI || d % 4 == 0);
   int cap = 0;
   cudaError_t err = resident_blocks<T, VEC, MULTI>(smem, &cap);
   if (err != cudaSuccess) return err;
@@ -709,19 +706,24 @@ cudaError_t launch_as(const T* tables, const T* w, const float* bias, const int3
 
 template <typename T>
 int launch(const T* tables, const T* w, const float* bias, const int32_t* ids, const float* x,
-           float* out, int n, int k, int r, int h, int d, void* stream) {
+           float* out, int n, int k, int r, int h, int d, void* stream, int* plan) {
   if (n <= 0 || h <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kc = pass_width(k, d);
+  const bool multi = kc < d;
   const bool vec = h % 4 == 0 && aligned(tables, 4 * sizeof(T)) && aligned(bias, 16) &&
                    aligned(out, 16);
+  // several passes copy x row by row: each row's part a 16-byte multiple
+  // (kc is a multiple of 8 there)
+  const bool x_bulk = aligned(x, 16) && (!multi || d % 4 == 0);
+  if (plan != nullptr) *plan = (vec ? 1 : 0) | (multi ? 2 : 0) | (x_bulk ? 4 : 0);
   cudaError_t err;
-  if (kc < d) {
-    err = vec ? launch_as<T, true, true>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, st)
-              : launch_as<T, false, true>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, st);
+  if (multi) {
+    err = vec ? launch_as<T, true, true>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, x_bulk, st)
+              : launch_as<T, false, true>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, x_bulk, st);
   } else {
-    err = vec ? launch_as<T, true, false>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, st)
-              : launch_as<T, false, false>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, st);
+    err = vec ? launch_as<T, true, false>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, x_bulk, st)
+              : launch_as<T, false, false>(tables, w, bias, ids, x, out, n, k, r, h, d, kc, x_bulk, st);
   }
   return (int)err;
 }
@@ -739,19 +741,25 @@ size_t gather_matmul_smem_bytes(int k, int h, int d) {
 }
 
 // Each returns the cudaError_t of the launch (0 on success); the launch is
-// asynchronous on `stream` and allocates nothing.
+// asynchronous on `stream` and allocates nothing. Unless `plan` is null it
+// receives the instantiation launched: bit 0 vector table and output
+// access, bit 1 several passes over D, bit 2 x streamed by bulk copies.
 int gather_matmul_f32(const void* tables, const void* w, const void* bias, const void* ids,
-                      const void* x, void* out, int n, int k, int r, int h, int d, void* stream) {
+                      const void* x, void* out, int n, int k, int r, int h, int d, void* stream,
+                      int* plan) {
   return launch(static_cast<const float*>(tables), static_cast<const float*>(w),
                 static_cast<const float*>(bias), static_cast<const int32_t*>(ids),
-                static_cast<const float*>(x), static_cast<float*>(out), n, k, r, h, d, stream);
+                static_cast<const float*>(x), static_cast<float*>(out), n, k, r, h, d, stream,
+                plan);
 }
 
 int gather_matmul_bf16(const void* tables, const void* w, const void* bias, const void* ids,
-                       const void* x, void* out, int n, int k, int r, int h, int d, void* stream) {
+                       const void* x, void* out, int n, int k, int r, int h, int d, void* stream,
+                       int* plan) {
   return launch(static_cast<const __nv_bfloat16*>(tables), static_cast<const __nv_bfloat16*>(w),
                 static_cast<const float*>(bias), static_cast<const int32_t*>(ids),
-                static_cast<const float*>(x), static_cast<float*>(out), n, k, r, h, d, stream);
+                static_cast<const float*>(x), static_cast<float*>(out), n, k, r, h, d, stream,
+                plan);
 }
 
 }  // extern "C"

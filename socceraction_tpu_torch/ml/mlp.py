@@ -94,9 +94,10 @@ class AdamState(NamedTuple):
                          tuple(t.clone() for t in self.nu))
 
 
-def _generator(seed: int, stream: int) -> torch.Generator:
-    """A CPU generator for one stream of a classifier's seed."""
-    state = np.random.SeedSequence([seed % 2**32, stream]).generate_state(1)[0]
+def _generator(seed: int, *stream: int) -> torch.Generator:
+    """A CPU generator for one stream of a classifier's seed (a stream is
+    one or more non-negative ints)."""
+    state = np.random.SeedSequence([seed % 2**32, *stream]).generate_state(1)[0]
     return torch.Generator().manual_seed(int(state))
 
 
@@ -217,6 +218,151 @@ class _EpochTrainer:
                 'weight_norm': _global_norm(self.params),
             }
         return opt_state, losses_t.mean(), health
+
+
+def _labels(y: Any, device: torch.device) -> torch.Tensor:
+    """Labels as a flat f32 tensor on ``device``."""
+    return torch.as_tensor(y, dtype=torch.float32, device=device).reshape(-1)
+
+
+def _resolve_states(
+    batch: Any, *, names: Sequence[str], k: int, registry: str, device: torch.device
+) -> Tuple[Any, Any, Any]:
+    """``batch`` -> ``(TrainStates, TrainLayout, batch or None)``, held to
+    live on ``device``."""
+    from ..ops.fused import REGISTRIES, TrainStates, build_train_states
+
+    if registry not in REGISTRIES:
+        raise ValueError(f'unknown feature family {registry!r}: not one of {sorted(REGISTRIES)}')
+    if isinstance(batch, tuple) and len(batch) == 2 and isinstance(batch[0], TrainStates):
+        states, layout, raw = batch[0], batch[1], None
+        if layout.registry_name != registry:
+            raise ValueError(
+                f'packed states of the {layout.registry_name!r} family, '
+                f'registry={registry!r} asked for'
+            )
+    else:
+        states, layout = build_train_states(
+            batch, names=tuple(names), k=k, registry=REGISTRIES[registry]
+        )
+        raw = batch
+    if states.weight.device != device:
+        raise ValueError(f'the training rows live on {states.weight.device}, the classifier on {device}')
+    return states, layout, raw
+
+
+def _check_opt_state(opt_state: AdamState, module: nn.Module, device: torch.device) -> AdamState:
+    """A copy of a warm-start Adam state on ``device``, held to ``module``'s
+    parameter shapes."""
+    shapes = [tuple(p.shape) for p in module.parameters()]
+    if [tuple(t.shape) for t in opt_state.mu] != shapes or [
+        tuple(t.shape) for t in opt_state.nu
+    ] != shapes:
+        raise ValueError('init_opt_state does not match the parameters')
+    return AdamState(
+        int(opt_state.count),
+        tuple(t.to(device, copy=True) for t in opt_state.mu),
+        tuple(t.to(device, copy=True) for t in opt_state.nu),
+    )
+
+
+def _fit_loop(
+    clf: Any,
+    module: nn.Module,
+    data: Dict[str, torch.Tensor],
+    n: int,
+    loss_fn: Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor],
+    eval_data: Optional[Dict[str, torch.Tensor]] = None,
+    *,
+    path: str,
+    init_opt_state: Optional[AdamState] = None,
+) -> Any:
+    """The epoch loop of a head classifier: train, evaluate, early-stop,
+    keep the best; returns ``clf``.
+
+    ``clf`` is an :class:`MLPClassifier` or a
+    :class:`~socceraction_tpu_torch.seq.classifier.SeqClassifier`: the loop
+    reads its training knobs (``device``, ``batch_size``, ``seed``,
+    ``learning_rate``, ``max_epochs``, ``patience``) and sets its
+    ``module``, ``opt_state_`` and ``train_health_``. ``module`` is
+    snapshotted through its ``state_dict``. Each epoch with an eval set
+    ends in one read of its eval loss (the loop's only wait for the
+    device); the health scalars are read once, after the last epoch.
+    """
+    module.requires_grad_(True)
+    params = list(module.parameters())
+    opt_state = (
+        AdamState.zeros(params) if init_opt_state is None
+        else _check_opt_state(init_opt_state, module, clf.device)
+    )
+    trainer = _EpochTrainer(loss_fn, params, n, clf.batch_size, clf.seed, clf.learning_rate)
+    best_state: Optional[Dict[str, torch.Tensor]] = None
+    best_opt: Optional[AdamState] = None
+    best_loss = np.inf
+    bad_epochs = 0
+    epoch_health, epoch_losses, val_losses, seconds = [], [], [], []
+    for epoch in range(clf.max_epochs):
+        t0 = time.perf_counter()
+        opt_state, loss, health = trainer.run(opt_state, epoch, data)
+        epoch_health.append(health)
+        epoch_losses.append(loss)
+        if eval_data is not None:
+            with torch.no_grad():
+                ones = torch.ones_like(eval_data['w'])
+                vloss = float(loss_fn(eval_data, ones))
+            val_losses.append(vloss)
+        seconds.append(time.perf_counter() - t0)
+        if eval_data is not None:
+            if vloss < best_loss - 1e-6:
+                best_loss = vloss
+                # the Adam state is kept with the parameters it belongs to
+                best_state = {k: v.detach().clone() for k, v in module.state_dict().items()}
+                best_opt = opt_state.clone()
+                bad_epochs = 0
+            else:
+                bad_epochs += 1
+                if bad_epochs >= clf.patience:
+                    break
+    if best_state is not None:
+        module.load_state_dict(best_state)
+        opt_state = best_opt
+    clf.module = module.requires_grad_(False)
+    clf.opt_state_ = opt_state
+    clf.train_health_ = _train_health(epoch_health, epoch_losses, val_losses, seconds, path)
+    return clf
+
+
+def _train_health(
+    epoch_health: List[Dict[str, torch.Tensor]],
+    epoch_losses: List[torch.Tensor],
+    val_losses: List[float],
+    seconds: List[float],
+    path: str,
+) -> Dict[str, Any]:
+    """Read the per-epoch device scalars in one transfer: the
+    ``train_health_`` verdict of a fit."""
+    keys = ('nonfinite_steps', 'grad_norm', 'update_norm', 'weight_norm')
+    rows = (
+        torch.stack(
+            [torch.stack([h[k].to(torch.float32) for k in keys]) for h in epoch_health]
+        ).tolist()
+        if epoch_health else []
+    )
+    nonfinite = int(sum(r[0] for r in rows))
+    last = dict(zip(keys[1:], rows[-1][1:])) if rows else dict.fromkeys(keys[1:])
+    finite = nonfinite == 0 and all(v is None or np.isfinite(v) for v in last.values())
+    return {
+        'finite': bool(finite),
+        'path': path,
+        'epochs': len(rows),
+        'nonfinite_steps': nonfinite,
+        'grad_norm_last': last['grad_norm'],
+        'update_norm_last': last['update_norm'],
+        'weight_norm_last': last['weight_norm'],
+        'epoch_losses': torch.stack(epoch_losses).tolist() if epoch_losses else [],
+        'val_losses': val_losses,
+        'epoch_seconds': seconds,
+    }
 
 
 class MLPClassifier:
@@ -345,18 +491,6 @@ class MLPClassifier:
             )
         return copy.deepcopy(init_params).to(self.device)
 
-    def _check_opt_state(self, opt_state: AdamState, module: MLP) -> AdamState:
-        shapes = [tuple(p.shape) for p in module.parameters()]
-        if [tuple(t.shape) for t in opt_state.mu] != shapes or [
-            tuple(t.shape) for t in opt_state.nu
-        ] != shapes:
-            raise ValueError('init_opt_state does not match the parameters')
-        return AdamState(
-            int(opt_state.count),
-            tuple(t.to(self.device, copy=True) for t in opt_state.mu),
-            tuple(t.to(self.device, copy=True) for t in opt_state.nu),
-        )
-
     def _dense_logits(
         self, module: MLP, x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor
     ) -> torch.Tensor:
@@ -377,98 +511,6 @@ class MLPClassifier:
         return _hidden_chain(module, h, dt)
 
     # -- training --------------------------------------------------------------
-
-    def _fit_loop(
-        self,
-        module: MLP,
-        data: Dict[str, torch.Tensor],
-        n: int,
-        loss_fn: Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor],
-        eval_data: Optional[Dict[str, torch.Tensor]] = None,
-        *,
-        path: str,
-        init_opt_state: Optional[AdamState] = None,
-    ) -> 'MLPClassifier':
-        """The epoch loop: train, evaluate, early-stop, keep the best.
-
-        Each epoch with an eval set ends in one read of its eval loss (the
-        loop's only wait for the device); the health scalars are read once,
-        after the last epoch.
-        """
-        module.requires_grad_(True)
-        params = list(module.parameters())
-        opt_state = (
-            AdamState.zeros(params) if init_opt_state is None
-            else self._check_opt_state(init_opt_state, module)
-        )
-        trainer = _EpochTrainer(loss_fn, params, n, self.batch_size, self.seed, self.learning_rate)
-        best_state: Optional[Dict[str, torch.Tensor]] = None
-        best_opt: Optional[AdamState] = None
-        best_loss = np.inf
-        bad_epochs = 0
-        epoch_health, epoch_losses, val_losses, seconds = [], [], [], []
-        for epoch in range(self.max_epochs):
-            t0 = time.perf_counter()
-            opt_state, loss, health = trainer.run(opt_state, epoch, data)
-            epoch_health.append(health)
-            epoch_losses.append(loss)
-            if eval_data is not None:
-                with torch.no_grad():
-                    ones = torch.ones_like(eval_data['w'])
-                    vloss = float(loss_fn(eval_data, ones))
-                val_losses.append(vloss)
-            seconds.append(time.perf_counter() - t0)
-            if eval_data is not None:
-                if vloss < best_loss - 1e-6:
-                    best_loss = vloss
-                    # the Adam state is kept with the parameters it belongs to
-                    best_state = {k: v.detach().clone() for k, v in module.state_dict().items()}
-                    best_opt = opt_state.clone()
-                    bad_epochs = 0
-                else:
-                    bad_epochs += 1
-                    if bad_epochs >= self.patience:
-                        break
-        if best_state is not None:
-            module.load_state_dict(best_state)
-            opt_state = best_opt
-        self.module = module.requires_grad_(False)
-        self.opt_state_ = opt_state
-        self._record_train_health(epoch_health, epoch_losses, val_losses, seconds, path)
-        return self
-
-    def _record_train_health(
-        self,
-        epoch_health: List[Dict[str, torch.Tensor]],
-        epoch_losses: List[torch.Tensor],
-        val_losses: List[float],
-        seconds: List[float],
-        path: str,
-    ) -> None:
-        """Read the per-epoch device scalars in one transfer and store the
-        :attr:`train_health_` verdict."""
-        keys = ('nonfinite_steps', 'grad_norm', 'update_norm', 'weight_norm')
-        rows = (
-            torch.stack(
-                [torch.stack([h[k].to(torch.float32) for k in keys]) for h in epoch_health]
-            ).tolist()
-            if epoch_health else []
-        )
-        nonfinite = int(sum(r[0] for r in rows))
-        last = dict(zip(keys[1:], rows[-1][1:])) if rows else dict.fromkeys(keys[1:])
-        finite = nonfinite == 0 and all(v is None or np.isfinite(v) for v in last.values())
-        self.train_health_ = {
-            'finite': bool(finite),
-            'path': path,
-            'epochs': len(rows),
-            'nonfinite_steps': nonfinite,
-            'grad_norm_last': last['grad_norm'],
-            'update_norm_last': last['update_norm'],
-            'weight_norm_last': last['weight_norm'],
-            'epoch_losses': torch.stack(epoch_losses).tolist() if epoch_losses else [],
-            'val_losses': val_losses,
-            'epoch_seconds': seconds,
-        }
 
     def fit(
         self,
@@ -500,7 +542,7 @@ class MLPClassifier:
             ex = torch.as_tensor(np.asarray(eval_set[0], dtype=np.float32), device=self.device)
             ey = torch.as_tensor(np.asarray(eval_set[1], dtype=np.float32), device=self.device)
             eval_data = {'x': ex, 'y': ey.reshape(-1), 'w': torch.ones(ex.shape[0], device=self.device)}
-        return self._fit_loop(module, data, X.shape[0], loss_fn, eval_data, path='materialized')
+        return _fit_loop(self, module, data, X.shape[0], loss_fn, eval_data, path='materialized')
 
     def fit_packed(
         self,
@@ -509,6 +551,7 @@ class MLPClassifier:
         *,
         names: Sequence[str],
         k: int,
+        registry: str = 'standard',
         eval_set: Optional[Tuple[Any, Any]] = None,
         mean: Optional[torch.Tensor] = None,
         std: Optional[torch.Tensor] = None,
@@ -521,14 +564,17 @@ class MLPClassifier:
         Parameters
         ----------
         batch
-            An :class:`~socceraction_tpu_torch.core.batch.ActionBatch` on
-            this classifier's device, or a ``(TrainStates, TrainLayout)``
+            An :class:`~socceraction_tpu_torch.core.batch.ActionBatch` (an
+            ``AtomicActionBatch`` with ``registry='atomic'``) on this
+            classifier's device, or a ``(TrainStates, TrainLayout)``
             pair from :func:`~socceraction_tpu_torch.ops.fused.build_train_states`
             (several heads share one pack).
         y
             Labels, ``(G, A)`` or flat; padding rows weigh 0.
-        names, k
-            The feature layout (standard SPADL transformer names, states).
+        names, k, registry
+            The feature layout: transformer names, states and the feature
+            family (``'standard'`` or ``'atomic'``, a key of
+            :data:`~socceraction_tpu_torch.ops.fused.REGISTRIES`).
         eval_set
             Optional ``(batch_like, y)`` for early stopping.
         mean, std
@@ -546,21 +592,21 @@ class MLPClassifier:
             never changed.
         """
         module, data, loss_fn, make_data, states, layout = self._packed_problem(
-            batch, y, names=names, k=k, mean=mean, std=std, path=path, init_params=init_params,
+            batch, y, names=names, k=k, registry=registry, mean=mean, std=std, path=path,
+            init_params=init_params,
         )
         eval_data = None
         if eval_set is not None:
-            ev_states, ev_layout, ev_batch = self._resolve_states(eval_set[0], names=names, k=k)
+            ev_states, ev_layout, ev_batch = _resolve_states(
+                eval_set[0], names=names, k=k, registry=registry, device=self.device
+            )
             if ev_layout.n_features != layout.n_features:
                 raise ValueError('eval_set feature layout differs from train')
-            eval_data = make_data(ev_states, self._labels(eval_set[1]), ev_batch)
-        return self._fit_loop(
-            module, data, int(states.weight.shape[0]), loss_fn, eval_data,
+            eval_data = make_data(ev_states, _labels(eval_set[1], self.device), ev_batch)
+        return _fit_loop(
+            self, module, data, int(states.weight.shape[0]), loss_fn, eval_data,
             path=path, init_opt_state=init_opt_state,
         )
-
-    def _labels(self, y: Any) -> torch.Tensor:
-        return torch.as_tensor(y, dtype=torch.float32, device=self.device).reshape(-1)
 
     def _packed_problem(
         self,
@@ -569,6 +615,7 @@ class MLPClassifier:
         *,
         names: Sequence[str],
         k: int,
+        registry: str = 'standard',
         mean: Optional[torch.Tensor] = None,
         std: Optional[torch.Tensor] = None,
         path: str = 'fused',
@@ -577,13 +624,14 @@ class MLPClassifier:
         """The packed training problem: ``(module, data, loss_fn,
         make_data, states, layout)``, all :class:`_EpochTrainer` needs.
         Sets ``mean_``/``std_``."""
-        from ..ops.features import compute_features
         from ..ops.fused import fused_train_logits, packed_feature_stats
 
         if path not in ('fused', 'materialized'):
             raise ValueError(f'unknown training path {path!r}')
-        states, layout, raw_batch = self._resolve_states(batch, names=names, k=k)
-        yd = self._labels(y)
+        states, layout, raw_batch = _resolve_states(
+            batch, names=names, k=k, registry=registry, device=self.device
+        )
+        yd = _labels(y, self.device)
         if yd.shape[0] != states.weight.shape[0]:
             raise ValueError(
                 f'labels have {yd.shape[0]} rows, packed states have {states.weight.shape[0]}'
@@ -626,26 +674,12 @@ class MLPClassifier:
                         "path='materialized' needs ActionBatch inputs (precomputed "
                         'TrainStates cannot rebuild the feature tensor)'
                     )
-                feats = compute_features(batch, names=layout.names, k=layout.k)
+                reg = layout.registry
+                s = reg.make_states(batch, layout.k)
+                feats = torch.cat([reg.kernels[name](s) for name in layout.names], dim=-1)
                 return {'x': feats.reshape(-1, layout.n_features), 'w': states.weight, 'y': yd}
 
         return module, make_data(states, yd, raw_batch), loss_fn, make_data, states, layout
-
-    def _resolve_states(
-        self, batch: Any, *, names: Sequence[str], k: int
-    ) -> Tuple[Any, Any, Any]:
-        """``batch`` -> ``(TrainStates, TrainLayout, ActionBatch or None)``,
-        on this classifier's device."""
-        from ..ops.fused import TrainStates, build_train_states
-
-        if isinstance(batch, tuple) and len(batch) == 2 and isinstance(batch[0], TrainStates):
-            states, layout, raw = batch[0], batch[1], None
-        else:
-            states, layout = build_train_states(batch, names=tuple(names), k=k)
-            raw = batch
-        if states.weight.device != self.device:
-            raise ValueError(f'the training rows live on {states.weight.device}, the classifier on {self.device}')
-        return states, layout, raw
 
     # -- inference ---------------------------------------------------------------
 

@@ -248,9 +248,12 @@ _WIDTHS: Dict[str, Tuple[int, int, int]] = {
 }
 
 
-def kernel_width(name: str, k: int) -> int:
-    """Number of feature columns kernel ``name`` emits at ``k`` states."""
-    a, b, c = _WIDTHS[name]
+def kernel_width(
+    name: str, k: int, widths: Optional[Dict[str, Tuple[int, int, int]]] = None
+) -> int:
+    """Number of feature columns kernel ``name`` emits at ``k`` states, by
+    ``widths`` (default: the standard kernels' :data:`_WIDTHS`)."""
+    a, b, c = (_WIDTHS if widths is None else widths)[name]
     return a * k + b * (k - 1) + c
 
 

@@ -4,8 +4,9 @@ Port of ``socceraction_tpu/ops/fused.py``. With the
 default transformers, 513 of the 568 feature columns at ``k = 3`` are
 one-hots, and every one-hot id of a game state is a function of its
 (type, result, bodypart) triple. So each state's one-hot blocks fold into
-ONE combined ``(23·6·4 = 552, H)`` table of summed ``Dense_0`` rows, and a
-model's first layer is
+ONE combined ``(23·6·4 = 552, H)`` table of summed ``Dense_0`` rows (for
+Atomic-SPADL, 108 of 154 columns and a ``(32·4 = 128, H)`` table of
+(type group, bodypart)), and a model's first layer is
 
 ``h = bias + Σ_{i<k} table_i[combo_id_i] + x_dense @ W_dense``
 
@@ -31,13 +32,15 @@ activation frequency, read off segment-sum histograms of the ids.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.batch import ActionBatch
+from ..atomic.spadl import config as atomicconfig
 from ..spadl import config as spadlconfig
-from .features import KERNELS, _States, kernel_width
+from .atomic import _ONEHOT_GROUPS, ATOMIC_KERNELS, ATOMIC_WIDTHS, _AtomicStates
+from .features import _WIDTHS, KERNELS, _States, kernel_width
 from .gather_matmul import fused_first_layer, fused_first_layer_quant
 from .quant import (
     QuantizedArray,
@@ -50,8 +53,10 @@ from .quant import (
 from .segment import segment_sum, segment_sum_rows
 
 __all__ = [
+    'ATOMIC_REGISTRY',
     'FusedRegistry',
     'PreparedPair',
+    'REGISTRIES',
     'STANDARD_REGISTRY',
     'TrainLayout',
     'TrainStates',
@@ -74,14 +79,18 @@ _N_BODYPARTS = len(spadlconfig.bodyparts)
 class FusedRegistry(NamedTuple):
     """How one feature family's one-hot blocks fold into combined tables.
 
-    ``onehot_widths[name]`` is the block's columns per state;
-    ``combo_ids(states, i)`` gives state ``i``'s ``(G, A)`` combined id and
-    ``combo_rows[name]`` maps combined ids ``0..combo_size`` to the block's
-    own row ids.
+    ``name`` is the family's key in :data:`REGISTRIES`; ``widths[name]``
+    the ``(per state, per previous state, fixed)`` column multipliers of
+    each kernel; ``onehot_widths[name]`` a one-hot block's columns per
+    state; ``combo_ids(states, i)`` gives state ``i``'s ``(G, A)``
+    combined id and ``combo_rows[name]`` maps combined ids
+    ``0..combo_size`` to the block's own row ids.
     """
 
+    name: str
     kernels: Dict[str, Callable[[Any], torch.Tensor]]
-    make_states: Callable[[ActionBatch, int], Any]
+    widths: Dict[str, Tuple[int, int, int]]
+    make_states: Callable[[Any, int], Any]
     onehot_widths: Dict[str, int]
     combo_size: int
     combo_ids: Callable[[Any, int], torch.Tensor]
@@ -91,7 +100,9 @@ class FusedRegistry(NamedTuple):
 #: Standard SPADL layout; the type-major actiontype×result flattening
 #: matches :func:`~.features.compute_features`.
 STANDARD_REGISTRY = FusedRegistry(
+    name='standard',
     kernels=KERNELS,
+    widths=_WIDTHS,
     make_states=_States,
     onehot_widths={
         'actiontype_onehot': _N_TYPES,
@@ -111,16 +122,75 @@ STANDARD_REGISTRY = FusedRegistry(
     },
 )
 
+# Atomic one-hot columns are merged groups (both 'interception' ids share
+# one): a type id -> group index table keeps the group one-hot a single
+# row gather. Built from the kernel's own group table, so the two agree.
+_N_ATOMIC_GROUPS = len(_ONEHOT_GROUPS)
+_N_ATOMIC_BODYPARTS = len(atomicconfig.bodyparts)
+_ATOMIC_GROUP_OF_TYPE = [0] * len(atomicconfig.actiontypes)
+for _g, (_, _ids) in enumerate(_ONEHOT_GROUPS):
+    for _t in _ids:
+        _ATOMIC_GROUP_OF_TYPE[_t] = _g
+
+
+@functools.lru_cache(maxsize=None)
+def _atomic_group_table(device: torch.device) -> torch.Tensor:
+    """The type id -> group table on ``device``, made once per device: a
+    copy from the host on every call would wait for the card."""
+    return torch.tensor(_ATOMIC_GROUP_OF_TYPE, dtype=torch.int32, device=device)
+
+
+def _atomic_group(type_id: torch.Tensor) -> torch.Tensor:
+    """The one-hot group of each atomic type id."""
+    return _atomic_group_table(type_id.device)[type_id.long()]
+
+
+#: Atomic-SPADL layout (:mod:`.atomic`): 32 type groups x 4 bodyparts.
+ATOMIC_REGISTRY = FusedRegistry(
+    name='atomic',
+    kernels=ATOMIC_KERNELS,
+    widths=ATOMIC_WIDTHS,
+    make_states=_AtomicStates,
+    onehot_widths={
+        'actiontype_onehot': _N_ATOMIC_GROUPS,
+        'bodypart_onehot': _N_ATOMIC_BODYPARTS,
+    },
+    combo_size=_N_ATOMIC_GROUPS * _N_ATOMIC_BODYPARTS,
+    combo_ids=lambda s, i: _atomic_group(s.type_id[i]) * _N_ATOMIC_BODYPARTS + s.bodypart_id[i],
+    combo_rows={
+        'actiontype_onehot': lambda c: c // _N_ATOMIC_BODYPARTS,
+        'bodypart_onehot': lambda c: c % _N_ATOMIC_BODYPARTS,
+    },
+)
+
+#: Feature families by name (the JAX package's ``REGISTRIES``).
+REGISTRIES: Dict[str, FusedRegistry] = {
+    'standard': STANDARD_REGISTRY,
+    'atomic': ATOMIC_REGISTRY,
+}
+
 
 class TrainLayout(NamedTuple):
     """Static column layout of a feature family: ``spans`` lists
     ``(name, kind, offset, width)`` per transformer in column order, with
-    ``kind`` ``'onehot'`` or ``'dense'``."""
+    ``kind`` ``'onehot'`` or ``'dense'``; ``registry_name`` names the
+    family in :data:`REGISTRIES`."""
 
     names: Tuple[str, ...]
     k: int
     n_features: int
     spans: Tuple[Tuple[str, str, int, int], ...]
+    registry_name: str = 'standard'
+
+    @property
+    def registry(self) -> FusedRegistry:
+        """The family's :class:`FusedRegistry`."""
+        return REGISTRIES[self.registry_name]
+
+    @property
+    def n_dense(self) -> int:
+        """Columns of the dense sub-tensor."""
+        return sum(width for _, kind, _, width in self.spans if kind == 'dense')
 
 
 def train_layout(
@@ -128,7 +198,7 @@ def train_layout(
 ) -> TrainLayout:
     """The feature-column layout of ``names`` at ``k`` states.
 
-    Widths are static (:func:`~.features.kernel_width`), so no kernel runs.
+    Widths are static (``registry.widths``), so no kernel runs.
     """
     spans: List[Tuple[str, str, int, int]] = []
     off = 0
@@ -136,10 +206,10 @@ def train_layout(
         if name not in registry.kernels:
             raise ValueError(f'unknown feature kernel {name!r}')
         kind = 'onehot' if name in registry.onehot_widths else 'dense'
-        width = kernel_width(name, k)
+        width = kernel_width(name, k, registry.widths)
         spans.append((name, kind, off, width))
         off += width
-    return TrainLayout(tuple(names), k, off, tuple(spans))
+    return TrainLayout(tuple(names), k, off, tuple(spans), registry.name)
 
 
 def _layout_split(
@@ -283,7 +353,7 @@ def prepare_pair_fold(
 
 def _packed_rows(
     s: Any,
-    batch: ActionBatch,
+    batch: Any,
     *,
     names: Sequence[str],
     k: int,
@@ -326,7 +396,7 @@ def pair_probs_prepared(
     prep: PreparedPair,
     clf_a: Any,
     clf_b: Any,
-    batch: ActionBatch,
+    batch: Any,
     *,
     names: Sequence[str],
     k: int,
@@ -378,7 +448,7 @@ class TrainStates(NamedTuple):
 
 
 def build_train_states(
-    batch: ActionBatch,
+    batch: Any,
     *,
     names: Sequence[str],
     k: int,
@@ -412,9 +482,7 @@ def take_train_states(states: TrainStates, rows: torch.Tensor) -> TrainStates:
 
 
 def packed_feature_stats(
-    states: TrainStates,
-    layout: TrainLayout,
-    registry: FusedRegistry = STANDARD_REGISTRY,
+    states: TrainStates, layout: TrainLayout
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-feature-column ``(mean, std)`` f32 from the packed form.
 
@@ -429,6 +497,7 @@ def packed_feature_stats(
     agree to the last f32 bit or so. ``std`` is raw (zero where a column is
     constant); callers guard it.
     """
+    registry = layout.registry
     w = states.weight
     n = torch.clamp(w.sum(), min=1.0)
     combo = torch.arange(registry.combo_size, device=w.device)
@@ -492,7 +561,6 @@ def fused_train_logits(
     std: Optional[torch.Tensor] = None,
     compute_dtype: Optional[torch.dtype] = None,
     quantize: str = 'none',
-    registry: FusedRegistry = STANDARD_REGISTRY,
 ) -> torch.Tensor:
     """Differentiable logits ``(N,)`` of ``mlp`` over packed training rows.
 
@@ -517,7 +585,9 @@ def fused_train_logits(
         )
     blocks, dense_spans = _layout_split(layout)
     tables = fake_quant(
-        torch.stack([_combined_table(Wk, i, blocks, registry) for i in range(layout.k)]),
+        torch.stack(
+            [_combined_table(Wk, i, blocks, layout.registry) for i in range(layout.k)]
+        ),
         quantize,
     )
     if dense_spans and x_dense.shape[1]:

@@ -134,22 +134,38 @@ def fused_first_layer_quant(
     if n == 0 or h == 0:
         return out
     fn = getattr(lib, _TABLE_DTYPES[tables.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    plan = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(
             *(t.data_ptr() for t in operands), out.data_ptr(),
-            n, k, r, h, d, stream,
+            n, k, r, h, d, stream, ctypes.byref(plan),
         )
     if rc != 0:
         raise RuntimeError(f'gather_matmul kernel launch failed: cudaError_t {rc}')
     fused_first_layer_quant.launches += 1
+    name = plan_name(plan.value)
+    fused_first_layer_quant.plans[name] = fused_first_layer_quant.plans.get(name, 0) + 1
     return out
+
+
+def plan_name(plan: int) -> str:
+    """The instantiation of B1 a launch reported (bit 0 vector access,
+    bit 1 several passes over D, bit 2 x by bulk copies), in words."""
+    return ', '.join((
+        'vector' if plan & 1 else 'scalar',
+        'several passes over D' if plan & 2 else 'one pass over D',
+        'x by bulk copies' if plan & 4 else 'x row by row',
+    ))
 
 
 #: Kernel launches made through :func:`fused_first_layer_quant` (CUDA only).
 fused_first_layer_quant.launches = 0
+#: The same launches by the instantiation the kernel reported
+#: (:func:`plan_name` -> count).
+fused_first_layer_quant.plans = {}
 
 
 class _FusedFirstLayer(torch.autograd.Function):

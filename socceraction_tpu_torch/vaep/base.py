@@ -1,25 +1,30 @@
 """VAEP: valuing actions by estimating probabilities.
 
 Port of ``socceraction_tpu/vaep/base.py``. A :class:`VAEP` holds a scores
-head and a concedes head
-(:class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier`), trains them from
-packed batches and rates packed batches:
+head and a concedes head, both MLPs
+(:class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier`) or both GRU
+sequence heads (:class:`~socceraction_tpu_torch.seq.classifier.SeqClassifier`),
+trains them from packed batches and rates packed batches:
 
 - :meth:`VAEP.fit_packed` packs the training states, computes labels and
   standardization statistics from the packed form and trains both heads
-  with Adam through the fused first layer (the CUDA kernel on the card),
-  early-stopping on a validation split;
-- :meth:`VAEP.rate_batch` is the serving path: both heads' first layers
-  folded once into combined tables (optionally bf16/int8), one fused
-  gather + matmul first layer per batch, the hidden chains, and the VAEP
-  formula;
+  with Adam, the MLP through the fused first layer (the CUDA kernel on the
+  card), early-stopping on a validation split;
+- :meth:`VAEP.rate_batch` is the serving path. MLP heads: both heads'
+  first layers folded once into combined tables (optionally bf16/int8),
+  one fused gather + matmul first layer per batch, the hidden chains, and
+  the VAEP formula. Seq heads: both heads over one packing of the batch;
 - :meth:`VAEP.rate_batch_reference` is the same function through the
-  materialized feature tensor, in plain PyTorch, for parity checks.
+  materialized feature tensor (a fresh packing for seq heads), in plain
+  PyTorch, for parity checks.
 
+The feature family (kernels, labels, formula, fused layout, batch class)
+is a set of class-level handles, which
+:class:`~socceraction_tpu_torch.atomic.vaep.base.AtomicVAEP` swaps.
 :meth:`VAEP.save_model` writes, and :func:`load_model` reads, the JAX
-package's checkpoint directory (``meta.json`` with its format stamp and
-sha256 checksums, flax-msgpack heads), so a model moves between the two
-packages either way.
+package's checkpoint directory (``meta.json`` with its class, format
+stamp and sha256 checksums, flax-msgpack heads), so a model moves between
+the two packages either way.
 """
 
 from __future__ import annotations
@@ -34,13 +39,22 @@ import numpy as np
 import torch
 
 from ..config import NB_PREV_ACTIONS
-from ..core.batch import ActionBatch, bucket_games, pack_actions, pad_batch_games, unpack_values
+from ..core.batch import (
+    ActionBatch,
+    _PackedBatch,
+    bucket_games,
+    pack_actions,
+    pad_batch_games,
+    unpack_values,
+)
 from ..device import DeviceLike, resolve_device
 from ..ml.learners import PACKED_LEARNERS
 from ..ml.mlp import MLPClassifier
 from ..ops.features import KERNELS, compute_features
 from ..ops.formula import vaep_values
 from ..ops.fused import (
+    REGISTRIES,
+    FusedRegistry,
     PreparedPair,
     TrainLayout,
     TrainStates,
@@ -54,6 +68,8 @@ from ..ops.fused import (
 )
 from ..ops.labels import scores_concedes
 from ..ops.quant import check_quantize_mode
+from ..seq.classifier import SeqClassifier
+from ..seq.model import seq_pair_probs
 
 if TYPE_CHECKING:  # pandas is imported inside rate() only
     import pandas as pd
@@ -86,6 +102,10 @@ XFNS_DEFAULT: Tuple[str, ...] = (
 )
 
 _LABELS = ('scores', 'concedes')
+
+#: The head class of each packed learner. A warm head seeds a fit only when
+#: its class is the learner's: an MLP cannot seed a GRU, nor the reverse.
+_PACKED_HEAD_KINDS: Dict[str, type] = {'mlp': MLPClassifier, 'seq': SeqClassifier}
 
 
 class NotFittedError(ValueError):
@@ -127,7 +147,7 @@ def split_rows(
 
 
 class VAEP:
-    """VAEP serving over packed batches.
+    """VAEP over packed batches of SPADL actions.
 
     Parameters
     ----------
@@ -136,26 +156,37 @@ class VAEP:
     nb_prev_actions : int
         Game states per action (default 3).
     models : dict, optional
-        ``{'scores': MLPClassifier, 'concedes': MLPClassifier}`` on ``device``.
+        ``{'scores': head, 'concedes': head}`` on ``device``: two
+        ``MLPClassifier`` or two ``SeqClassifier`` (a mixed pair raises).
     device
         Where the model runs: ``cuda`` (default) or ``'cpu'``.
     """
+
+    # the feature family, swapped by AtomicVAEP
+    _default_xfns: Tuple[str, ...] = XFNS_DEFAULT
+    _kernels: Dict[str, Any] = KERNELS
+    _compute_features_kernel = staticmethod(compute_features)
+    _labels_kernel = staticmethod(scores_concedes)
+    _formula_kernel = staticmethod(vaep_values)
+    _fused_registry = 'standard'  # the family's key in ops.fused.REGISTRIES
+    _batch_class: type = ActionBatch
+    _pack = staticmethod(pack_actions)
 
     def __init__(
         self,
         xfns: Optional[Sequence[str]] = None,
         nb_prev_actions: int = NB_PREV_ACTIONS,
         *,
-        models: Optional[Dict[str, MLPClassifier]] = None,
+        models: Optional[Dict[str, Any]] = None,
         device: DeviceLike = None,
     ) -> None:
         self.device = resolve_device(device)
-        self.xfns = tuple(XFNS_DEFAULT if xfns is None else xfns)
-        unknown = [n for n in self.xfns if n not in KERNELS]
+        self.xfns = tuple(self._default_xfns if xfns is None else xfns)
+        unknown = [n for n in self.xfns if n not in self._kernels]
         if unknown:
             raise ValueError(f'feature transformers {unknown} have no kernel')
         self.nb_prev_actions = nb_prev_actions
-        self._models: Dict[str, MLPClassifier] = {}
+        self._models: Dict[str, Any] = {}
         if models is not None:
             if sorted(models) != sorted(_LABELS):
                 raise ValueError(f'models must be exactly {_LABELS}, got {sorted(models)}')
@@ -165,10 +196,15 @@ class VAEP:
                         f'head {col!r} lives on {clf.mean_.device}, the model on {self.device}'
                     )
             self._models = {col: models[col] for col in _LABELS}
+            self._head_kind()  # a mixed pair raises here
         #: cached (key, PreparedPair) serving fold, see _prepared_pair
         self._pair_prep: Optional[Tuple[Any, PreparedPair]] = None
         #: int8 scales restored from a quantized checkpoint (or None)
         self._quant_scales: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def _registry(self) -> FusedRegistry:
+        return REGISTRIES[self._fused_registry]
 
     # -- fitting -------------------------------------------------------------
 
@@ -176,11 +212,21 @@ class VAEP:
     def _iter_packed(batches: Any) -> Iterator[Any]:
         """``fit_packed``'s input as an iterator of batches or
         ``(batch, game_ids)`` pairs."""
-        if isinstance(batches, ActionBatch):
+        if isinstance(batches, _PackedBatch):
             return iter([batches])
-        if isinstance(batches, tuple) and len(batches) == 2 and isinstance(batches[0], ActionBatch):
+        if isinstance(batches, tuple) and len(batches) == 2 and isinstance(batches[0], _PackedBatch):
             return iter([batches])  # one (batch, game_ids) pair
         return iter(batches)
+
+    def _check_batch(self, batch: Any) -> None:
+        """Raise unless ``batch`` is this family's batch class on the model's device."""
+        if not isinstance(batch, self._batch_class):
+            raise TypeError(
+                f'{type(self).__name__} takes {self._batch_class.__name__}, '
+                f'got {type(batch).__name__}'
+            )
+        if batch.device != self.device:
+            raise ValueError(f'batch lives on {batch.device}, the model on {self.device}')
 
     def training_set(
         self, batches: Any, val_size: float = 0.25, random_state: Optional[int] = None
@@ -195,10 +241,9 @@ class VAEP:
         layout = None
         for item in self._iter_packed(batches):
             batch = item[0] if isinstance(item, (tuple, list)) else item
-            if batch.device != self.device:
-                raise ValueError(f'batch lives on {batch.device}, the model on {self.device}')
+            self._check_batch(batch)
             states, chunk_layout = build_train_states(
-                batch, names=self.xfns, k=self.nb_prev_actions
+                batch, names=self.xfns, k=self.nb_prev_actions, registry=self._registry
             )
             if layout is None:
                 layout = chunk_layout
@@ -206,7 +251,7 @@ class VAEP:
                 raise ValueError('packed chunks disagree on feature layout')
             chunks.append(states)
             label_chunks.append(
-                tuple(t.reshape(-1).to(torch.float32) for t in scores_concedes(batch))
+                tuple(t.reshape(-1).to(torch.float32) for t in self._labels_kernel(batch))
             )
         if layout is None:
             raise ValueError('fit_packed received no batches')
@@ -243,32 +288,33 @@ class VAEP:
         Parameters
         ----------
         batches
-            An :class:`~socceraction_tpu_torch.core.batch.ActionBatch` on
-            the model's device, an iterable of them, or an iterable of
-            ``(batch, game_ids)`` pairs.
+            A packed batch of this model's family (an
+            :class:`~socceraction_tpu_torch.core.batch.ActionBatch`, for
+            Atomic-VAEP an ``AtomicActionBatch``) on the model's device, an
+            iterable of them, or an iterable of ``(batch, game_ids)`` pairs.
         learner : str
-            ``'mlp'``: the fused MLP head. The sequence head (``'seq'``) is
-            not ported yet; tree learners need the feature matrix.
+            ``'mlp'``: the fused MLP head; ``'seq'``: the GRU sequence head.
+            Tree learners need the feature matrix and raise.
         val_size : float
             Row fraction held out for early stopping (reference: 0.25).
         tree_params, fit_params : dict, optional
-            :class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier` arguments
-            and ``fit_packed`` arguments of each head.
+            The head classifier's constructor arguments and ``fit_packed``
+            arguments of each head.
         random_state : int, optional
             Seed of the train/validation split (:func:`split_rows`).
         warm_start : VAEP, optional
-            A fitted model of the same feature layout whose heads seed this
-            fit: its parameters and Adam state, its hyperparameters (unless
-            ``tree_params`` overrides them) and its standardization
-            statistics, which the copied weights are a function of. It is
-            never changed.
+            A fitted model of the same feature layout. Each of its heads of
+            the learner's class seeds this fit: its parameters and Adam
+            state, its hyperparameters (unless ``tree_params`` overrides
+            them) and its standardization statistics, which the copied
+            weights are a function of. A head of the other architecture
+            copies nothing, and the fit computes fresh statistics. The
+            warm model is never changed.
 
         One statistics pass over the training rows serves both heads. The
         cached serving fold is dropped, so the next rating folds the new
         heads.
         """
-        if learner == 'seq':
-            raise ValueError("learner 'seq': the sequence head is not ported yet")
         if learner not in PACKED_LEARNERS:
             raise ValueError(
                 f'learner {learner!r} has no packed fit path (supported: '
@@ -276,11 +322,14 @@ class VAEP:
                 'feature matrix'
             )
         data = self.training_set(batches, val_size, random_state)
-        warm_models: Dict[str, MLPClassifier] = {}
+        head_cls = _PACKED_HEAD_KINDS[learner]
+        warm_models: Dict[str, Any] = {}
         if warm_start is not None:
-            warm_models = dict(warm_start._models)
-            if not warm_models:
+            if not warm_start._models:
                 raise ValueError('warm_start must be a fitted model')
+            warm_models = {
+                col: m for col, m in warm_start._models.items() if isinstance(m, head_cls)
+            }
         warm_head = next(iter(warm_models.values()), None)
         if warm_head is not None:
             if warm_head.mean_.shape[0] != data.layout.n_features:
@@ -311,8 +360,8 @@ class VAEP:
                 }
             models[col] = fit_fn(
                 (data.train, data.layout), data.y_train[col], eval_set, head_tree, head_fit,
-                names=self.xfns, k=self.nb_prev_actions, mean=mean, std=std,
-                device=self.device,
+                names=self.xfns, k=self.nb_prev_actions, registry=self._fused_registry,
+                mean=mean, std=std, device=self.device,
             )
         self._models = models
         # pinned int8 scales describe the weights they were derived from
@@ -325,14 +374,14 @@ class VAEP:
     def save_model(self, path: str) -> None:
         """Write the model as the JAX package's ``save_model`` does.
 
-        ``models/<head>.npz`` per head (:meth:`MLPClassifier.save`),
-        ``models/quant_scales.npz`` with the fold's int8 scales when the
-        model serves int8, and ``meta.json`` with the format stamp (the
-        oldest reader that can load it: 2 with a quantize mode, else 1)
-        and every artifact's sha256. Both packages' ``load_model`` read it.
+        ``models/<head>.npz`` per head (:meth:`MLPClassifier.save` or
+        :meth:`SeqClassifier.save`), ``models/quant_scales.npz`` with the
+        fold's int8 scales when the model serves int8, and ``meta.json``
+        with the model's class, the format stamp (the oldest reader that
+        can load it: 3 with seq heads, 2 with a quantize mode, else 1) and
+        every artifact's sha256. Both packages' ``load_model`` read it.
         """
-        if not self._models:
-            raise NotFittedError('fit the model before saving')
+        kind = self._head_kind()
         os.makedirs(os.path.join(path, 'models'), exist_ok=True)
         artifacts = []
         for col, model in self._models.items():
@@ -348,13 +397,13 @@ class VAEP:
             )
             artifacts.append(_QUANT_SCALES_ARTIFACT)
         meta = {
-            'format_version': 2 if quantize != 'none' else 1,
-            'class': 'VAEP',
+            'format_version': 3 if kind == 'seq' else 2 if quantize != 'none' else 1,
+            'class': type(self).__name__,
             'nb_prev_actions': self.nb_prev_actions,
             # the JAX package's loader builds its model with this backend
             'backend': 'jax',
             'xfns': list(self.xfns),
-            'heads': dict.fromkeys(self._models, 'mlp'),
+            'heads': dict.fromkeys(self._models, kind),
             **({'quantize': quantize} if quantize != 'none' else {}),
             'checksums': {
                 rel: _file_sha256(os.path.join(path, rel)) for rel in sorted(artifacts)
@@ -367,33 +416,55 @@ class VAEP:
 
     @property
     def quantize(self) -> str:
-        """The heads' shared table-storage mode: ``'none'``, ``'bf16'`` or ``'int8'``."""
-        modes = {m.quantize for m in self._models.values()}
+        """The MLP heads' shared table-storage mode: ``'none'``, ``'bf16'``
+        or ``'int8'`` (seq heads serve f32: ``'none'``)."""
+        modes = {m.quantize for m in self._models.values() if isinstance(m, MLPClassifier)}
         if len(modes) > 1:
             raise ValueError(f'heads disagree on quantize mode: {sorted(modes)}')
         return modes.pop() if modes else 'none'
 
     def set_quantize(self, mode: str) -> 'VAEP':
-        """Set the serving table-storage mode on both heads.
+        """Set the serving table-storage mode on both MLP heads.
 
         The prepared fold is rebuilt on the next rating; persisted int8
-        scales are dropped when the mode changes.
+        scales are dropped when the mode changes. A narrow mode needs MLP
+        heads: seq heads have no fold to quantize.
         """
         check_quantize_mode(mode)
-        if mode != 'none' and not self._models:
-            raise NotFittedError('load or set the heads before set_quantize')
+        if mode != 'none':
+            if not self._models:
+                raise NotFittedError('load or set the heads before set_quantize')
+            non_mlp = [c for c, m in self._models.items() if not isinstance(m, MLPClassifier)]
+            if non_mlp:
+                raise ValueError(
+                    f'quantized serving needs MLP heads; {non_mlp!r} are not (a seq head '
+                    'has no fused fold to quantize)'
+                )
         changed = mode != self.quantize
         for m in self._models.values():
-            m.quantize = mode
+            if isinstance(m, MLPClassifier):
+                m.quantize = mode
         self._pair_prep = None
         if changed:
             self._quant_scales = None
         return self
 
-    def _heads(self) -> Tuple[MLPClassifier, MLPClassifier]:
+    def _heads(self) -> Tuple[Any, Any]:
         if not self._models:
-            raise NotFittedError('this model has no heads to rate with')
+            raise NotFittedError('this model has no heads: fit or load them first')
         return self._models[_LABELS[0]], self._models[_LABELS[1]]
+
+    def _head_kind(self) -> str:
+        """``'mlp'`` or ``'seq'``: the learner both heads belong to. A mixed
+        pair raises (not ported)."""
+        heads = self._heads()
+        for kind, cls in _PACKED_HEAD_KINDS.items():
+            if all(isinstance(h, cls) for h in heads):
+                return kind
+        raise ValueError(
+            'the heads are of different kinds '
+            f'({[type(h).__name__ for h in heads]}); mixed MLP/seq pairs are not ported'
+        )
 
     def _prepared_pair(self) -> PreparedPair:
         """The serving fold, built once per (mode, heads) and cached.
@@ -419,6 +490,7 @@ class VAEP:
             clf_a, clf_b,
             names=self.xfns,
             k=self.nb_prev_actions,
+            registry=self._registry,
             quantize=mode,
             table_scale=scales.get('table_scale'),
             w_dense_scale=scales.get('w_dense_scale'),
@@ -429,15 +501,14 @@ class VAEP:
     # -- rating ------------------------------------------------------------
 
     def _overrides_on_device(
-        self, batch: ActionBatch, dense_overrides: Optional[Dict[str, Any]]
+        self, batch: Any, dense_overrides: Optional[Dict[str, Any]]
     ) -> Dict[str, torch.Tensor]:
-        """Validate ``dense_overrides`` by name and shape, before any padding
-        or dispatch, and move them to the model's device."""
-        if batch.device != self.device:
-            raise ValueError(f'batch lives on {batch.device}, the model on {self.device}')
+        """Check the batch, validate ``dense_overrides`` by name and shape,
+        before any padding or dispatch, and move them to the model's device."""
+        self._check_batch(batch)
         if not dense_overrides:
             return {}
-        layout = train_layout(self.xfns, self.nb_prev_actions)
+        layout = train_layout(self.xfns, self.nb_prev_actions, self._registry)
         widths = {name: width for name, kind, _, width in layout.spans if kind == 'dense'}
         out = {}
         for name, block in dense_overrides.items():
@@ -459,7 +530,7 @@ class VAEP:
     @torch.no_grad()
     def rate_batch(
         self,
-        batch: ActionBatch,
+        batch: Any,
         *,
         dense_overrides: Optional[Dict[str, Any]] = None,
         bucket: bool = True,
@@ -471,10 +542,13 @@ class VAEP:
         shape discipline; values of real games are unchanged) and slices the
         result back. ``dense_overrides`` substitutes precomputed
         ``(G, A, width)`` blocks for named dense feature kernels (a serving
-        layer injects the whole-match ``goalscore`` block this way). Values
-        on padding rows are garbage by contract.
+        layer injects the whole-match ``goalscore`` block this way). MLP
+        heads run through the prepared fold and kernel B1, seq heads both
+        over one packing of the batch. Values on padding rows are garbage
+        by contract.
         """
         clf_a, clf_b = self._heads()
+        kind = self._head_kind()
         overrides = self._overrides_on_device(batch, dense_overrides)
         n_games = batch.n_games
         target = bucket_games(n_games) if bucket else n_games
@@ -484,44 +558,66 @@ class VAEP:
                 name: torch.cat([b, b.new_zeros((target - n_games, *b.shape[1:]))])
                 for name, b in overrides.items()
             }
-        pa, pb = pair_probs_prepared(
-            self._prepared_pair(), clf_a, clf_b, batch,
-            names=self.xfns, k=self.nb_prev_actions, dense_overrides=overrides,
+        common = dict(
+            names=self.xfns, k=self.nb_prev_actions, registry=self._registry,
+            dense_overrides=overrides,
         )
-        return vaep_values(batch, pa, pb)[:n_games]
+        if kind == 'seq':
+            pa, pb = seq_pair_probs(clf_a, clf_b, batch, **common)
+        else:
+            pa, pb = pair_probs_prepared(self._prepared_pair(), clf_a, clf_b, batch, **common)
+        return self._formula_kernel(batch, pa, pb)[:n_games]
 
     @torch.no_grad()
     def rate_batch_reference(
         self,
-        batch: ActionBatch,
+        batch: Any,
         *,
         dense_overrides: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
-        """Materialized-path rating: the same function as :meth:`rate_batch`
-        through the full ``(G, A, F)`` feature tensor, in plain PyTorch."""
-        clf_a, clf_b = self._heads()
+        """Reference rating: the same function as :meth:`rate_batch` in
+        plain PyTorch. MLP heads read the full ``(G, A, F)`` feature
+        tensor; seq heads a fresh packing of the batch, each on its own."""
+        heads = self._heads()
+        kind = self._head_kind()
         overrides = self._overrides_on_device(batch, dense_overrides)
-        feats = compute_features(batch, names=self.xfns, k=self.nb_prev_actions)
-        if overrides:
-            layout = train_layout(self.xfns, self.nb_prev_actions)
-            offsets = {name: off for name, _, off, _ in layout.spans}
-            for name, block in overrides.items():
-                feats[..., offsets[name] : offsets[name] + block.shape[-1]] = block
-        return vaep_values(
-            batch, clf_a.predict_proba_device(feats), clf_b.predict_proba_device(feats)
-        )
+        k = self.nb_prev_actions
+        if kind == 'seq':
+            states, layout = build_train_states(
+                batch, names=self.xfns, k=k, registry=self._registry
+            )
+            if overrides:
+                x = states.x_dense.clone()
+                dense_off = 0
+                for name, dkind, _, width in layout.spans:
+                    if dkind != 'dense':
+                        continue
+                    if name in overrides:
+                        x[:, dense_off : dense_off + width] = overrides[name].reshape(-1, width)
+                    dense_off += width
+                states = states._replace(x_dense=x)
+            shape = (batch.n_games, batch.max_actions)
+            probs = [h.predict_proba_states(states, layout).reshape(shape) for h in heads]
+        else:
+            feats = self._compute_features_kernel(batch, names=self.xfns, k=k)
+            if overrides:
+                layout = train_layout(self.xfns, k, self._registry)
+                offsets = {name: off for name, _, off, _ in layout.spans}
+                for name, block in overrides.items():
+                    feats[..., offsets[name] : offsets[name] + block.shape[-1]] = block
+            probs = [h.predict_proba_device(feats) for h in heads]
+        return self._formula_kernel(batch, *probs)
 
     def rate(self, game: Any, game_actions: 'pd.DataFrame') -> 'pd.DataFrame':
         """Offensive/defensive/total VAEP value of each action of one game.
 
         ``game`` needs a ``home_team_id``; ``game_actions`` is the game's
-        SPADL frame. Returns a frame indexed like ``game_actions``.
+        frame in this model's action language. Returns a frame indexed like
+        ``game_actions``.
         """
         import pandas as pd
 
-        batch, _ = pack_actions(
-            game_actions, home_team_id=game.home_team_id, device=self.device
-        )
+        batch, _ = self._pack(game_actions, home_team_id=game.home_team_id, device=self.device)
         return pd.DataFrame(
             unpack_values(self.rate_batch(batch), batch),
             columns=['offensive_value', 'defensive_value', 'vaep_value'],
@@ -574,33 +670,41 @@ def _verify_checksums(meta: Dict[str, Any], path: str) -> None:
 
 
 def load_model(path: str, *, device: DeviceLike = None) -> VAEP:
-    """Load a directory written by the JAX package's ``VAEP.save_model``.
+    """Load a directory written by either package's ``save_model``.
 
     Checks the format version and every artifact's sha256 before reading
-    it, restores both MLP heads on ``device`` (default ``cuda``), the
+    it, dispatches on the stored class (``'VAEP'``, or ``'AtomicVAEP'``
+    for :class:`~socceraction_tpu_torch.atomic.vaep.base.AtomicVAEP`),
+    restores both heads (MLP or seq) on ``device`` (default ``cuda``), the
     quantize mode and, for int8, the persisted scales, so the model serves
-    the bytes the saved version served. Atomic-VAEP, tree and sequence
-    heads are not ported yet and raise.
+    the bytes the saved version served. Tree heads are not ported and
+    raise.
     """
+    from ..atomic.vaep.base import AtomicVAEP
+
     dev = resolve_device(device)
     with open(os.path.join(path, 'meta.json')) as f:
         meta = json.load(f)
     _check_format_version(meta, path)
-    if meta['class'] != 'VAEP':
-        raise ValueError(f'checkpoint class {meta["class"]!r} is not ported; only VAEP is')
+    classes = {'VAEP': VAEP, 'AtomicVAEP': AtomicVAEP}
+    if meta['class'] not in classes:
+        raise ValueError(
+            f'checkpoint class {meta["class"]!r} is not ported; only {sorted(classes)} are'
+        )
     _verify_checksums(meta, path)
+    loaders = {'mlp': MLPClassifier.load, 'seq': SeqClassifier.load}
     models = {}
     for col, kind in meta['heads'].items():
-        if kind != 'mlp':
-            raise ValueError(f'head {col!r} is a {kind!r} head; only MLP heads are ported')
-        models[col] = MLPClassifier.load(
-            os.path.join(path, 'models', f'{col}.npz'), device=dev
-        )
+        if kind not in loaders:
+            raise ValueError(f'head {col!r} is a {kind!r} head; only MLP and seq heads are ported')
+        models[col] = loaders[kind](os.path.join(path, 'models', f'{col}.npz'), device=dev)
     quantize = check_quantize_mode(meta.get('quantize', 'none'))
     for m in models.values():
-        if quantize != 'none':
+        if quantize != 'none' and isinstance(m, MLPClassifier):
             m.quantize = quantize
-    model = VAEP(meta['xfns'], meta['nb_prev_actions'], models=models, device=dev)
+    model = classes[meta['class']](
+        meta['xfns'], meta['nb_prev_actions'], models=models, device=dev
+    )
     scales_path = os.path.join(path, _QUANT_SCALES_ARTIFACT)
     if quantize == 'int8' and os.path.isfile(scales_path):
         with np.load(scales_path) as data:

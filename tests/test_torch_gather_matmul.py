@@ -256,3 +256,23 @@ def test_kernel_takes_wide_dense_blocks_and_many_tables_on_the_card(cuda, dtype,
     torch.cuda.synchronize()
     assert tgm.fused_first_layer_quant.launches == before + 1
     torch.testing.assert_close(got, tgm.fused_first_layer_reference(*args), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n', [851968, 4097], ids=['serving', 'ragged'])
+def test_kernel_at_the_atomic_serving_shape_on_the_card(cuda, dtype, n):
+    """Atomic-VAEP serving: 128 combined-table rows, D = 46 dense columns
+    (184 bytes a row of x, so a tile's x is a 16-byte multiple only at
+    whole 64-row tiles) and H = 256; one launch, held to the plain version
+    as the standard shape is."""
+    args = _torch(_operands(n, 3, 128, 256, 46, seed=46), dtype, cuda)
+    before = tgm.fused_first_layer_quant.launches
+    plans = dict(tgm.fused_first_layer_quant.plans)
+    got = tgm.fused_first_layer_quant(*args)
+    torch.cuda.synchronize()
+    assert tgm.fused_first_layer_quant.launches == before + 1
+    # one pass over D, so x takes bulk copies though 46 is not a multiple of 4
+    plan = tgm.plan_name(1 | 4)
+    assert tgm.fused_first_layer_quant.plans.get(plan, 0) == plans.get(plan, 0) + 1
+    torch.testing.assert_close(got, tgm.fused_first_layer_reference(*args), atol=1e-4, rtol=1e-5)

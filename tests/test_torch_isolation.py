@@ -5,8 +5,9 @@
   The port's own name starts with ``socceraction_tpu``, so the check
   matches top-level module names exactly, never by prefix.
 - The modules ``chip_smoke.py`` runs import with those packages, and
-  ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked; its xT
-  and training phases also run so, at a tiny size on the CPU.
+  ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked; its xT,
+  training, Atomic-VAEP and sequence-head phases also run so, at a tiny
+  size on the CPU.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -24,12 +25,15 @@ import pytest
 import torch
 
 from socceraction_tpu_torch import convert
+from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
 from socceraction_tpu_torch.core import batch as tbatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch import xthreat
 from socceraction_tpu_torch.device import resolve_device
 from socceraction_tpu_torch.ml.mlp import MLPClassifier
 from socceraction_tpu_torch.ops import segment
+from socceraction_tpu_torch.seq.classifier import SeqClassifier
+from socceraction_tpu_torch.seq.model import init_seq_params
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,6 +55,11 @@ def test_the_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert 'socceraction_tpu_torch/vaep/base.py' in names
     assert 'chip_smoke.py' in names
+    for module in (
+        'atomic/spadl/config.py', 'atomic/vaep/base.py', 'ops/atomic.py', 'seq/model.py',
+        'seq/classifier.py',
+    ):
+        assert f'socceraction_tpu_torch/{module}' in names
 
 
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -91,6 +100,24 @@ params = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 2}
 run = chip_smoke.fit_vaep(synthetic_batch(2, 256, seed=5, device='cpu'), params, 'cpu')
 chip_smoke.check_fit(run, params)
 chip_smoke.compare_training(run, run, params)
+# its Atomic-VAEP phase: serving, an MLP fit and a seq fit
+from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
+import socceraction_tpu_torch.ops.atomic, socceraction_tpu_torch.seq.model
+model = chip_smoke.make_model('cpu', (8,), AtomicVAEP)
+batch = chip_smoke.atomic_batch(2, 256, seed=0, device='cpu')
+chip_smoke.check_against_reference(model, batch, model.rate_batch(batch), 'atomic')
+run = chip_smoke.fit_vaep(chip_smoke.atomic_batch(2, 256, seed=5, device='cpu'), params, 'cpu',
+                          model_cls=AtomicVAEP)
+chip_smoke.check_fit(run, params)
+chip_smoke.compare_training(run, run, params)
+# and its sequence-head phase
+seq = {'batch_size': 256, 'max_epochs': 2, 'embed_dim': 8, 'hidden': 16, 'readout': 16}
+for fit in ({}, {'model_cls': AtomicVAEP}):
+    batch = chip_smoke.make_batch(fit.get('model_cls', chip_smoke.VAEP), 2, 256, seed=5, device='cpu')
+    run = chip_smoke.fit_vaep(batch, seq, 'cpu', learner='seq', **fit)
+    chip_smoke.check_fit(run, seq)
+    chip_smoke.compare_training(run, run, seq)
+    chip_smoke.check_against_reference(run['model'], batch, run['model'].rate_batch(batch), 'seq')
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -135,6 +162,21 @@ ENTRY_POINTS = {
         torch.ones(3, device=resolve_device(None)), torch.zeros(3, dtype=torch.int32), 2
     ),
     'MLPClassifier': lambda: MLPClassifier(hidden=(8,)),
+    'AtomicVAEP': lambda: AtomicVAEP(),
+    'pack_atomic_actions': lambda: tbatch.pack_atomic_actions(
+        pd.DataFrame({'game_id': [1], 'team_id': [1]}), home_team_id=1
+    ),
+    'SeqClassifier': lambda: SeqClassifier(),
+    'SeqClassifier.load': lambda: SeqClassifier.load('no-such-head.npz'),
+    'init_seq_params': lambda: init_seq_params(
+        0, combo_size=4, n_dense=1, embed_dim=2, hidden=2, readout=2
+    ),
+    'AtomicActionBatch.to': lambda: tbatch.pack_atomic_actions(
+        pd.DataFrame({c: [0] for c in (
+            'game_id', 'team_id', 'type_id', 'bodypart_id', 'period_id', 'time_seconds',
+            'x', 'y', 'dx', 'dy',
+        )}), home_team_id=0, device='cpu',
+    )[0].to('cuda'),
     'VAEP(cpu).fit_packed(cuda batch)': lambda: VAEP(device='cpu').fit_packed(synthetic_batch(1, 128)),
 }
 

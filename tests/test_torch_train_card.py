@@ -16,7 +16,7 @@ from socceraction_tpu_torch.ml.mlp import MLPClassifier
 from socceraction_tpu_torch.ops import gather_matmul as tgm
 from socceraction_tpu_torch.ops import segment as tseg
 from socceraction_tpu_torch.ops.labels import scores_concedes
-from socceraction_tpu_torch.vaep.base import XFNS_DEFAULT
+from socceraction_tpu_torch.vaep.base import VAEP, XFNS_DEFAULT
 
 R = 552
 
@@ -121,3 +121,24 @@ def test_training_is_reproducible_on_the_card(cuda):
     ]
     for p, q in zip(fits[0].module.parameters(), fits[1].module.parameters()):
         assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_seq_fit_is_reproducible_on_the_card(cuda):
+    """A 64-game fit of the GRU sequence head (default widths, minibatches
+    of 8192, 2 epochs) gives the same bits twice on the card: the
+    embedding's backward is the fixed-order one-hot row sum; it launches B2
+    for the statistics and B1 never."""
+    batch = synthetic_batch(64, 1664, seed=5, device=cuda)
+    params = {'batch_size': 8192, 'max_epochs': 2, 'learning_rate': 3e-4}
+    b1, b2 = tgm.fused_first_layer_quant.launches, tseg.segment_sum.launches
+    fits = [
+        VAEP(device=cuda).fit_packed(batch, learner='seq', tree_params=params, random_state=0)
+        for _ in range(2)
+    ]
+    assert tgm.fused_first_layer_quant.launches == b1
+    assert tseg.segment_sum.launches - b2 == 2 * 15
+    for col in ('scores', 'concedes'):
+        assert fits[0]._models[col].train_health_['finite']
+        for p, q in zip(fits[0]._models[col].module.parameters(), fits[1]._models[col].module.parameters()):
+            assert torch.equal(p, q)

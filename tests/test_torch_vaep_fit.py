@@ -163,7 +163,7 @@ def test_warm_start_reuses_stats_and_weights(fitted):
 
 @pytest.mark.parametrize(
     'learner, match',
-    [('sklearn', 'packed fit path'), ('xgboost', 'packed fit path'), ('seq', 'not ported')],
+    [('sklearn', 'packed fit path'), ('xgboost', 'packed fit path'), ('lightgbm', 'packed fit path')],
 )
 def test_fit_packed_rejects_unported_learners(learner, match):
     with pytest.raises(ValueError, match=match):
