@@ -58,6 +58,22 @@ exits non-zero:
    together, and once more on the card; a 64-game Atomic-VAEP seq fit on
    the card, rated against its reference.
 
+9. the season feed: phase 5's draw (3072 x 1664, host copy) written into a
+   packed-season cache through ``PackedSeasonWriter`` over a stand-in
+   store (the card's machine reads no parquet or HDF5), streamed by
+   ``iter_batches`` in 6 chunks of 512 games two chunks ahead and
+   synchronously, every chunk held bitwise to the batch built directly
+   from the same arrays and rated through B1 (values within 1e-6 of the
+   direct batches'); three timed epochs at each depth beside the consumer
+   alone, the stage medians, one chunk's wire copied alone from pinned
+   memory, a profile's idle share; the whole season taken at once and
+   fitted (16 x 12), held to phase 5's fit (equal sweeps, grid 1e-6); a
+   ragged 512-game Atomic-SPADL cache taken whole, held bitwise and rated;
+10. counterfactuals: ``rate_scenarios_batch`` over a 12 x 8 end-location
+   grid (96 perturbations) and 4 games, one launch of B1, against the
+   loop of 96 ``rate_batch`` calls and the reference on the first 4
+   perturbations (1e-5), with both values/s.
+
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
 
@@ -69,10 +85,12 @@ Before the last line it prints one JSON object of kernel records
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +107,18 @@ from socceraction_tpu_torch.ops import fused as fused_ops
 from socceraction_tpu_torch.ops import gather_matmul as gm
 from socceraction_tpu_torch.ops import segment as seg
 from socceraction_tpu_torch.ops import xt as xtops
+from socceraction_tpu_torch.obs import REGISTRY
 from socceraction_tpu_torch.ops.fused import train_layout
+from socceraction_tpu_torch.pipeline.feed import iter_batches
+from socceraction_tpu_torch.pipeline.packed import PackedSeason, PackedSeasonWriter
+from socceraction_tpu_torch.scenario import (
+    ScenarioGrid,
+    decision_surface,
+    end_location_grid,
+    rate_scenarios_batch,
+    rate_scenarios_looped,
+    rate_scenarios_reference,
+)
 from socceraction_tpu_torch.vaep.base import VAEP, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 
@@ -129,6 +158,16 @@ SEQ_PARAMS = {'batch_size': 8192, 'max_epochs': 3}
 SEQ_PARITY_PARAMS = {**SEQ_PARAMS, 'max_epochs': 2, 'learning_rate': 1e-4}
 #: Shapes of B1 at serving: (combined-table rows, dense columns) per family.
 SERVING_SHAPES = {'standard': (552, 55), 'atomic': (128, 46)}
+#: The season feed (phase 9): the xT draw streamed from its packed cache in
+#: chunks of 512 games, two chunks ahead.
+FEED_GAMES = 512
+FEED_PREFETCH = 2
+#: Where phase 9 writes its caches (git-ignored, removed at the end).
+FEED_DIR = os.path.join('build', 'feed')
+#: Counterfactuals (phase 10): a 12 x 8 end-location grid (96
+#: perturbations) over 4 games, folded to 384 games (bucketed to 512).
+SCENARIO_GAMES = 4
+SCENARIO_GRID = (12, 8)
 
 
 def card_identity() -> str:
@@ -1097,6 +1136,439 @@ def training_phase(
     return run
 
 
+# -- the season feed (phase 9) --------------------------------------------------------
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op for the CPU)."""
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def kernel_launches(n: int, device: torch.device) -> int:
+    """The launches ``n`` calls of a kernel's wrapper count on ``device``:
+    on the CPU a wrapper runs its plain version and counts none."""
+    return n if device.type == 'cuda' else 0
+
+
+class ArrayStore:
+    """A stand-in for a ``SeasonStore`` over arrays (phase 9).
+
+    The card's machine has no pandas, pyarrow or h5py, so it reads no
+    parquet or HDF5 store; its packed caches are written from arrays.
+    ``PackedSeasonWriter`` and the feed need of a store only a ``path``
+    (an empty directory here, which the cache fingerprints), the game ids
+    and their home teams.
+    """
+
+    def __init__(self, path: str, n_games: int) -> None:
+        os.makedirs(path)
+        self.path = path
+        self._ids = list(range(n_games))
+
+    def game_ids(self) -> List[int]:
+        return list(self._ids)
+
+    def home_team_ids(self) -> Dict[int, int]:
+        return {g: 0 for g in self._ids}
+
+
+def direct_chunk(draw: Any, lo: int, hi: int) -> Any:
+    """Games ``lo:hi`` of a left-aligned host draw as the family's packer
+    makes them: the rows sliced, ``game_id`` and ``row_index`` chunk-local
+    (valid rows numbered in order, -1 on padding)."""
+    f = {n: t[lo:hi] for n, t in draw.fields().items()}
+    mask = f['mask'].numpy()
+    row_index = np.full(mask.shape, -1, dtype=np.int32)
+    row_index[mask] = np.arange(int(mask.sum()), dtype=np.int32)
+    f['row_index'] = torch.from_numpy(row_index)
+    f['game_id'] = torch.arange(hi - lo, dtype=torch.int32)
+    return type(draw)(**f)
+
+
+class FeedSource(NamedTuple):
+    """A packed cache and how phase 9 streams it."""
+
+    store: ArrayStore
+    cache_dir: str
+    games: int  # per chunk
+    max_actions: int
+
+    def epoch(self, prefetch: int, device: torch.device) -> Any:
+        """One pass of ``iter_batches`` over the cache."""
+        return iter_batches(self.store, self.games, max_actions=self.max_actions,
+                            packed_cache=self.cache_dir, prefetch=prefetch, device=device)
+
+
+def write_cache(draw: Any, store: ArrayStore, cache_dir: str, family: str, games: int) -> PackedSeason:
+    """A host draw written into a packed cache, ``games`` at a time, and opened."""
+    writer = PackedSeasonWriter(
+        store, max_actions=draw.max_actions, cache_dir=cache_dir, family=family
+    )
+    for lo in range(0, draw.n_games, games):
+        writer.write_chunk(lo, direct_chunk(draw, lo, min(lo + games, draw.n_games)))
+    return writer.finalize()
+
+
+def ragged_atomic_draw(n_games: int, n_actions: int, *, seed: int, low: int) -> AtomicActionBatch:
+    """:func:`atomic_batch` on the CPU with game lengths drawn in
+    ``[low, n_actions]`` and the padding zeroed as the packer leaves it."""
+    batch = atomic_batch(n_games, n_actions, seed=seed, device='cpu')
+    lengths = np.random.default_rng(seed + 1).integers(low, n_actions + 1, size=n_games)
+    mask = np.arange(n_actions)[None, :] < lengths[:, None]
+    f = {}
+    for name, t in batch.fields().items():
+        a = t.numpy().copy()
+        if a.ndim == 2:
+            a[~mask] = 0
+        f[name] = torch.from_numpy(a)
+    f['mask'] = torch.from_numpy(mask)
+    f['n_actions'] = torch.from_numpy(lengths.astype(np.int32))
+    return direct_chunk(AtomicActionBatch(**f), 0, n_games)
+
+
+def assert_batch_equal(got: Any, want: Any, label: str) -> None:
+    """Raise unless every field of ``got`` equals ``want``'s bit for bit
+    (same dtype, same shape, same values)."""
+    for name, a in got.fields().items():
+        b = getattr(want, name).to(a.device)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f'{label}: field {name} differs from the directly built batch')
+
+
+def masked_gap(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> float:
+    """The largest |a - b| over the valid rows (values on padding rows are
+    garbage by contract)."""
+    return float((a - b).abs()[mask].max())
+
+
+def check_epoch(
+    model: VAEP, source: FeedSource, directs: List[Any], want: List[torch.Tensor],
+    prefetch: int, device: torch.device, label: str,
+) -> Dict[str, Any]:
+    """One epoch of the feed through the entry points, every chunk held
+    bitwise to its direct batch and rated, its values held to the direct
+    batch's within 1e-6."""
+    n, gap, values = 0, 0.0, []
+    for (batch, ids), direct, ref in zip(source.epoch(prefetch, device), directs, want):
+        assert_batch_equal(batch, direct, f'{label}, chunk {n}')
+        v = model.rate_batch(batch)
+        gap = max(gap, masked_gap(v, ref, batch.mask))
+        values.append(v)
+        n += 1
+    if n != len(directs):
+        raise RuntimeError(f'{label}: the feed yielded {n} chunks, not {len(directs)}')
+    if not gap <= 1e-6:
+        raise RuntimeError(f"{label}: fed values are {gap} from the direct batches' values")
+    return {'chunks': n, 'max_abs_gap': gap, 'values': values}
+
+
+def _stage(name: str) -> Any:
+    """The ``pipeline/stage_seconds`` series of one stage, as a snapshot."""
+    return REGISTRY.snapshot().series('pipeline/stage_seconds', stage=name)
+
+
+def timed_epoch(model: VAEP, source: FeedSource, prefetch: int, device: torch.device) -> Dict[str, Any]:
+    """One epoch, fed and rated, timed on the host's clock up to a sync.
+
+    Returns the wall seconds, the rated actions, the consumer's time
+    blocked on the feed's queue (prefetch > 0), and with ``prefetch=0``
+    each chunk's ``read_cache`` and ``transfer`` seconds (the stages run
+    on this thread then, so each chunk's sample is the series' last).
+    """
+    stages = ('feed_wait', 'read_cache', 'transfer')
+    before = {k: _stage(k) for k in stages}
+    samples: Dict[str, List[float]] = {'read_cache': [], 'transfer': []}
+    values, actions = [], 0
+    sync(device)
+    t0 = time.perf_counter()
+    for batch, _ in source.epoch(prefetch, device):
+        values.append(model.rate_batch(batch))
+        actions += batch.mask.numel()
+        if prefetch == 0:
+            for k in samples:
+                samples[k].append(_stage(k).last)
+    sync(device)
+    wall = time.perf_counter() - t0
+    del values
+
+    def total(k: str) -> float:
+        a, b = before[k], _stage(k)
+        return (b.total if b else 0.0) - (a.total if a else 0.0)
+
+    out = {'prefetch': prefetch, 'wall_s': wall, 'actions': actions,
+           'actions_per_s': actions / wall,
+           **{f'{k}_s': total(k) for k in stages}}
+    out['feed_wait_share'] = out['feed_wait_s'] / wall
+    if prefetch == 0:
+        out.update({f'{k}_median_ms': float(np.median(v)) * 1e3 for k, v in samples.items()})
+        out.update({f'{k}_ms': [x * 1e3 for x in v] for k, v in samples.items()})
+    return out
+
+
+def device_busy(fn: Callable[[], Any]) -> Dict[str, Any]:
+    """``torch.profiler`` over one synchronized call of ``fn``: the wall
+    milliseconds, the device's busy milliseconds (the union over every
+    stream of its kernels and copies), its idle share, and the summed
+    kernel and copy milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kernel_us, copy_us = [], 0.0, 0.0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        if 'memcpy' in evt.name.lower():
+            copy_us += end - start
+        else:
+            kernel_us += end - start
+    spans.sort()
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    return {'wall_ms': wall_ms, 'busy_ms': busy_us / 1e3, 'idle_share': 1.0 - busy_us / 1e3 / wall_ms,
+            'kernel_ms': kernel_us / 1e3, 'copy_ms': copy_us / 1e3, 'device_events': len(spans)}
+
+
+def pinned_copy_ms(nbytes: int, reps: int = 10) -> float:
+    """Device milliseconds of one host-to-device copy of ``nbytes`` from
+    pinned memory, alone on the card (CUDA events, median of ``reps``)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device='cuda')
+    dst.copy_(src, non_blocking=True)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def feed_phase(
+    model: VAEP, draw: ActionBatch, fit: Dict[str, Any], device: torch.device,
+    card: str = 'CPU', games: int = FEED_GAMES, atomic_low: int = 1200,
+) -> Dict[str, Any]:
+    """Phase 9: the draw written into a packed cache and streamed from it
+    through ``iter_batches`` onto ``device``, two chunks ahead and
+    synchronously; every chunk held bitwise to its direct batch and rated
+    through B1; the fed epoch's times; the whole season taken at once and
+    fitted (B2), held to ``fit`` (phase 5's fit of the same draw); and a
+    ragged Atomic-SPADL cache taken whole, held bitwise and rated."""
+    shutil.rmtree(FEED_DIR, ignore_errors=True)
+    try:
+        return _feed_phase(model, draw, fit, device, card, games, atomic_low)
+    finally:
+        shutil.rmtree(FEED_DIR, ignore_errors=True)
+
+
+def _feed_phase(
+    model: VAEP, draw: ActionBatch, fit: Dict[str, Any], device: torch.device, card: str,
+    games: int, atomic_low: int,
+) -> Dict[str, Any]:
+    label = 'feed path'
+    store = ArrayStore(os.path.join(FEED_DIR, 'store'), draw.n_games)
+    cache_dir = os.path.join(FEED_DIR, 'cache')
+    t0 = time.perf_counter()
+    season = write_cache(draw, store, cache_dir, 'standard', games)
+    write_s = time.perf_counter() - t0
+    source = FeedSource(store, cache_dir, games, draw.max_actions)
+    cache_bytes = sum(
+        os.path.getsize(os.path.join(cache_dir, f)) for f in os.listdir(cache_dir)
+    )
+    directs = [
+        direct_chunk(draw, lo, min(lo + games, draw.n_games)) for lo in range(0, draw.n_games, games)
+    ]
+    # the values of the direct batches: comparison launches, made before
+    # the counts are zeroed
+    want = [model.rate_batch(d.to(device)) for d in directs]
+    print(f'{label}: packed cache of {draw.n_games} games x {draw.max_actions} actions, '
+          f'{cache_bytes} bytes, written in {write_s:.3f} s')
+
+    gm.fused_first_layer_quant.launches = 0
+    main = check_epoch(model, source, directs, want, FEED_PREFETCH, device,
+                       f'{label}, prefetch={FEED_PREFETCH}')
+    sync(device)
+    launches = gm.fused_first_layer_quant.launches
+    if launches != kernel_launches(len(directs), device):
+        raise RuntimeError(f'{label}: {len(directs)} chunks launched gather_matmul {launches} times')
+    sync_epoch = check_epoch(model, source, directs, want, 0, device, f'{label}, prefetch=0')
+    same = all(torch.equal(a, b) for a, b in zip(main['values'], sync_epoch['values']))
+    if not same:
+        raise RuntimeError(f'{label}: prefetch=0 and prefetch={FEED_PREFETCH} rate differently')
+    print(f"{label}: {main['chunks']} chunks of {games} games, each bitwise to its direct "
+          f"batch at prefetch={FEED_PREFETCH} and 0, values within {main['max_abs_gap']:.3e} of "
+          f"the direct batches' (limit 1e-6), gather_matmul launches {launches}")
+    del main, sync_epoch, want
+
+    # three rounds of: an epoch two chunks ahead, one synchronous, and the
+    # consumer alone (the same chunks already on the device, rated back to
+    # back): the feed's cost is what an epoch adds to the consumer alone
+    on_device = [d.to(device) for d in directs]
+    epochs, alone = [], []
+    for _ in range(3):
+        epochs += [timed_epoch(model, source, p, device) for p in (FEED_PREFETCH, 0)]
+        sync(device)
+        t0 = time.perf_counter()
+        for b in on_device:
+            model.rate_batch(b)
+        sync(device)
+        alone.append(time.perf_counter() - t0)
+    del on_device
+    for e in epochs:
+        print(f'{label}: epoch ({card}): {json.dumps(e)}')
+    summary = {
+        f'prefetch={p}': {
+            'median_wall_ms': float(np.median([e['wall_s'] for e in epochs if e['prefetch'] == p])) * 1e3,
+            'median_actions_per_s': float(np.median(
+                [e['actions_per_s'] for e in epochs if e['prefetch'] == p])),
+        }
+        for p in (FEED_PREFETCH, 0)
+    }
+    summary['consumer alone'] = {'median_wall_ms': float(np.median(alone)) * 1e3,
+                                 'wall_ms': [a * 1e3 for a in alone]}
+    print(f'{label}: epochs of {draw.total_actions} actions, medians of 3 ({card}): '
+          f'{json.dumps(summary)}')
+    record: Dict[str, Any] = {'launches': launches, 'epochs': epochs, 'summary': summary,
+                              'cache_bytes': cache_bytes}
+    # stacked floats (5 x 4 bytes), int8 ids (4), flags (1) an action; lengths
+    wire_bytes = games * draw.max_actions * 25 + games * 4
+    if device.type == 'cuda':
+        copy_ms = pinned_copy_ms(wire_bytes)
+        prof = device_busy(lambda: timed_epoch(model, source, FEED_PREFETCH, device))
+        record.update({'wire_bytes': wire_bytes, 'pinned_copy_ms': copy_ms,
+                       'link_gb_per_s': wire_bytes / copy_ms / 1e6, 'profile': prof})
+        print(f'{label}: one {wire_bytes}-byte chunk wire copied alone from pinned memory: '
+              f'{copy_ms:.3f} ms, {wire_bytes / copy_ms / 1e6:.2f} GB/s ({card})')
+        print(f'profile: one prefetch={FEED_PREFETCH} epoch, {json.dumps(prof)} ({card})')
+
+    # the whole season in one take, fitted (16 x 12 dense: B2)
+    whole, _ = season.take(season.game_ids, device=device)
+    assert_batch_equal(whole, direct_chunk(draw, 0, draw.n_games), f'{label}, whole season')
+    sync(device)
+    seg.segment_sum.launches = 0
+    m = ExpectedThreat(device=device).fit(whole)
+    sync(device)
+    fit_launches = seg.segment_sum.launches
+    grid_gap = float(np.abs(m.xT - fit['grid']).max())
+    if (fit_launches < kernel_launches(1, device) or m.n_iter != int(fit['iterations'])
+            or not grid_gap <= 1e-6):
+        raise RuntimeError(
+            f'{label}: the fed fit ({m.n_iter} sweeps, {fit_launches} segment_sum launches) is '
+            f'{grid_gap} from the direct fit ({int(fit["iterations"])} sweeps)'
+        )
+    print(f'{label}: ExpectedThreat 16x12 on the whole fed season: {m.n_iter} sweeps (direct '
+          f'{int(fit["iterations"])}), max |grid - direct grid| = {grid_gap:.3e} (limit 1e-6), '
+          f'segment_sum launches {fit_launches}')
+    record.update({'fit_launches': fit_launches, 'fit_grid_gap': grid_gap, 'fit_sweeps': m.n_iter})
+    del whole, m
+
+    # a ragged Atomic-SPADL cache, taken whole and rated
+    amodel = make_model(device, model_cls=AtomicVAEP)
+    adraw = ragged_atomic_draw(games, draw.max_actions, seed=7, low=atomic_low)
+    astore = ArrayStore(os.path.join(FEED_DIR, 'atomic-store'), games)
+    aseason = write_cache(adraw, astore, os.path.join(FEED_DIR, 'atomic-cache'), 'atomic', games)
+    adirect = direct_chunk(adraw, 0, games).to(device)
+    awant = amodel.rate_batch(adirect)
+    gm.fused_first_layer_quant.launches = 0
+    abatch, _ = aseason.take(aseason.game_ids, device=device)
+    avalues = amodel.rate_batch(abatch)
+    sync(device)
+    alaunches = gm.fused_first_layer_quant.launches
+    assert_batch_equal(abatch, adirect, f'{label}, atomic take')
+    agap = masked_gap(avalues, awant, abatch.mask)
+    if alaunches != kernel_launches(1, device) or not agap <= 1e-6:
+        raise RuntimeError(f'{label}: atomic take rated {agap} from its direct batch, '
+                           f'{alaunches} gather_matmul launches')
+    lengths = adraw.n_actions.numpy()
+    print(f'{label}: atomic take of {games} games ({int(lengths.min())} to '
+          f'{int(lengths.max())} actions each), bitwise to its direct batch; AtomicVAEP values '
+          f"within {agap:.3e} of the direct batch's (limit 1e-6), gather_matmul launches {alaunches}")
+    record.update({'atomic_launches': alaunches, 'atomic_gap': agap})
+    return record
+
+
+# -- counterfactuals (phase 10) --------------------------------------------------------
+
+
+def scenario_phase(
+    model: VAEP, device: torch.device, card: str = 'CPU', n_games: int = SCENARIO_GAMES,
+    n_actions: int = ACTIONS, nx: int = SCENARIO_GRID[0], ny: int = SCENARIO_GRID[1],
+    reps: int = 5,
+) -> Dict[str, Any]:
+    """Phase 10: ``rate_scenarios_batch`` over an end-location grid, one
+    call (one launch of B1), against the loop of one ``rate_batch`` per
+    perturbation and against the materialized reference on the first four
+    perturbations (both within 1e-5), with the fold's and the loop's
+    counterfactual values per second."""
+    label = 'scenario path'
+    batch = synthetic_batch(n_games, n_actions, seed=11, device=device)
+    grid = end_location_grid(nx, ny)
+    P = grid.n_perturbations
+    gm.fused_first_layer_quant.launches = 0
+    fold = rate_scenarios_batch(model, batch, grid)
+    sync(device)
+    fold_launches = gm.fused_first_layer_quant.launches
+    if fold_launches != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: the fold launched gather_matmul {fold_launches} times')
+    gm.fused_first_layer_quant.launches = 0
+    loop = rate_scenarios_looped(model, batch, grid)
+    sync(device)
+    loop_launches = gm.fused_first_layer_quant.launches
+    mask = batch.mask[None].expand(P, -1, -1)
+    loop_gap = masked_gap(fold, loop, mask)
+    sub = ScenarioGrid(field_updates={k: v[:4] for k, v in grid.field_updates.items()})
+    ref = rate_scenarios_reference(model, batch, sub)
+    ref_gap = masked_gap(fold[:4], ref, mask[:4])
+    surface = decision_surface(fold, grid, game=0, action=10)
+    if not (bool(torch.isfinite(fold[mask]).all()) and loop_gap <= 1e-5 and ref_gap <= 1e-5
+            and surface.shape == (ny, nx) and np.isfinite(surface).all()):
+        raise RuntimeError(f'{label}: fold vs loop {loop_gap}, vs reference {ref_gap} (limit 1e-5)')
+
+    def median_s(fn: Callable[[], Any], n: int) -> float:
+        times = []
+        for _ in range(n):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    values = P * batch.total_actions
+    fold_s = median_s(lambda: rate_scenarios_batch(model, batch, grid), reps)
+    loop_s = median_s(lambda: rate_scenarios_looped(model, batch, grid), max(1, reps // 2))
+    record = {
+        'perturbations': P, 'games': n_games, 'folded_games': P * n_games, 'values': values,
+        'fold_launches': fold_launches, 'loop_launches': loop_launches,
+        'fold_vs_loop': loop_gap, 'fold_bitwise_loop': bool(torch.equal(fold, loop)),
+        'fold_vs_reference_first4': ref_gap,
+        'fold_s': fold_s, 'loop_s': loop_s,
+        'fold_values_per_s': values / fold_s, 'loop_values_per_s': values / loop_s,
+    }
+    print(f'{label} ({card}): {json.dumps(record)}')
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1124,7 +1596,8 @@ def main() -> int:
 
     # -- phase 4, the VAEP serving path: the entry points' default device
     # (the card), as a user calls them
-    serving = serving_phase(make_model(), synthetic_batch(GAMES, ACTIONS, seed=0), card, 'main path')
+    model = make_model()
+    serving = serving_phase(model, synthetic_batch(GAMES, ACTIONS, seed=0), card, 'main path')
     torch.cuda.empty_cache()
 
     # -- the xT path ---------------------------------------------------------
@@ -1159,13 +1632,16 @@ def main() -> int:
         print(f'  profile: {json.dumps(row)}')
 
     t0 = time.perf_counter()
-    cpu_fits = xt_fits(xt_batch.to('cpu'), 'cpu')
+    # the host copy of the draw is phase 9's season too
+    xt_cpu = xt_batch.to('cpu')
+    cpu_fits = xt_fits(xt_cpu, 'cpu')
     print(f'xT path (CPU, plain versions): four fits in {time.perf_counter() - t0:.1f} s')
     for name, fit in cpu_fits.items():
         print(f'xT path ({n_xt} actions, CPU): {name}: {json.dumps(xt_summary(fit))}')
     for name, err in compare_fits(card_fits, cpu_fits).items():
         print(f'xT path: card vs CPU: {name}: {json.dumps(err)}')
 
+    fit16 = card_fits['ExpectedThreat 16x12']
     del xt_batch, card_fits, warm, cpu_fits
     torch.cuda.empty_cache()
 
@@ -1221,6 +1697,16 @@ def main() -> int:
     )
     check_against_reference(aseq['model'], aseq['batch'], aseq['model'].rate_batch(aseq['batch']),
                             'atomic seq path: trained model')
+    torch.cuda.empty_cache()
+
+    # -- phase 9, the season feed: the xT draw from its packed cache -----------------
+    feed = feed_phase(model, xt_cpu, fit16, device, card)
+    del xt_cpu
+    torch.cuda.empty_cache()
+
+    # -- phase 10, counterfactuals ------------------------------------------------------
+    scenario = scenario_phase(model, device, card)
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -1230,6 +1716,10 @@ def main() -> int:
         'atomic rate_batch': atomic_serving['launches']['gather_matmul'],
         'atomic fit_packed': atomic_run['launches']['gather_matmul'],
         'seq fit_packed': seq_run['launches']['gather_matmul'],
+        'fed epoch rate_batch': feed['launches'],
+        'atomic take rate_batch': feed['atomic_launches'],
+        'rate_scenarios_batch': scenario['fold_launches'],
+        'rate_scenarios_looped': scenario['loop_launches'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -1237,6 +1727,7 @@ def main() -> int:
         'atomic fit_packed': atomic_run['launches']['segment_sum'],
         'seq fit_packed': seq_run['launches']['segment_sum'],
         'atomic seq fit_packed': aseq['launches']['segment_sum'],
+        'fed xT fit': feed['fit_launches'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]

@@ -27,6 +27,7 @@ __all__ = [
     'ActionBatch',
     'AtomicActionBatch',
     'bucket_games',
+    'bucket_ladder',
     'pack_actions',
     'pack_atomic_actions',
     'pack_row_values',
@@ -48,11 +49,24 @@ def pad_length(n: int, multiple: int = _LANE) -> int:
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
 
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """The torch dtype of ``dtype``: a torch dtype as it is, else whatever
+    numpy reads as a dtype (``'float32'``, ``np.float64``, ...)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
 class _PackedBatch:
     """What every packed batch class shares: shape properties, its fields
     in declaration order and a move to another device. Per-action fields
     have shape ``(G, A)``; ``n_actions`` and ``game_id`` are ``(G,)``.
     Every field lives on one device."""
+
+    #: For a batch shipped to the card on a side stream
+    #: (``pipeline/packed.py``): the CUDA event after which its fields hold
+    #: their values. Not a field; ``None`` on every batch made otherwise.
+    ready: Any = None
 
     @property
     def n_games(self) -> int:
@@ -83,10 +97,21 @@ class _PackedBatch:
         dev = resolve_device(device)
         return type(self)(**{n: t.to(dev) for n, t in self.fields().items()})
 
+    def astype(self, float_dtype: Any) -> Any:
+        """A copy with the continuous fields cast to ``float_dtype`` (a
+        torch dtype or anything numpy reads as a dtype); every other field
+        is shared."""
+        dtype = torch_dtype(float_dtype)
+        return dataclasses.replace(
+            self, **{c: getattr(self, c).to(dtype) for c in self._float_fields}
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class ActionBatch(_PackedBatch):
     """A padded ``(G, A)`` struct-of-tensors bundle of SPADL actions."""
+
+    _float_fields = _FLOAT_COLS
 
     type_id: torch.Tensor  # int32
     result_id: torch.Tensor  # int32
@@ -109,6 +134,8 @@ class AtomicActionBatch(_PackedBatch):
     """A padded ``(G, A)`` struct-of-tensors bundle of Atomic-SPADL actions:
     a location and a displacement ``(x, y, dx, dy)`` per row and no result
     (outcomes are action types)."""
+
+    _float_fields = _ATOMIC_FLOAT_COLS
 
     type_id: torch.Tensor  # int32
     bodypart_id: torch.Tensor  # int32
@@ -143,13 +170,22 @@ def _pack_frame(
     float_cols: Tuple[str, ...],
     int_cols: Tuple[str, ...],
     cls: Any,
+    as_numpy: bool = False,
 ) -> Tuple[Any, List[Any]]:
     """The packing shared by both action languages: group the frame by
     game, left-align, pad, and build a ``cls`` batch from ``float_cols``,
-    ``int_cols`` and the derived fields."""
+    ``int_cols`` and the derived fields.
+
+    ``as_numpy=True`` returns a host *staging* batch whose fields are
+    numpy arrays, with no device copy: the streaming feed ships it over
+    the minimal wire itself, and the packed-cache writer writes it
+    straight into its memmaps. Exclusive with ``device``.
+    """
     import pandas as pd
 
-    dev = resolve_device(device)
+    if as_numpy and device is not None:
+        raise ValueError('as_numpy and device are mutually exclusive')
+    dev = None if as_numpy else resolve_device(device)
     if 'game_id' not in actions.columns:
         raise ValueError('actions frame must contain a game_id column')
     if len(actions) == 0:
@@ -201,6 +237,8 @@ def _pack_frame(
     cols['n_actions'] = n_actions
     cols['game_id'] = np.arange(n_games, dtype=np.int32)
     cols['row_index'] = scatter(np.arange(len(actions), dtype=np.int32), np.int32, -1)
+    if as_numpy:
+        return cls(**cols), game_ids
     return _from_numpy(cols, dev, cls), game_ids
 
 
@@ -212,6 +250,7 @@ def pack_actions(
     max_actions: Optional[int] = None,
     float_dtype: Any = np.float32,
     device: DeviceLike = None,
+    as_numpy: bool = False,
 ) -> Tuple[ActionBatch, List[Any]]:
     """Pack a SPADL DataFrame (one or many games) into an :class:`ActionBatch`.
 
@@ -220,11 +259,12 @@ def pack_actions(
     ``home_team_ids`` (``game_id -> home_team_id``), a single
     ``home_team_id``, or a frame with a ``home_team_id`` column. Returns the
     batch (on ``device``, default ``cuda``) and the game ids in game-axis
-    order.
+    order. ``as_numpy=True`` returns a host staging batch of numpy arrays
+    instead (no device copy; exclusive with ``device``).
     """
     return _pack_frame(
         actions, home_team_ids, home_team_id, max_actions, float_dtype, device,
-        _FLOAT_COLS, _INT_COLS, ActionBatch,
+        _FLOAT_COLS, _INT_COLS, ActionBatch, as_numpy,
     )
 
 
@@ -236,13 +276,14 @@ def pack_atomic_actions(
     max_actions: Optional[int] = None,
     float_dtype: Any = np.float32,
     device: DeviceLike = None,
+    as_numpy: bool = False,
 ) -> Tuple[AtomicActionBatch, List[Any]]:
     """Pack an Atomic-SPADL DataFrame into an :class:`AtomicActionBatch`:
     :func:`pack_actions`'s contract for frames with ``x, y, dx, dy`` and no
     result column."""
     return _pack_frame(
         actions, home_team_ids, home_team_id, max_actions, float_dtype, device,
-        _ATOMIC_FLOAT_COLS, _ATOMIC_INT_COLS, AtomicActionBatch,
+        _ATOMIC_FLOAT_COLS, _ATOMIC_INT_COLS, AtomicActionBatch, as_numpy,
     )
 
 
@@ -251,6 +292,16 @@ def bucket_games(n: int) -> int:
     if n < 1:
         raise ValueError(f'need at least one game, got {n}')
     return 1 << (n - 1).bit_length()
+
+
+def bucket_ladder(max_games: int) -> Tuple[int, ...]:
+    """The full bucket ladder up to ``max_games``: ``(1, 2, 4, ..., B)``.
+
+    ``max_games`` itself is rounded up to a bucket, so the top rung always
+    admits a full batch.
+    """
+    top = bucket_games(max_games)
+    return tuple(1 << i for i in range(top.bit_length()))
 
 
 def pad_batch_games(batch: Any, n_games: int) -> Any:

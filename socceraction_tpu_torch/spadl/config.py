@@ -8,7 +8,10 @@ masks), so it must stay identical to the JAX package's.
 
 from __future__ import annotations
 
-from typing import List
+from typing import TYPE_CHECKING, List
+
+if TYPE_CHECKING:  # pandas is imported inside the *_df tables only
+    import pandas as pd
 
 field_length: float = 105.0  # meters
 field_width: float = 68.0  # meters
@@ -61,3 +64,27 @@ CORNER_SHORT = actiontypes.index('corner_short')
 
 SUCCESS = results.index('success')
 OWNGOAL = results.index('owngoal')
+
+
+def actiontypes_df() -> 'pd.DataFrame':
+    """The ``type_id`` and ``type_name`` of each SPADL action type."""
+    import numpy as np
+    import pandas as pd
+
+    return pd.DataFrame({'type_id': np.arange(len(actiontypes)), 'type_name': actiontypes})
+
+
+def results_df() -> 'pd.DataFrame':
+    """The ``result_id`` and ``result_name`` of each SPADL result."""
+    import numpy as np
+    import pandas as pd
+
+    return pd.DataFrame({'result_id': np.arange(len(results)), 'result_name': results})
+
+
+def bodyparts_df() -> 'pd.DataFrame':
+    """The ``bodypart_id`` and ``bodypart_name`` of each SPADL bodypart."""
+    import numpy as np
+    import pandas as pd
+
+    return pd.DataFrame({'bodypart_id': np.arange(len(bodyparts)), 'bodypart_name': bodyparts})

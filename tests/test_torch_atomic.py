@@ -433,6 +433,22 @@ def test_quantized_modes_match_jax(pair, batches, mode, jax_atomic_fold):
         model.set_quantize('none')
 
 
+@pytest.mark.parametrize('name', ['actiontype', 'bodypart', 'time'])
+def test_dense_overrides_match_jax(pair, name):
+    """A dense block substituted by name: rate_batch and its reference
+    within 1e-6 of the JAX package's rate_batch with the same block
+    (measured about 3.3e-7), on 3 games bucketed to 4."""
+    jmodel, model = pair
+    jb, tb = atomic_batches(N_ACTIONS[:3], seed=5)
+    width = jmodel._dense_override_widths(jb)[name]
+    block = np.random.default_rng(11).normal(size=(3, 256, width)).astype(np.float32)
+    want = jmodel.rate_batch(jb, dense_overrides={name: jnp.asarray(block)})
+    mask = tb.mask.numpy()
+    _close(model.rate_batch(tb, dense_overrides={name: torch.from_numpy(block)}), want, mask,
+           atol=1e-6)
+    _close(model.rate_batch_reference(tb, dense_overrides={name: block}), want, mask, atol=1e-6)
+
+
 def test_rate_matches_jax_on_the_golden_game(pair, atomic_spadl_actions):
     jmodel, model = pair
     game = pd.Series({'home_team_id': int(atomic_spadl_actions['team_id'].iloc[0])})

@@ -5,9 +5,9 @@
   The port's own name starts with ``socceraction_tpu``, so the check
   matches top-level module names exactly, never by prefix.
 - The modules ``chip_smoke.py`` runs import with those packages, and
-  ``pandas`` and ``msgpack`` (absent on the GPU machine), blocked; its xT,
-  training, Atomic-VAEP and sequence-head phases also run so, at a tiny
-  size on the CPU.
+  ``pandas``, ``pyarrow``, ``h5py`` and ``msgpack`` (absent on the GPU
+  machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
+  feed and counterfactual phases also run so, at a tiny size on the CPU.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -32,6 +32,7 @@ from socceraction_tpu_torch import xthreat
 from socceraction_tpu_torch.device import resolve_device
 from socceraction_tpu_torch.ml.mlp import MLPClassifier
 from socceraction_tpu_torch.ops import segment
+from socceraction_tpu_torch.pipeline import feed, packed
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.seq.model import init_seq_params
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
@@ -57,7 +58,10 @@ def test_the_scan_sees_the_port():
     assert 'chip_smoke.py' in names
     for module in (
         'atomic/spadl/config.py', 'atomic/vaep/base.py', 'ops/atomic.py', 'seq/model.py',
-        'seq/classifier.py',
+        'seq/classifier.py', 'obs/metrics.py', 'obs/trace.py', 'obs/residency.py',
+        'resil/retry.py', 'resil/faults.py', 'pipeline/store.py', 'pipeline/packed.py',
+        'pipeline/build.py', 'pipeline/feed.py', 'scenario/grid.py', 'scenario/engine.py',
+        'scenario/product.py', 'scenario/xt.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -77,7 +81,8 @@ def test_exact_match_is_not_a_prefix_match(tmp_path):
 
 _BLOCKER = '''
 import importlib.abc, sys
-BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu', 'pandas', 'msgpack'}
+BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu', 'pandas', 'msgpack', 'pyarrow',
+           'h5py'}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
@@ -118,16 +123,29 @@ for fit in ({}, {'model_cls': AtomicVAEP}):
     chip_smoke.check_fit(run, seq)
     chip_smoke.compare_training(run, run, seq)
     chip_smoke.check_against_reference(run['model'], batch, run['model'].rate_batch(batch), 'seq')
+# the season feed: the pipeline's entry points, a cache written from arrays,
+# streamed, taken whole, fitted, and an atomic take
+import torch
+from socceraction_tpu_torch.pipeline import PackedSeason, SeasonStore, iter_batches
+import socceraction_tpu_torch.pipeline.build, socceraction_tpu_torch.scenario.engine
+cpu = torch.device('cpu')
+model = chip_smoke.make_model('cpu', (8,))
+draw = synthetic_batch(5, 256, seed=2, device='cpu')
+xt = chip_smoke.ExpectedThreat(device='cpu').fit(draw)
+chip_smoke.feed_phase(model, draw, {'grid': xt.xT, 'iterations': xt.n_iter}, cpu, games=2,
+                      atomic_low=100)
+# and the counterfactuals
+chip_smoke.scenario_phase(model, cpu, n_games=2, n_actions=256, nx=3, ny=2, reps=1)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
 '''
 
 
-def test_chip_smoke_path_imports_with_blocked_packages():
+def test_chip_smoke_path_imports_with_blocked_packages(tmp_path):
     proc = subprocess.run(
         [sys.executable, '-c', _BLOCKER, str(ROOT)],
-        capture_output=True, text=True, timeout=120,
+        capture_output=True, text=True, timeout=120, cwd=tmp_path,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'isolated' in proc.stdout
@@ -178,6 +196,10 @@ ENTRY_POINTS = {
         )}), home_team_id=0, device='cpu',
     )[0].to('cuda'),
     'VAEP(cpu).fit_packed(cuda batch)': lambda: VAEP(device='cpu').fit_packed(synthetic_batch(1, 128)),
+    'load_batch': lambda: feed.load_batch(None),
+    'iter_batches': lambda: next(feed.iter_batches(None, 1)),
+    'ship_host_batch': lambda: packed.ship_host_batch(None),
+    'copy_stream': lambda: packed.copy_stream(),
 }
 
 

@@ -471,6 +471,42 @@ def test_warm_start_mlp_into_seq_copies_no_weights(fitted):
     assert all(isinstance(m, tmlp.MLPClassifier) for m in back._models.values())
 
 
+def _seq_batches(family, seed):
+    """Three games of a family (bucketed to four), ragged."""
+    if family == 'atomic':
+        return atomic_batches((256, 200, 90), seed=seed)
+    args = dict(fill=0.7, seed=seed)
+    return jax_synthetic_batch(3, 256, **args), synthetic_batch(3, 256, device='cpu', **args)
+
+
+@pytest.mark.parametrize('overrides', [False, True], ids=['plain', 'goalscore-override'])
+def test_seq_rate_batch_matches_jax_padded(family, tmp_path, overrides):
+    """``VAEP.rate_batch`` and ``rate_batch_reference`` with seq heads on 3
+    games padded to a bucket of 4, with and without a goalscore override:
+    within 1e-6 of the JAX package's rate_batch (measured about 3.3e-7)."""
+    name, names, registry, (jstates, jlayout), (_, tlayout), _, _ = family
+    mean, std = _stats(jstates, jlayout)
+    jmodel = (JaxAtomicVAEP if name == 'atomic' else JaxVAEP)()
+    for seed, col in ((0, 'scores'), (9, 'concedes')):
+        jclf = jclassifier.SeqClassifier(**SEQ)
+        jclf.params = jax.tree.map(jnp.asarray, _jax_params(registry, tlayout.n_dense, seed=seed))
+        jclf.mean_, jclf.std_ = mean, std
+        jmodel._models[col] = jclf
+    jmodel.save_model(str(tmp_path))
+    model = load_model(str(tmp_path), device='cpu')
+    jb, tb = _seq_batches(name, seed=12)
+    kw_j, kw_t = {}, {}
+    if overrides:
+        block = np.random.default_rng(2).integers(0, 3, size=(3, 256, 3)).astype(np.float32)
+        kw_j = {'dense_overrides': {'goalscore': jnp.asarray(block)}}
+        kw_t = {'dense_overrides': {'goalscore': torch.from_numpy(block)}}
+    want = np.asarray(jmodel.rate_batch(jb, **kw_j))
+    mask = tb.mask.numpy()
+    for got in (model.rate_batch(tb, **kw_t), model.rate_batch_reference(tb, **kw_t)):
+        assert got.shape == want.shape == (3, 256, 3)
+        np.testing.assert_allclose(got.numpy()[mask], want[mask], rtol=0, atol=1e-6)
+
+
 def test_atomic_vaep_with_seq_heads_matches_jax(tmp_path):
     """Atomic-VAEP trained with learner='seq': its rate_batch within 1e-5
     of its reference, and of the JAX package's after the checkpoint moves."""
