@@ -72,7 +72,20 @@ exits non-zero:
 10. counterfactuals: ``rate_scenarios_batch`` over a 12 x 8 end-location
    grid (96 perturbations) and 4 games, one launch of B1, against the
    loop of 96 ``rate_batch`` calls and the reference on the first 4
-   perturbations (1e-5), with both values/s.
+   perturbations (1e-5), with both values/s;
+11. telemetry: ``rate_batch`` at phase 4's shape with the numeric guards
+   on: nothing drained for the model, and for copies with a NaN planted
+   in a first-layer weight and with the output layer scaled past 88, the
+   drained counts equal those of the same planted model rated on the CPU;
+   guarded values bitwise the unguarded; the host reads and stream waits
+   of one call equal with telemetry on and off (``torch.profiler``), the
+   guard's cost in synced walls; ``record_dispatch`` over 20 synced calls
+   (``roofline_frac`` in (0, 1.05]); the memory gauges and the residency
+   report with an ``xt_fleet`` and a ``pipeline_feed`` claim held;
+   ``ParityProbe`` on its own stream (f32 ≤ 1e-5, bf16 ≤ 1e-3, a planted
+   1e-3 offset caught); a run log and a debug bundle with the card's
+   memory; the dispatch observatory, the ``nvcc`` builds and the
+   cold-start report of this process.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -84,11 +97,15 @@ Before the last line it prints one JSON object of kernel records
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tarfile
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -107,10 +124,29 @@ from socceraction_tpu_torch.ops import fused as fused_ops
 from socceraction_tpu_torch.ops import gather_matmul as gm
 from socceraction_tpu_torch.ops import segment as seg
 from socceraction_tpu_torch.ops import xt as xtops
-from socceraction_tpu_torch.obs import REGISTRY
+from socceraction_tpu_torch.obs import (
+    NAME_RE,
+    REGISTRY,
+    ParityProbe,
+    RunLog,
+    claim_bytes,
+    coldstart_report,
+    dump_debug_bundle,
+    fn_cost,
+    live_array_census,
+    numerics,
+    observatory_snapshot,
+    perf_snapshot,
+    record_dispatch,
+    residency_report,
+    sample_device_memory,
+    span,
+)
+from socceraction_tpu_torch.obs.coldstart import TIMELINE
+from socceraction_tpu_torch.obs.perf import DEVICE_PEAKS
 from socceraction_tpu_torch.ops.fused import train_layout
 from socceraction_tpu_torch.pipeline.feed import iter_batches
-from socceraction_tpu_torch.pipeline.packed import PackedSeason, PackedSeasonWriter
+from socceraction_tpu_torch.pipeline.packed import PackedSeason, PackedSeasonWriter, ship_host_batch
 from socceraction_tpu_torch.scenario import (
     ScenarioGrid,
     decision_surface,
@@ -127,11 +163,13 @@ GAMES, ACTIONS = 512, 1664
 #: The repo's default MLP head widths.
 HIDDEN = (128, 128)
 K = 3
-#: Published H100 SXM peaks at a 700 W power limit: HBM bytes/s, f32
-#: FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
+#: Published H100 SXM peaks at a 700 W power limit (the port's one table,
+#: ``obs/perf.py:DEVICE_PEAKS``): HBM bytes/s, f32 FLOP/s outside the
+#: tensor cores and dense TF32 FLOP/s on them.
+_H100 = DEVICE_PEAKS['NVIDIA H100 80GB HBM3']
+PEAK_BYTES_PER_S = _H100['bytes_per_s']
+PEAK_F32_FLOPS = _H100['flops_f32']
+PEAK_TF32_FLOPS = _H100['flops_tf32']
 #: The xT batch: 3072 games of 1664 actions (5,111,808 actions).
 XT_GAMES = 3072
 #: Groups of the xT fleet fits (``game_index % XT_GROUPS``).
@@ -257,22 +295,21 @@ def first_layer_operands(
 def first_layer_bound(operands: Tuple[torch.Tensor, ...]) -> Dict[str, Any]:
     """Least time (ms) one H100 needs for B1 on these inputs, and what bounds it.
 
-    Bytes: every input read once, the output written once. Operations: the
-    dense product as the kernel computes it, 3xTF32 on the tensor cores
-    (three TF32 products of 2·N·D·H operations, two for a bf16 W, which is
-    exact in TF32) at the TF32 rate, plus one f32 add per valid gathered
-    element at the f32 rate. Beside it, the bytes the gathers move from L2
+    The bytes and operations are ``gather_matmul.first_layer_cost``'s, with
+    this input's valid ids: every input read once, the output written once;
+    the dense product as the kernel computes it, 3xTF32 on the tensor cores,
+    at the TF32 rate, plus one f32 add per valid gathered element at the f32
+    rate. Beside it, the bytes the gathers move from L2
     (one table row element per valid id and column), which no design
     avoids while the tables do not fit on chip.
     """
     tables, w, bias, ids, x = operands
-    _, r, h = tables.shape
+    k, r, h = tables.shape
     n, d = x.shape
-    nbytes = sum(t.numel() * t.element_size() for t in operands) + n * h * 4
     valid = int(((ids >= 0) & (ids < r)).sum())
-    products = 3 if tables.dtype == torch.float32 else 2
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (products * 2 * n * d * h / PEAK_TF32_FLOPS + valid * h / PEAK_F32_FLOPS) * 1e3
+    cost = gm.first_layer_cost(n, k, r, h, d, table_dtype=tables.dtype, valid=valid)
+    t_bytes = cost['bytes'] / PEAK_BYTES_PER_S * 1e3
+    t_ops = (cost['tf32_flops'] / PEAK_TF32_FLOPS + cost['f32_flops'] / PEAK_F32_FLOPS) * 1e3
     return {
         'bound_ms': max(t_bytes, t_ops),
         'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
@@ -518,6 +555,16 @@ def serving_phase(model: VAEP, batch: Any, card: str, label: str) -> Dict[str, A
     return {'launches': launches, 'main_b1': main_b1, 'actions_per_s': n_actions / median}
 
 
+def on_device(evt: Any) -> bool:
+    """A profiler event of the card's own work: a kernel, copy or set, not
+    the range a span (``torch.profiler.record_function``) marks on the
+    card's timeline."""
+    from torch.autograd import DeviceType
+
+    return (evt.device_type == DeviceType.CUDA and not getattr(evt, 'is_user_annotation', False)
+            and not NAME_RE.match(evt.key))
+
+
 def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
     """Device time by kernel over one synchronized call of ``fn``.
 
@@ -526,7 +573,6 @@ def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
     summed kernel milliseconds and launches, and the ``top`` kernels by
     device time.
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -537,7 +583,7 @@ def device_breakdown(fn: Callable[[], Any], top: int = 8) -> Dict[str, Any]:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if not on_device(evt):
             continue
         us = getattr(evt, 'self_device_time_total', None)
         if us is None:
@@ -605,7 +651,7 @@ def check_segment_sum(label: str, s: int, vals: torch.Tensor, ids: torch.Tensor,
     ids_clean = torch.where(ok, ids, 0).long()
     vals_clean = torch.where(ok, vals, 0.0)
     n = vals.numel()
-    bound_ms = (n * 8 + s * 4) / PEAK_BYTES_PER_S * 1e3
+    bound_ms = seg.segment_sum_cost(n, s)[1] / PEAK_BYTES_PER_S * 1e3
     return {
         'shape': label,
         'n': n,
@@ -1311,7 +1357,6 @@ def device_busy(fn: Callable[[], Any]) -> Dict[str, Any]:
     milliseconds, the device's busy milliseconds (the union over every
     stream of its kernels and copies), its idle share, and the summed
     kernel and copy milliseconds."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1322,7 +1367,7 @@ def device_busy(fn: Callable[[], Any]) -> Dict[str, Any]:
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernel_us, copy_us = [], 0.0, 0.0
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if not on_device(evt):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
@@ -1569,10 +1614,286 @@ def scenario_phase(
     return record
 
 
+# -- telemetry on the card (phase 11) --------------------------------------------------
+
+
+def planted(model: VAEP, plant: str) -> VAEP:
+    """A copy of ``model`` with a fault planted in its scores head: a NaN
+    in one first-layer weight, or the output layer scaled by 1e4 (logits
+    far past 88)."""
+    heads = {col: copy.deepcopy(clf) for col, clf in model._models.items()}
+    layers = heads['scores'].module.layers()
+    with torch.no_grad():
+        if plant == 'nan':
+            layers[0].weight[0, 0] = float('nan')
+        else:
+            layers[-1].weight.mul_(1e4)
+            layers[-1].bias.mul_(1e4)
+    return type(model)(models=heads, device=model.device)
+
+
+def drained_guards(model: VAEP, batch: Any) -> Tuple[torch.Tensor, List[Tuple[Any, ...]]]:
+    """``rate_batch`` with the pending guards cleared, its values brought to
+    the host, then one drain: ``(host values, sorted guard events)``."""
+    numerics.clear_pending()
+    values = model.rate_batch(batch).cpu()
+    events = sorted(tuple(e) for e in numerics.drain_guards())
+    if numerics.pending_guards():
+        raise RuntimeError(f'{numerics.pending_guards()} guards were not ready after values.cpu()')
+    return values, events
+
+
+@contextlib.contextmanager
+def guards_off() -> Any:
+    """``SOCCERACTION_TPU_NUM_GUARDS=0`` for the enclosed block."""
+    prev = os.environ.get(numerics.NUM_GUARDS_ENV)
+    os.environ[numerics.NUM_GUARDS_ENV] = '0'
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[numerics.NUM_GUARDS_ENV]
+        else:
+            os.environ[numerics.NUM_GUARDS_ENV] = prev
+
+
+def sync_profile(fn: Callable[[], Any], device: torch.device) -> Dict[str, Any]:
+    """Host reads and stream waits in one call of ``fn`` under
+    ``torch.profiler``: ``aten::_local_scalar_dense`` (a tensor read to a
+    host scalar) and ``cudaStreamSynchronize``/``cudaDeviceSynchronize``
+    calls, the device's kernel launches, and the call's wall before and
+    after a sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    sync(device)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        dispatch_s = time.perf_counter() - t0
+        sync(device)
+        synced_s = time.perf_counter() - t0
+    counts = {'aten::_local_scalar_dense': 0, 'cudaStreamSynchronize': 0, 'cudaDeviceSynchronize': 0}
+    launches = 0
+    for evt in prof.key_averages():
+        if evt.key in counts:
+            counts[evt.key] += evt.count
+        if on_device(evt):
+            launches += evt.count
+    return {'reads': counts, 'kernel_launches': launches, 'dispatch_s': dispatch_s, 'synced_s': synced_s}
+
+
+def metric_lines(prefixes: Tuple[str, ...]) -> List[Dict[str, Any]]:
+    """The registry's series under ``prefixes`` that have samples."""
+    out = []
+    for name, inst in REGISTRY.snapshot().instruments.items():
+        if not name.startswith(prefixes):
+            continue
+        for s in inst.series:
+            if s.count:
+                out.append({'metric': name, 'labels': dict(s.labels), 'count': s.count,
+                            'last': s.last, 'total': s.total, 'max': s.max})
+    return out
+
+
+def telemetry_phase(
+    model: VAEP, device: torch.device, card: str = 'CPU', games: int = GAMES,
+    actions: int = ACTIONS, reps: int = 20, probes: int = 8, pairs: int = 10,
+) -> Dict[str, Any]:
+    """Phase 11: the port's telemetry on the main path.
+
+    Numeric guards of ``rate_batch`` on phase 4's shape: none drained for
+    the model; for a NaN-planted and an overflow-planted copy, the drained
+    counts equal those of the same planted model rated on the CPU through
+    the plain versions; guarded values bitwise those with the guards off.
+    Host reads and stream waits of one ``rate_batch`` with guards and
+    metrics on, and of the bare dispatch with guards off, must be equal.
+    ``record_dispatch`` over ``reps`` synced calls: the roofline in
+    (0, 1.05]. Memory gauges, the residency report with an ``xt_fleet``
+    and a ``pipeline_feed`` claim held, the census within the allocator's
+    bytes. ``ParityProbe`` over ``probes`` calls on its own stream (f32 ≤
+    1e-5, a bf16 fold ≤ 1e-3, values offset by 1e-3 one exceedance). A
+    run log and a debug bundle with the card's memory. Then the dispatch
+    observatory, the builds and the cold-start report.
+    """
+    label = 'telemetry'
+    card_dev = device.type == 'cuda'
+    batch = synthetic_batch(games, actions, seed=0, device=device)
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    record: Dict[str, Any] = {}
+
+    # -- guards
+    values, events = drained_guards(model, batch)
+    if events:
+        raise RuntimeError(f'{label}: the clean model drained guard events {events}')
+    with guards_off():
+        unguarded = model.rate_batch(batch).cpu()
+    if not torch.equal(values, unguarded):
+        raise RuntimeError(f'{label}: guarded values differ from the unguarded ones')
+    cpu_model = make_model('cpu', tuple(m.out_features for m in model._models['scores'].module.layers()[:-1]))
+    cpu_batch = batch.to('cpu')
+    guards = {}
+    for plant in ('nan', 'overflow'):
+        _, got = drained_guards(planted(model, plant), batch)
+        _, want = drained_guards(planted(cpu_model, plant), cpu_batch)
+        if got != want or not got:
+            raise RuntimeError(f'{label}: {plant}-planted guards {got} on the card, {want} on the CPU')
+        guards[plant] = {'card': got, 'cpu': want}
+    record['guards'] = guards
+    del cpu_model, cpu_batch
+    print(f'{label}: drained guards of planted heads, card and CPU ({card}): {json.dumps(guards)}')
+
+    # -- no telemetry sync; the guard's cost
+    model.rate_batch(batch)
+    with guards_off():
+        model._rate(batch)
+    on = sync_profile(lambda: model.rate_batch(batch), device)
+    with guards_off():
+        off = sync_profile(lambda: model._rate(batch), device)
+    if on['reads'] != off['reads']:
+        raise RuntimeError(f"{label}: telemetry changed the host reads: {on['reads']} vs {off['reads']}")
+    walls: Dict[str, List[float]] = {'on': [], 'off': []}
+    for i in range(pairs):
+        for mode in (('on', 'off') if i % 2 == 0 else ('off', 'on')):
+            scope = guards_off() if mode == 'off' else contextlib.nullcontext()
+            with scope:
+                sync(device)
+                t0 = time.perf_counter()
+                (model.rate_batch if mode == 'on' else model._rate)(batch)
+                sync(device)
+                walls[mode].append(time.perf_counter() - t0)
+    record['sync'] = {'on': on, 'off': off,
+                      'median_synced_s': {k: float(np.median(v)) for k, v in walls.items()},
+                      'pairs': pairs}
+    print(f"{label}: one rate_batch, telemetry on vs off ({card}): {json.dumps(record['sync'])}")
+
+    # -- the live roofline over synced calls
+    pair_cost, values_cost = fn_cost('pair_probs'), fn_cost('vaep_values')
+    flops, nbytes = pair_cost[0] + values_cost[0], pair_cost[1] + values_cost[1]
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        model.rate_batch(batch)
+        sync(device)
+        perf = record_dispatch('pair_probs', time.perf_counter() - t0, bucket=games,
+                               flops=flops, bytes_accessed=nbytes)
+    roofline = {k: perf.get(k) for k in (
+        'dispatches', 'last_wall_s', 'cost_flops', 'cost_bytes', 'achieved_flops',
+        'achieved_bytes', 'roofline_frac', 'idle_frac')}
+    roofline['pair_probs_cost'] = pair_cost
+    roofline['vaep_values_cost'] = values_cost
+    record['roofline'] = roofline
+    print(f'{label}: record_dispatch over {reps} synced rate_batch ({card}): {json.dumps(roofline)}')
+    if card_dev and not 0 < roofline['roofline_frac'] <= 1.05:
+        raise RuntimeError(f"{label}: roofline_frac {roofline['roofline_frac']} outside (0, 1.05]")
+
+    # -- memory and residency, with an xT fleet's stacks and a fed chunk held
+    gid = group_ids(batch)
+    fields = xt_fields(batch)
+    counts = xtops.xt_counts(*fields, l=16, w=12, group_id=gid, n_groups=XT_GROUPS)
+    probs = xtops.xt_probabilities(counts, l=16, w=12)
+    sol = xtops.solve_xt(probs)
+    fleet = claim_bytes('xt_fleet', (probs, sol.grid))
+    host = ActionBatch(**{n: t.cpu().numpy() for n, t in batch.fields().items()})
+    chunk = ship_host_batch(host, device=device)
+    sample = sample_device_memory()
+    report = residency_report()
+    census = live_array_census(top=3)
+    fleet.release()
+    del chunk, host, sol, probs, counts
+    mem = {'gauges': sample, 'residency': report, 'census_total_bytes': census.get('total_bytes')}
+    record['memory'] = mem
+    print(f'{label}: memory and residency ({card}): {json.dumps(mem)}')
+    if card_dev:
+        stats = sample[str(device.index)]
+        if not all(stats[k] > 0 for k in ('bytes_in_use', 'peak_bytes_in_use', 'bytes_limit')):
+            raise RuntimeError(f'{label}: memory gauges read zero: {stats}')
+        if not {'xt_fleet', 'pipeline_feed'} <= set(report['owners']):
+            raise RuntimeError(f"{label}: the residency report misses a claim: {report['owners']}")
+        if report['census_total_bytes'] > report['allocated_bytes']:
+            raise RuntimeError(f'{label}: the census counts more than the allocator holds')
+
+    # -- the parity probe on its own stream
+    probe = ParityProbe(sample_rate=1.0, max_abs_err=1e-5, queue_size=probes)
+    narrow = ParityProbe(sample_rate=1.0, max_abs_err=1e-3, queue_size=2)
+    try:
+        for i in range(probes):
+            v = model.rate_batch(batch)
+            if probe.should_sample():
+                probe.submit_flush(model, batch, None, v, exemplar=f'call-{i}')
+        model.set_quantize('bf16')
+        for i in range(2):
+            narrow.submit_flush(model, batch, None, model.rate_batch(batch), exemplar=f'bf16-{i}')
+        model.set_quantize('none')
+        if not (probe.flush(timeout=300) and narrow.flush(timeout=300)):
+            raise RuntimeError(f'{label}: the parity probe did not finish')
+        f32, bf16 = probe.stats(), narrow.stats()
+        probe.submit_flush(model, batch, None, model.rate_batch(batch) + 1e-3, exemplar='planted')
+        if not probe.flush(timeout=300):
+            raise RuntimeError(f'{label}: the parity probe did not finish the planted offset')
+        planted_stats = probe.stats()
+    finally:
+        model.set_quantize('none')
+        probe.close()
+        narrow.close()
+    parity = {
+        'f32': {k: f32[k] for k in ('probes', 'max_abs_err', 'max_ulp_err', 'exceedances', 'errors')},
+        'bf16': {k: bf16[k] for k in ('probes', 'max_abs_err', 'exceedances', 'errors')},
+        'planted': {k: planted_stats[k] for k in ('probes', 'exceedances', 'errors')},
+        'abs_err_series': metric_lines(('num/parity_abs_err',)),
+    }
+    record['parity'] = parity
+    print(f'{label}: parity probe ({card}): {json.dumps(parity)}')
+    if not (f32['probes'] == probes and f32['errors'] == 0 and f32['max_abs_err'] <= 1e-5
+            and bf16['probes'] == 2 and bf16['max_abs_err'] <= 1e-3
+            and planted_stats['exceedances'] == 1):
+        raise RuntimeError(f'{label}: parity probe outside its bands: {parity}')
+
+    # -- a run log and a debug bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        with RunLog(tmp, config={'phase': 11, 'games': games}) as log:
+            with span('smoke/telemetry', games=games) as sp:
+                sp.memory()
+                sp.sync(model.rate_batch(batch))
+            log.metric_snapshot()
+            bundle = dump_debug_bundle(tmp, reason='manual', trigger={'phase': 11})
+        with open(os.path.join(tmp, 'obs.jsonl')) as f:
+            log_events = [json.loads(line)['event'] for line in f]
+        with tarfile.open(bundle) as tar:
+            members = sorted(tar.getnames())
+            memory = json.loads(tar.extractfile('memory.json').read())
+    record['bundle'] = {'members': members, 'memory_supported': memory['supported'],
+                        'log_events': sorted(set(log_events)), 'span_attrs': sp.attrs}
+    print(f"{label}: run log and bundle ({card}): {json.dumps(record['bundle'])}")
+    if members != ['manifest.json', 'memory.json', 'metrics.json', 'ring.jsonl']:
+        raise RuntimeError(f'{label}: the bundle holds {members}')
+    if card_dev and memory['supported'] is not True:
+        raise RuntimeError(f'{label}: the bundle has no card memory: {memory}')
+
+    # -- the dispatch observatory, the builds, the cold-start timeline
+    record['dispatch'] = {fn: {'signatures': e['compiles'], 'first_call_seconds': e['compile_seconds_total'],
+                               'retrace_storms': e['retrace_storms']}
+                          for fn, e in observatory_snapshot().items()}
+    record['builds'] = metric_lines(('dispatch/kernel_builds', 'dispatch/build_seconds'))
+    record['coldstart'] = coldstart_report()
+    record['launches'] = {'gather_matmul': gm.fused_first_layer_quant.launches,
+                          'segment_sum': seg.segment_sum.launches}
+    print(f"{label}: dispatch observatory ({card}): {json.dumps(record['dispatch'])}")
+    print(f"{label}: kernel builds ({card}): {json.dumps(record['builds'])}")
+    print(f"{label}: cold start of this process ({card}): {json.dumps(record['coldstart'])}")
+    print(f"{label}: launches {json.dumps(record['launches'])}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
+    # the cold-start timeline, anchored at the process's start: the
+    # interpreter, torch and the package are the import phase
+    with TIMELINE.phase('import', start_unix=TIMELINE.begin()):
+        pass
     device = torch.device('cuda', 0)
     card = card_identity()
     print(card)
@@ -1596,8 +1917,14 @@ def main() -> int:
 
     # -- phase 4, the VAEP serving path: the entry points' default device
     # (the card), as a user calls them
-    model = make_model()
-    serving = serving_phase(model, synthetic_batch(GAMES, ACTIONS, seed=0), card, 'main path')
+    with TIMELINE.phase('device_upload'):
+        model = make_model()
+        batch = synthetic_batch(GAMES, ACTIONS, seed=0)
+    with TIMELINE.phase('first_dispatch'):
+        model.rate_batch(batch).cpu()
+    TIMELINE.mark('first_rated_action')
+    serving = serving_phase(model, batch, card, 'main path')
+    del batch
     torch.cuda.empty_cache()
 
     # -- the xT path ---------------------------------------------------------
@@ -1623,6 +1950,12 @@ def main() -> int:
             f"not 3 + {int(mf['iterations'])} iterations"
         )
     seg_launches = sum(fit['launches'] for fit in card_fits.values())
+    # the fits' telemetry (card fits only so far): xt/* and the live roofline
+    for line in metric_lines(('xt/',)):
+        print(f'xT path telemetry ({card}): {json.dumps(line)}')
+    for fn, entry in perf_snapshot().items():
+        if fn.startswith('solve_xt'):
+            print(f'xT path roofline ({card}): {json.dumps(entry)}')
     prof = device_breakdown(lambda: ExpectedThreat(l=192, w=125).fit(xt_batch))
     print(
         f"profile: one ExpectedThreat(192x125).fit, {prof['wall_ms']:.3f} ms wall under "
@@ -1706,6 +2039,12 @@ def main() -> int:
 
     # -- phase 10, counterfactuals ------------------------------------------------------
     scenario = scenario_phase(model, device, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 11, telemetry on the card ------------------------------------------------
+    t0 = time.perf_counter()
+    telemetry = telemetry_phase(model, device, card)
+    print(f'telemetry: phase 11 in {time.perf_counter() - t0:.1f} s')
 
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
@@ -1720,6 +2059,7 @@ def main() -> int:
         'atomic take rate_batch': feed['atomic_launches'],
         'rate_scenarios_batch': scenario['fold_launches'],
         'rate_scenarios_looped': scenario['loop_launches'],
+        'telemetry phase': telemetry['launches']['gather_matmul'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -1728,6 +2068,7 @@ def main() -> int:
         'seq fit_packed': seq_run['launches']['segment_sum'],
         'atomic seq fit_packed': aseq['launches']['segment_sum'],
         'fed xT fit': feed['fit_launches'],
+        'telemetry phase': telemetry['launches']['segment_sum'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]

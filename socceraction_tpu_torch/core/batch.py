@@ -68,6 +68,18 @@ class _PackedBatch:
     #: their values. Not a field; ``None`` on every batch made otherwise.
     ready: Any = None
 
+    #: The valid-action count on the host, fixed where the batch is made
+    #: (packed, drawn, shipped, padded, moved or cast) so that
+    #: :attr:`total_actions` never reads the card. Not a field.
+    _host_total: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        # lengths on the host (numpy, or a CPU tensor) are counted now;
+        # a card batch gets its count from whoever made it (with_total)
+        n = self.n_actions
+        if isinstance(n, np.ndarray) or (isinstance(n, torch.Tensor) and n.device.type == 'cpu'):
+            object.__setattr__(self, '_host_total', int(n.sum()))
+
     @property
     def n_games(self) -> int:
         """Number of games (leading axis)."""
@@ -80,8 +92,24 @@ class _PackedBatch:
 
     @property
     def total_actions(self) -> int:
-        """Total number of valid (unpadded) actions, as a host int."""
-        return int(self.n_actions.sum())
+        """Total number of valid (unpadded) actions, as a host int.
+
+        Read from the host count the batch was made with, so asking does
+        not wait for the card. A card batch built field by field has
+        none: its first call reads the lengths from the card once and
+        keeps the count.
+        """
+        if self._host_total is None:
+            object.__setattr__(self, '_host_total', int(self.n_actions.sum()))
+        return self._host_total
+
+    def with_total(self, total: Optional[int]) -> Any:
+        """Give the batch its host count (``None`` leaves it unknown);
+        returns the batch. For batches made from lengths known on the
+        host but built on the card."""
+        if total is not None:
+            object.__setattr__(self, '_host_total', int(total))
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -95,7 +123,8 @@ class _PackedBatch:
     def to(self, device: DeviceLike) -> Any:
         """A copy with every field on ``device``."""
         dev = resolve_device(device)
-        return type(self)(**{n: t.to(dev) for n, t in self.fields().items()})
+        moved = type(self)(**{n: t.to(dev) for n, t in self.fields().items()})
+        return moved.with_total(self._host_total)
 
     def astype(self, float_dtype: Any) -> Any:
         """A copy with the continuous fields cast to ``float_dtype`` (a
@@ -104,7 +133,7 @@ class _PackedBatch:
         dtype = torch_dtype(float_dtype)
         return dataclasses.replace(
             self, **{c: getattr(self, c).to(dtype) for c in self._float_fields}
-        )
+        ).with_total(self._host_total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,9 +184,10 @@ class AtomicActionBatch(_PackedBatch):
 def _from_numpy(
     cols: Dict[str, np.ndarray], device: torch.device, cls: Any = ActionBatch
 ) -> Any:
-    return cls(
+    batch = cls(
         **{n: torch.from_numpy(np.ascontiguousarray(a)).to(device) for n, a in cols.items()}
     )
+    return batch.with_total(int(cols['n_actions'].sum()))
 
 
 def _pack_frame(
@@ -323,7 +353,8 @@ def pad_batch_games(batch: Any, n_games: int) -> Any:
         tail = a.new_full((n_games - G, *a.shape[1:]), fill)
         return torch.cat([a, tail])
 
-    return type(batch)(**{n: pad(n, t) for n, t in batch.fields().items()})
+    padded = type(batch)(**{n: pad(n, t) for n, t in batch.fields().items()})
+    return padded.with_total(batch._host_total)
 
 
 def pack_row_values(values: Any, batch: Any, *, fill: Any = 0) -> np.ndarray:

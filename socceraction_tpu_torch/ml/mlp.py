@@ -37,6 +37,10 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..obs import counter, histogram, span
+from ..obs.dispatch import instrument
+from ..obs.numerics import record_nonfinite
+from ..obs.perf import record_dispatch
 from ..ops.quant import check_quantize_mode
 
 __all__ = ['AdamState', 'MLP', 'MLPClassifier', 'MLP_FORMAT_VERSION']
@@ -152,6 +156,10 @@ class _EpochTrainer:
         self.slot_pos = slot % n
         #: (steps, batch_size) loss weights: 0 on the wrapped tail slots
         self.slot_weight = (slot < n).to(torch.float32).reshape(self.steps, self.batch_size)
+        #: one epoch, instrumented as ``train_epoch`` (no analytic cost: the
+        #: trainer's roofline signal is its idle fraction, as in the JAX
+        #: package)
+        self.run = instrument(self._run, 'train_epoch')
 
     def _permutation(self, epoch: int) -> torch.Tensor:
         """Epoch ``epoch``'s row order on the device, drawn on the CPU from
@@ -182,7 +190,7 @@ class _EpochTrainer:
         torch._foreach_add_(self.params, updates)
         return AdamState(t, tuple(mu), tuple(nu)), _global_norm(updates)
 
-    def run(
+    def _run(
         self, opt_state: AdamState, epoch: int, data: Dict[str, torch.Tensor]
     ) -> Tuple[AdamState, torch.Tensor, Dict[str, torch.Tensor]]:
         """Train one epoch -> ``(opt_state, mean loss, health)``, every
@@ -275,6 +283,7 @@ def _fit_loop(
     eval_data: Optional[Dict[str, torch.Tensor]] = None,
     *,
     path: str,
+    n_samples: Optional[int] = None,
     init_opt_state: Optional[AdamState] = None,
 ) -> Any:
     """The epoch loop of a head classifier: train, evaluate, early-stop,
@@ -288,6 +297,15 @@ def _fit_loop(
     snapshotted through its ``state_dict``. Each epoch with an eval set
     ends in one read of its eval loss (the loop's only wait for the
     device); the health scalars are read once, after the last epoch.
+
+    Telemetry, the JAX package's, labeled ``(path, platform)``: the
+    ``train/fit`` span; per epoch ``train/epoch_seconds`` (the epoch's
+    dispatch wall, before its eval), ``train/epochs``, ``train/steps``
+    and ``train/samples`` (``n_samples`` valid rows, default ``n``) and
+    ``record_dispatch('train_epoch')``; after the fit the per-epoch
+    ``train/grad_norm``, ``train/update_norm`` and ``train/weight_norm``
+    histograms and, for non-finite steps, ``train/nonfinite_loss`` and
+    ``num/nonfinite_total{fn=train_epoch}``.
     """
     module.requires_grad_(True)
     params = list(module.parameters())
@@ -301,35 +319,60 @@ def _fit_loop(
     best_loss = np.inf
     bad_epochs = 0
     epoch_health, epoch_losses, val_losses, seconds = [], [], [], []
-    for epoch in range(clf.max_epochs):
-        t0 = time.perf_counter()
-        opt_state, loss, health = trainer.run(opt_state, epoch, data)
-        epoch_health.append(health)
-        epoch_losses.append(loss)
-        if eval_data is not None:
-            with torch.no_grad():
-                ones = torch.ones_like(eval_data['w'])
-                vloss = float(loss_fn(eval_data, ones))
-            val_losses.append(vloss)
-        seconds.append(time.perf_counter() - t0)
-        if eval_data is not None:
-            if vloss < best_loss - 1e-6:
-                best_loss = vloss
-                # the Adam state is kept with the parameters it belongs to
-                best_state = {k: v.detach().clone() for k, v in module.state_dict().items()}
-                best_opt = opt_state.clone()
-                bad_epochs = 0
-            else:
-                bad_epochs += 1
-                if bad_epochs >= clf.patience:
-                    break
+    labels = {'path': path, 'platform': clf.device.type}
+    samples = n if n_samples is None else n_samples
+    with span('train/fit', **labels):
+        for epoch in range(clf.max_epochs):
+            t0 = time.perf_counter()
+            opt_state, loss, health = trainer.run(opt_state, epoch, data)
+            # the epoch's dispatch wall (nothing in it waits for the card)
+            epoch_wall = time.perf_counter() - t0
+            histogram('train/epoch_seconds', unit='s').observe(epoch_wall, **labels)
+            record_dispatch('train_epoch', epoch_wall)
+            counter('train/epochs', unit='count').inc(1, **labels)
+            counter('train/steps', unit='count').inc(trainer.steps, **labels)
+            counter('train/samples', unit='count').inc(samples, **labels)
+            epoch_health.append(health)
+            epoch_losses.append(loss)
+            if eval_data is not None:
+                with torch.no_grad():
+                    ones = torch.ones_like(eval_data['w'])
+                    vloss = float(loss_fn(eval_data, ones))
+                val_losses.append(vloss)
+            seconds.append(time.perf_counter() - t0)
+            if eval_data is not None:
+                if vloss < best_loss - 1e-6:
+                    best_loss = vloss
+                    # the Adam state is kept with the parameters it belongs to
+                    best_state = {k: v.detach().clone() for k, v in module.state_dict().items()}
+                    best_opt = opt_state.clone()
+                    bad_epochs = 0
+                else:
+                    bad_epochs += 1
+                    if bad_epochs >= clf.patience:
+                        break
     if best_state is not None:
         module.load_state_dict(best_state)
         opt_state = best_opt
     clf.module = module.requires_grad_(False)
     clf.opt_state_ = opt_state
     clf.train_health_ = _train_health(epoch_health, epoch_losses, val_losses, seconds, path)
+    _record_train_health(clf.train_health_, labels)
     return clf
+
+
+def _record_train_health(report: Dict[str, Any], labels: Dict[str, str]) -> None:
+    """The fit's per-epoch health into the ``train/*`` histograms, and its
+    non-finite steps into ``train/nonfinite_loss`` and the numeric guard
+    counter (``num/nonfinite_total{fn=train_epoch, output=loss}``)."""
+    for key in ('grad_norm', 'update_norm', 'weight_norm'):
+        inst = histogram(f'train/{key}', unit='value')
+        for value in report['epoch_' + key]:
+            inst.observe(value, **labels)
+    n = report['nonfinite_steps']
+    if n:
+        counter('train/nonfinite_loss', unit='count').inc(n, **labels)
+        record_nonfinite('train_epoch', 'loss', n)
 
 
 def _train_health(
@@ -350,6 +393,7 @@ def _train_health(
     )
     nonfinite = int(sum(r[0] for r in rows))
     last = dict(zip(keys[1:], rows[-1][1:])) if rows else dict.fromkeys(keys[1:])
+    per_epoch = {f'epoch_{key}': [r[i] for r in rows] for i, key in enumerate(keys) if i}
     finite = nonfinite == 0 and all(v is None or np.isfinite(v) for v in last.values())
     return {
         'finite': bool(finite),
@@ -359,6 +403,7 @@ def _train_health(
         'grad_norm_last': last['grad_norm'],
         'update_norm_last': last['update_norm'],
         'weight_norm_last': last['weight_norm'],
+        **per_epoch,
         'epoch_losses': torch.stack(epoch_losses).tolist() if epoch_losses else [],
         'val_losses': val_losses,
         'epoch_seconds': seconds,
@@ -605,7 +650,7 @@ class MLPClassifier:
             eval_data = make_data(ev_states, _labels(eval_set[1], self.device), ev_batch)
         return _fit_loop(
             self, module, data, int(states.weight.shape[0]), loss_fn, eval_data,
-            path=path, init_opt_state=init_opt_state,
+            path=path, n_samples=int(states.weight.sum()), init_opt_state=init_opt_state,
         )
 
     def _packed_problem(

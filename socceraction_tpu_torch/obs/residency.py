@@ -1,23 +1,42 @@
-"""Device-memory residency ledger: named-owner byte claims.
+"""Device-memory residency ledger: named-owner byte claims, reconciled.
 
-Port of the ledger half of the JAX package's
-``socceraction_tpu/obs/residency.py``. A subsystem that makes tensors
-device-resident registers them under a low-cardinality **owner** name
-(``pipeline_feed``, ...) with :func:`claim_bytes`; the claim's byte size
-is summed over the tree's tensor leaves (``nbytes``) and recorded into
-the governed ``mem/owned_bytes{owner}`` gauge. Three release
-disciplines:
+Port of the JAX package's ``socceraction_tpu/obs/residency.py``.
+``mem/bytes_in_use`` (:mod:`socceraction_tpu_torch.obs.memory`) says how
+full the card is and ``live_array_census()`` what shapes are resident;
+neither says *whose* bytes they are. This module is the attribution
+layer:
 
-- **keyed** (``key=...``): re-claiming the same ``(owner, key)``
-  replaces the previous claim;
-- **scoped**: hold the returned :class:`Claim` and call
-  :meth:`Claim.release`;
-- **weak** (``weak=True``): per-leaf ``weakref.finalize`` hooks shrink
-  the claim as the tensors are garbage-collected (the packed pipeline
-  claims each shipped batch and lets consumption release it).
+- :func:`claim_bytes` — a subsystem that makes tensors device-resident
+  registers them under a low-cardinality **owner** name
+  (``pipeline_feed``, ``xt_fleet``, ...); the claim's byte size is
+  summed over the tree's tensor leaves (``nbytes``) and recorded into
+  the governed ``mem/owned_bytes{owner}`` gauge. Three release
+  disciplines:
 
-:func:`owned_bytes` reads the ledger. The reconciliation against a census
-of live device allocations (``residency_report``) is not ported yet.
+  - **keyed** (``key=...``): re-claiming the same ``(owner, key)``
+    replaces the previous claim;
+  - **scoped**: hold the returned :class:`Claim` and call
+    :meth:`Claim.release` (the xT fleet solve claims its stacks for the
+    duration of a fit);
+  - **weak** (``weak=True``): per-leaf ``weakref.finalize`` hooks shrink
+    the claim as the tensors are garbage-collected (the packed pipeline
+    claims each shipped batch and lets consumption release it).
+
+- :func:`residency_report` — the reconciliation: claimed bytes per
+  owner against the live-tensor census, with the remainder reported as
+  the reserved ``unattributed`` owner
+  (``mem/owned_bytes{owner="unattributed"}``). On a card the report
+  also carries the caching allocator's allocated and reserved bytes:
+  reserved bytes beyond the allocated ones are free blocks the
+  allocator keeps for reuse, reported as ``cached_free_bytes`` and
+  never counted as unattributed.
+
+The ledger is an attribution estimate, not an allocator: claimed sizes
+are ``nbytes`` sums at claim time, so views and deferred frees can make
+owners over- or under-read versus the census by transient amounts
+(``over_attributed_bytes`` makes the direction visible). Claims of host
+tensors are counted too; claim device trees only where device
+attribution is the point.
 """
 
 from __future__ import annotations
@@ -36,6 +55,8 @@ __all__ = [
     'Claim',
     'claim_bytes',
     'owned_bytes',
+    'reset_residency',
+    'residency_report',
     'tree_nbytes',
 ]
 
@@ -283,3 +304,59 @@ def claim_bytes(
 def owned_bytes() -> Dict[str, int]:
     """Current claimed bytes per owner (live claims only) — one dict read."""
     return _LEDGER.owned()
+
+
+def residency_report(
+    *, top: int = 5, census: Optional[Dict[str, Any]] = None
+) -> Dict[str, Any]:
+    """Reconcile the ledger against the live-tensor census.
+
+    Returns ``{'owners', 'owned_total_bytes', 'census_supported', ...}``;
+    where the census reports (a card), adds ``census_total_bytes``,
+    ``census_n_arrays``, the ``top`` largest census groups,
+    ``unattributed_bytes`` (census minus claims, floored at 0 — recorded
+    as ``mem/owned_bytes{owner="unattributed"}``),
+    ``over_attributed_bytes`` (claims past the census: freed but still
+    claimed tensors, or claimed host tensors) and the allocator's
+    ``allocated_bytes``, ``reserved_bytes`` and ``cached_free_bytes``
+    (reserved minus allocated: the caching allocator's free blocks, not
+    a leak). Running the census walks every live object — a report-time
+    cost, never part of a hot path.
+    """
+    from .memory import device_memory_stats, live_array_census
+
+    owners = owned_bytes()
+    owned_total = sum(owners.values())
+    out: Dict[str, Any] = {
+        'owners': owners,
+        'owned_total_bytes': owned_total,
+    }
+    if census is None:
+        census = live_array_census(top=top)
+    supported = bool(census.get('supported'))
+    out['census_supported'] = supported
+    if supported:
+        census_total = int(census.get('total_bytes', 0))
+        remainder = census_total - owned_total
+        unattributed = max(remainder, 0)
+        out['census_total_bytes'] = census_total
+        out['census_n_arrays'] = int(census.get('n_arrays', 0))
+        out['census_top'] = list(census.get('top', ()))
+        if census.get('other') is not None:
+            out['census_other'] = dict(census['other'])
+        out['unattributed_bytes'] = unattributed
+        out['over_attributed_bytes'] = max(-remainder, 0)
+        REGISTRY.gauge('mem/owned_bytes', unit='bytes').set(
+            unattributed, owner=UNATTRIBUTED
+        )
+    stats = device_memory_stats()
+    if stats is not None:
+        out['allocated_bytes'] = int(stats['bytes_in_use'])
+        out['reserved_bytes'] = int(stats['bytes_reserved'])
+        out['cached_free_bytes'] = int(stats['bytes_reserved'] - stats['bytes_in_use'])
+    return out
+
+
+def reset_residency() -> None:
+    """Release every claim (tests; the gauges reset separately)."""
+    _LEDGER.reset()

@@ -7,6 +7,12 @@ repository's ``build/kernels/`` (listed in ``.gitignore``) and loaded with
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: this module imports on machines with no
 CUDA toolkit.
+
+Every load is reported to the dispatch observatory
+(:func:`~socceraction_tpu_torch.obs.dispatch.record_kernel_build`: an
+``nvcc`` build counts into ``dispatch/kernel_builds`` and
+``dispatch/build_seconds``), and :func:`load_libraries` is the
+``kernel_build`` phase of the cold-start timeline.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Sequence
+
+from ..obs.coldstart import TIMELINE
+from ..obs.dispatch import record_kernel_build
 
 __all__ = [
     'BUILD_DIR', 'build_log', 'build_seconds', 'load_libraries', 'load_library', 'ptxas_report',
@@ -72,7 +81,8 @@ def load_library(name: str) -> ctypes.CDLL:
         digest = hashlib.sha256(src.read_bytes() + ' '.join(_NVCC_FLAGS).encode())
         so = BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
         t0 = time.perf_counter()
-        if not so.exists():
+        compiled = not so.exists()
+        if compiled:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # build to a temporary name, then rename: concurrent builders
             # never load a half-written library
@@ -96,13 +106,15 @@ def load_library(name: str) -> ctypes.CDLL:
         build_seconds[name] = time.perf_counter() - t0
         _paths[name] = so
         lib = _loaded[name] = ctypes.CDLL(str(so))
+        record_kernel_build(name, build_seconds[name], compiled=compiled)
         return lib
 
 
 def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     """Build and load several libraries at once: one ``nvcc`` per source,
-    all started together."""
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+    all started together; the cold-start timeline's ``kernel_build``
+    phase."""
+    with TIMELINE.phase('kernel_build'), ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return dict(zip(names, pool.map(load_library, names)))
 
 

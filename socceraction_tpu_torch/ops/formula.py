@@ -8,10 +8,14 @@ first row, which is exact because games are left-aligned.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
 from ..config import CORNER_PRIOR, PENALTY_PRIOR, SAMEPHASE_SECONDS
 from ..core.batch import ActionBatch
+from ..obs.dispatch import instrument
 from ..spadl import config as spadlconfig
 from .labels import _goal_masks
 
@@ -53,10 +57,28 @@ def vaep_core(
     return torch.stack([offensive, defensive, offensive + defensive], dim=-1)
 
 
+def _values_cost(
+    batch: ActionBatch, p_scores: torch.Tensor, p_concedes: torch.Tensor
+) -> Tuple[float, float]:
+    """``(flops, bytes)`` of the formula: the two probability planes and
+    the four batch fields it reads (type, result, side, time) read once,
+    the ``(G, A, 3)`` f32 values written once; about ten operations a
+    row."""
+    n = batch.n_games * batch.max_actions
+    read = sum(
+        t.element_size() * n
+        for t in (p_scores, p_concedes, batch.type_id, batch.result_id, batch.is_home,
+                  batch.time_seconds)
+    )
+    return float(10 * n), float(read + 12 * n)
+
+
+@functools.partial(instrument, name='vaep_values', cost=_values_cost)
 def vaep_values(
     batch: ActionBatch, p_scores: torch.Tensor, p_concedes: torch.Tensor
 ) -> torch.Tensor:
-    """``(G, A, 3)``: offensive, defensive and total VAEP values."""
+    """``(G, A, 3)``: offensive, defensive and total VAEP values
+    (instrumented as ``vaep_values``)."""
     A = batch.max_actions
     prev = (torch.arange(A, device=batch.device) - 1).clamp(min=0)
     t = batch.time_seconds

@@ -38,10 +38,12 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import torch
 
 from ..atomic.spadl import config as atomicconfig
+from ..obs.dispatch import instrument
+from ..obs.numerics import guards_enabled, nonfinite_count, note_guard, overflow_count
 from ..spadl import config as spadlconfig
 from .atomic import _ONEHOT_GROUPS, ATOMIC_KERNELS, ATOMIC_WIDTHS, _AtomicStates
 from .features import _WIDTHS, KERNELS, _States, kernel_width
-from .gather_matmul import fused_first_layer, fused_first_layer_quant
+from .gather_matmul import first_layer_cost, fused_first_layer, fused_first_layer_quant
 from .quant import (
     QuantizedArray,
     check_quantize_mode,
@@ -391,6 +393,79 @@ def _packed_rows(
     return x_dense, ids
 
 
+def _pair_cost(
+    prep: PreparedPair, mlp_a: Any, mlp_b: Any, batch: Any, dense_overrides: Any, *,
+    names: Tuple[str, ...], k: int, registry_name: str,
+) -> Tuple[float, float]:
+    """Analytic ``(flops, bytes)`` of one pair dispatch, from shapes.
+
+    B1's operands and output (:func:`~.gather_matmul.first_layer_cost`,
+    every id counted: the data is not read), then each head's hidden
+    chain: every later layer's input, weights and bias read and its
+    output written, ``2·N·in·out`` operations each, and the sigmoid's
+    output written. The batch's own reads by the feature kernels are
+    not counted, so the cost is a lower bound of what moves.
+    """
+    n = batch.n_games * batch.max_actions
+    kt, r, h = prep.tables.data.shape
+    table_dtype = torch.float32 if prep.quantize == 'int8' else prep.tables.data.dtype
+    b1 = first_layer_cost(n, kt, r, h, prep.w_dense.data.shape[0], table_dtype=table_dtype)
+    flops, nbytes = b1['flops'], b1['bytes']
+    for mlp in (mlp_a, mlp_b):
+        for layer in mlp.layers()[1:]:
+            fi, fo = layer.in_features, layer.out_features
+            flops += 2 * n * fi * fo
+            nbytes += 4 * (n * fi + fi * fo + fo + n * fo)
+        nbytes += 4 * n
+    return flops, nbytes
+
+
+@functools.partial(instrument, name='pair_probs', cost=_pair_cost, storm_threshold=16)
+def _pair_dispatch(
+    prep: PreparedPair,
+    mlp_a: Any,
+    mlp_b: Any,
+    batch: Any,
+    dense_overrides: Optional[Dict[str, torch.Tensor]],
+    *,
+    names: Tuple[str, ...],
+    k: int,
+    registry_name: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The instrumented pair dispatch behind :func:`pair_probs_prepared`:
+    its arguments are the tensors and modules it reads, so the dispatch
+    observatory keys it by their shapes."""
+    registry = REGISTRIES[registry_name]
+    s = registry.make_states(batch, k)
+    x_dense, ids = _packed_rows(
+        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+    )
+    if x_dense.shape[1] != prep.w_dense.data.shape[0]:
+        raise ValueError(
+            f'prepared fold has a {prep.w_dense.data.shape[0]}-column dense '
+            f'sub-kernel but the feature layout ({names!r}, k={k}) emits '
+            f'{x_dense.shape[1]} dense columns'
+        )
+    # int8 storage expands to a transient f32 table per dispatch; bf16
+    # rides into the kernel and is widened there
+    int8 = prep.quantize == 'int8'
+    tables = dequantize(*prep.tables) if int8 else prep.tables.data
+    w_dense = dequantize(*prep.w_dense) if int8 else prep.w_dense.data
+    h = fused_first_layer_quant(tables, w_dense, prep.bias, ids, x_dense)
+    h = h.reshape(batch.n_games, batch.max_actions, -1)
+    a = _hidden_chain(mlp_a, h[..., : prep.h_a_width])
+    b = _hidden_chain(mlp_b, h[..., prep.h_a_width :])
+    pa, pb = torch.sigmoid(a), torch.sigmoid(b)
+    if guards_enabled():
+        # in-dispatch guard, counted on the card beside the outputs and
+        # left there (no host read): nonfinite probabilities, what
+        # callers consume (an Inf logit serves a finite 0/1), and logits
+        # past the sigmoid's saturation; padding games are counted too
+        note_guard('pair_probs', 'probs', nonfinite_count(pa, pb))
+        note_guard('pair_probs', 'logits', overflow_count(a, b), kind='overflow')
+    return pa, pb
+
+
 @torch.no_grad()
 def pair_probs_prepared(
     prep: PreparedPair,
@@ -407,28 +482,16 @@ def pair_probs_prepared(
 
     Builds the packed rows, runs the fused gather + matmul first layer on
     the (dequantized, for int8) tables, then each head's hidden chain and
-    a sigmoid.
+    a sigmoid. The dispatch is instrumented as ``pair_probs``
+    (:mod:`~socceraction_tpu_torch.obs.dispatch`) and, unless
+    ``SOCCERACTION_TPU_NUM_GUARDS=0``, notes the JAX package's numeric
+    guards (``fn='pair_probs'``: nonfinite ``probs``, ``logits`` past 88)
+    for a later :func:`~socceraction_tpu_torch.obs.numerics.drain_guards`.
     """
-    s = registry.make_states(batch, k)
-    x_dense, ids = _packed_rows(
-        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+    return _pair_dispatch(
+        prep, clf_a.module, clf_b.module, batch, dense_overrides or None,
+        names=tuple(names), k=k, registry_name=registry.name,
     )
-    if x_dense.shape[1] != prep.w_dense.data.shape[0]:
-        raise ValueError(
-            f'prepared fold has a {prep.w_dense.data.shape[0]}-column dense '
-            f'sub-kernel but the feature layout ({tuple(names)!r}, k={k}) emits '
-            f'{x_dense.shape[1]} dense columns'
-        )
-    # int8 storage expands to a transient f32 table per dispatch; bf16
-    # rides into the kernel and is widened there
-    int8 = prep.quantize == 'int8'
-    tables = dequantize(*prep.tables) if int8 else prep.tables.data
-    w_dense = dequantize(*prep.w_dense) if int8 else prep.w_dense.data
-    h = fused_first_layer_quant(tables, w_dense, prep.bias, ids, x_dense)
-    h = h.reshape(batch.n_games, batch.max_actions, -1)
-    a = _hidden_chain(clf_a.module, h[..., : prep.h_a_width])
-    b = _hidden_chain(clf_b.module, h[..., prep.h_a_width :])
-    return torch.sigmoid(a), torch.sigmoid(b)
 
 
 # -- training ------------------------------------------------------------------

@@ -17,13 +17,15 @@ segment sum per table and two products.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from .segment import segment_sum_rows
 
-__all__ = ['fused_first_layer', 'fused_first_layer_quant', 'fused_first_layer_reference']
+__all__ = [
+    'first_layer_cost', 'fused_first_layer', 'fused_first_layer_quant', 'fused_first_layer_reference',
+]
 
 #: Shared memory a block may use on Hopper (bytes, opt-in dynamic limit).
 _MAX_SMEM = 232448
@@ -55,6 +57,34 @@ def fused_first_layer_reference(
     if x_dense.shape[1]:
         out = out + x_dense @ w_dense.to(torch.float32)
     return out
+
+
+def first_layer_cost(
+    n: int, k: int, r: int, h: int, d: int, *,
+    table_dtype: torch.dtype = torch.float32, valid: Optional[int] = None,
+) -> Dict[str, float]:
+    """What one launch of B1 must move and compute, from its shapes.
+
+    ``bytes``: every operand read once (``k`` tables ``(R, H)`` and
+    ``W`` ``(D, H)`` in ``table_dtype``, the f32 bias, ``(N, k)`` int32
+    ids, ``(N, D)`` f32 ``x``) and the ``(N, H)`` f32 output written
+    once. ``tf32_flops``: the dense product as the kernel computes it,
+    in 3xTF32 on the tensor cores (three TF32 products of ``2·N·D·H``,
+    two for a bf16 ``W``, which is exact in TF32). ``f32_flops``: one
+    add per gathered element of the ``valid`` ids (default: all
+    ``N·k``, the most a call can need; pass the count of ids in
+    ``[0, R)`` where the data is at hand). ``flops``: the function's own
+    arithmetic, ``2·N·D·H`` plus the adds.
+    """
+    esize = torch.empty((), dtype=table_dtype).element_size()
+    valid = n * k if valid is None else valid
+    products = 3 if table_dtype == torch.float32 else 2
+    return {
+        'bytes': float((k * r * h + d * h) * esize + h * 4 + n * k * 4 + n * d * 4 + n * h * 4),
+        'tf32_flops': float(products * 2 * n * d * h),
+        'f32_flops': float(valid * h),
+        'flops': float(2 * n * d * h + valid * h),
+    }
 
 
 def _check(

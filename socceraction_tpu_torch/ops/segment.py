@@ -25,6 +25,7 @@ import torch
 __all__ = [
     'launch_plan',
     'segment_sum',
+    'segment_sum_cost',
     'segment_sum_2d',
     'segment_sum_reference',
     'segment_sum_rows',
@@ -46,6 +47,13 @@ def _flat(values: torch.Tensor, segment_ids: torch.Tensor) -> tuple:
     if ids.dtype.is_floating_point or ids.dtype == torch.bool:
         raise TypeError(f'segment_ids must be integers, got {ids.dtype}')
     return vals, ids
+
+
+def segment_sum_cost(n: int, num_segments: int) -> Tuple[float, float]:
+    """``(flops, bytes)`` one segment sum of ``n`` items into
+    ``num_segments`` must do: one add per item, each f32 value and int32
+    id read once, each f32 segment written once."""
+    return float(n), float(n * 8 + num_segments * 4)
 
 
 def segment_sum_reference(

@@ -29,13 +29,15 @@ iteration counts and certificates mean what they mean there.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..obs.dispatch import instrument
 from ..spadl import config as spadlconfig
-from .segment import segment_sum, segment_sum_2d
+from .segment import segment_sum, segment_sum_2d, segment_sum_cost
 
 __all__ = [
     'cell_indexes',
@@ -566,6 +568,18 @@ def xt_probabilities(counts: XTCounts, *, l: int, w: int) -> XTProbabilities:
     return XTProbabilities(p_score=p_score, p_shot=p_shot, p_move=p_move, transition=transition)
 
 
+def _solve_xt_cost(probs: 'XTProbabilities', *args: Any, **kwargs: Any) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one sweep of the dense solve (XLA's cost
+    analysis, which the JAX package's roofline reads, counts a loop body
+    once too): each grid's ``(n, n)`` transition matrix and its three
+    probability planes read, the surface read and written; ``2·n²`` plus
+    three operations a cell."""
+    n = probs.p_shot.shape[-1] * probs.p_shot.shape[-2]
+    grids = probs.p_shot.numel() // n
+    return float(grids * (2 * n * n + 3 * n)), float(4 * grids * (n * n + 5 * n))
+
+
+@functools.partial(instrument, name='solve_xt', cost=_solve_xt_cost)
 @_full_f32()
 def solve_xt(
     probs: XTProbabilities,
@@ -608,6 +622,22 @@ def solve_xt(
     return _certificate(xT, it, resid, eps)
 
 
+def _solve_matrix_free_cost(type_id: torch.Tensor, *args: Any, l: int, w: int, **kwargs: Any) -> Tuple[float, float]:
+    """``(flops, bytes)`` of the counting pass and one sweep of the
+    matrix-free solve (a loop body counted once, as XLA counts it): the
+    seven batch fields read, three segment sums of the action stream
+    (:func:`~.segment.segment_sum_cost`), then one sweep's gather
+    (int64 index and f32 weight and value per action) and segment sum,
+    and the surface's planes."""
+    n = type_id.numel()
+    cells = l * w * (kwargs.get('n_groups') or 1)
+    seg_flops, seg_bytes = segment_sum_cost(n, cells)
+    flops = 4 * seg_flops + 2 * n + 3 * cells
+    nbytes = n * (4 * 4 + 4 + 4 + 1) + 4 * seg_bytes + n * 16 + 5 * 4 * cells
+    return float(flops), float(nbytes)
+
+
+@functools.partial(instrument, name='solve_xt_matrix_free', cost=_solve_matrix_free_cost)
 @_full_f32()
 def solve_xt_matrix_free(
     type_id: torch.Tensor,

@@ -437,6 +437,7 @@ def _ship_wire(fam: _Family, wire: Tuple[torch.Tensor, ...], device: torch.devic
     residency ledger: per-field finalizers shrink the claim as the
     consumer drops the batch.
     """
+    total = int(wire[3].sum())  # the lengths, counted on the host
     if device.type == 'cuda':
         consumer = torch.cuda.current_stream(device)
         stream = copy_stream(device)
@@ -449,6 +450,7 @@ def _ship_wire(fam: _Family, wire: Tuple[torch.Tensor, ...], device: torch.devic
         hand_over(batch, consumer)
     else:
         batch = _device_unpack(fam, *wire)
+    batch.with_total(total)
     claim_bytes('pipeline_feed', batch, weak=True)
     return batch
 

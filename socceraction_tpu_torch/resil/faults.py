@@ -14,10 +14,10 @@ A copy of the JAX package's ``socceraction_tpu/resil/faults.py``:
   sequence (:attr:`FaultPlan.history` pins it bit-for-bit), so a chaos
   failure replays exactly.
 
-Every injection is counted in the governed
-``resil/faults_injected{point,kind}`` counter. (The JAX package also
-writes a ``fault_injected`` event to its flight recorder and run log;
-the port has neither yet.)
+Every injection is accounted twice: the governed
+``resil/faults_injected{point,kind}`` counter and a ``fault_injected``
+event in the flight recorder + run log, so a post-mortem bundle shows
+which faults were armed and which actually fired.
 
 Usage (tests)::
 
@@ -248,13 +248,24 @@ class FaultPlan:
 
     @staticmethod
     def _account(record: Dict[str, Any]) -> None:
-        """Count the injection; never raises."""
+        """Metrics + flight recorder + run log; never raises."""
         try:
             from ..obs import counter
+            from ..obs.recorder import RECORDER
+            from ..obs.trace import current_runlog
 
             counter('resil/faults_injected', unit='count').inc(
                 1, point=record['point'], kind=record['kind']
             )
+            # 'kind' is the flight recorder's event-type field; the
+            # injected fault's kind travels as 'fault_kind' (one event
+            # schema across ring and run log)
+            payload = dict(record)
+            payload['fault_kind'] = payload.pop('kind')
+            RECORDER.record('fault_injected', **payload)
+            log = current_runlog()
+            if log is not None:
+                log.event('fault_injected', **payload)
         except Exception:
             pass  # accounting must never mask (or add to) the injection
 

@@ -28,10 +28,10 @@ in one place:
 
 Every outcome lands in the governed ``resil/retries{site,outcome}``
 counter (``outcome`` ∈ ``retried`` | ``recovered`` | ``exhausted`` |
-``permanent``).
+``permanent``) and retries record a ``retry`` event in the flight
+recorder and the run log, so a post-mortem shows what has been flapping.
 
-A copy of the JAX package's ``socceraction_tpu/resil/retry.py``, less its
-flight-recorder and run-log events: the port has neither yet.
+A copy of the JAX package's ``socceraction_tpu/resil/retry.py``.
 """
 
 from __future__ import annotations
@@ -126,6 +126,27 @@ def _count(site: str, outcome: str) -> None:
         pass  # accounting must never change the retry outcome
 
 
+def _record_retry(site: str, attempt: int, exc: BaseException, delay: float) -> None:
+    try:
+        from ..obs.recorder import RECORDER
+        from ..obs.trace import current_runlog
+
+        payload = {
+            'site': site,
+            'attempt': attempt,
+            'error': f'{type(exc).__name__}: {exc}',
+            'delay_s': round(delay, 4),
+        }
+        RECORDER.record('retry', **payload)
+        # dual-write to the run log (like fault_injected): the recorder
+        # ring dies with the process
+        log = current_runlog()
+        if log is not None:
+            log.event('retry', **payload)
+    except Exception:
+        pass
+
+
 def _run_attempt(
     fn: Callable[..., T], args: tuple, kwargs: dict, timeout: Optional[float]
 ) -> T:
@@ -166,7 +187,7 @@ def retry_call(
     """Call ``fn(*args, **kwargs)`` under ``policy``; see the module docs.
 
     ``site`` is the governed accounting label (low cardinality: one
-    literal per call site — ``'ingest.read'``). ``sleep`` is injectable so
+    literal per call site — ``'ingest.read'``, ``'recorder.dump'``). ``sleep`` is injectable so
     tests assert exact backoff schedules without waiting them out.
     """
     policy = policy if policy is not None else RetryPolicy()
@@ -201,6 +222,7 @@ def retry_call(
                     e.args = (f'failed {note}',)
                 raise
             _count(site, 'retried')
+            _record_retry(site, attempt, e, delay)
             sleep(delay)
             if budget_left is not None:
                 budget_left -= delay

@@ -96,7 +96,8 @@ def expand_scenarios(
             fields[name] = full.reshape(P * G, A).to(a.dtype)
         else:
             fields[name] = a.repeat(P, *([1] * (a.ndim - 1)))
-    expanded = type(batch)(**fields)
+    known = batch._host_total
+    expanded = type(batch)(**fields).with_total(None if known is None else P * known)
 
     overrides: Dict[str, torch.Tensor] = {}
     for name, block in grid.dense_overrides.items():
@@ -126,7 +127,7 @@ def _perturbed_batch(batch: Any, grid: ScenarioGrid, p: int) -> Any:
                 fields[name] = torch.as_tensor(upd[p], device=a.device).to(a.dtype)
         else:
             fields[name] = a
-    return type(batch)(**fields)
+    return type(batch)(**fields).with_total(batch._host_total)
 
 
 def _overrides_at(

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import json
+import time
 import zipfile
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import counter, histogram
 from ..ml.mlp import AdamState, _fit_loop, _labels, _resolve_states, _weighted_bce
 from .model import (
     SeqModule,
@@ -143,8 +145,11 @@ class SeqClassifier:
         the packed form when not given, so they stay interchangeable with
         an MLP head's), early stopping on ``eval_set``, warm starts from
         ``init_params`` (a :class:`~.model.SeqModule`) and
-        ``init_opt_state``, both copied.
+        ``init_opt_state``, both copied. Each fit counts into ``seq/fits``
+        and ``seq/fit_seconds`` (labeled ``platform``) besides the epoch
+        loop's ``train/*``.
         """
+        t0 = time.perf_counter()
         module, data, loss_fn, make_data, states, layout = self._packed_problem(
             batch, y, names=names, k=k, registry=registry, mean=mean, std=std,
             init_params=init_params,
@@ -157,10 +162,14 @@ class SeqClassifier:
             if ev_layout.n_features != layout.n_features:
                 raise ValueError('eval_set feature layout differs from train')
             eval_data = make_data(ev_states, _labels(eval_set[1], self.device))
-        return _fit_loop(
+        out = _fit_loop(
             self, module, data, int(states.weight.shape[0]), loss_fn, eval_data,
-            path=path, init_opt_state=init_opt_state,
+            path=path, n_samples=int(states.weight.sum()), init_opt_state=init_opt_state,
         )
+        labels = {'platform': self.device.type}
+        counter('seq/fits', unit='count').inc(1, **labels)
+        histogram('seq/fit_seconds', unit='s').observe(time.perf_counter() - t0, **labels)
+        return out
 
     def _packed_problem(
         self,

@@ -17,6 +17,7 @@ gate, the reset gate applied to ``h`` before its product with ``uh``, and
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,7 +26,10 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ml.mlp import _generator
+from ..obs.dispatch import instrument
+from ..obs.numerics import nonfinite_count, note_guard
 from ..ops.fused import (
+    REGISTRIES,
     STANDARD_REGISTRY,
     FusedRegistry,
     TrainLayout,
@@ -232,6 +236,40 @@ def seq_train_logits(
     return seq_logits(module, x_dense, combo_ids, dense_mean=dm, dense_std=ds)
 
 
+@functools.partial(instrument, name='seq_pair_probs')
+def _seq_pair_dispatch(
+    module_a: SeqModule,
+    module_b: SeqModule,
+    stats_a: Tuple[torch.Tensor, torch.Tensor],
+    stats_b: Tuple[torch.Tensor, torch.Tensor],
+    batch: Any,
+    dense_overrides: Optional[Dict[str, torch.Tensor]],
+    *,
+    names: Tuple[str, ...],
+    k: int,
+    registry_name: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The instrumented dispatch behind :func:`seq_pair_probs`, keyed by
+    the shapes of what it reads."""
+    registry = REGISTRIES[registry_name]
+    layout = train_layout(names, k, registry)
+    s = registry.make_states(batch, k)
+    x_dense, ids = _packed_rows(
+        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+    )
+    shape = (batch.n_games, batch.max_actions)
+    pa, pb = (
+        torch.sigmoid(
+            seq_train_logits(module, x_dense, ids, layout=layout, mean=mean, std=std)
+        ).reshape(shape)
+        for module, (mean, std) in ((module_a, stats_a), (module_b, stats_b))
+    )
+    # the JAX package's seq guard: nonfinite probabilities of the whole
+    # (padded) batch, counted on the card and left there
+    note_guard('seq_pair_probs', 'probs', nonfinite_count(pa, pb))
+    return pa, pb
+
+
 @torch.no_grad()
 def seq_pair_probs(
     clf_a: Any,
@@ -247,17 +285,11 @@ def seq_pair_probs(
 
     The dense kernels and the combined-id gathers run once, shared by both
     heads; ``dense_overrides[name]`` (``(G, A, width)``) stands in for
-    dense kernel ``name``'s block, as in the fused MLP path.
+    dense kernel ``name``'s block, as in the fused MLP path. The dispatch
+    is instrumented as ``seq_pair_probs`` and notes the JAX package's
+    guard (``fn='seq_pair_probs'``: nonfinite ``probs``).
     """
-    layout = train_layout(names, k, registry)
-    s = registry.make_states(batch, k)
-    x_dense, ids = _packed_rows(
-        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
-    )
-    shape = (batch.n_games, batch.max_actions)
-    return tuple(
-        torch.sigmoid(
-            seq_train_logits(clf.module, x_dense, ids, layout=layout, mean=clf.mean_, std=clf.std_)
-        ).reshape(shape)
-        for clf in (clf_a, clf_b)
+    return _seq_pair_dispatch(
+        clf_a.module, clf_b.module, (clf_a.mean_, clf_a.std_), (clf_b.mean_, clf_b.std_),
+        batch, dense_overrides or None, names=tuple(names), k=k, registry_name=registry.name,
     )

@@ -33,6 +33,7 @@ import hashlib
 import json
 import math
 import os
+import time
 from typing import TYPE_CHECKING, Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +51,7 @@ from ..core.batch import (
 from ..device import DeviceLike, resolve_device
 from ..ml.learners import PACKED_LEARNERS
 from ..ml.mlp import MLPClassifier
+from ..obs import counter, gauge, histogram, span
 from ..ops.features import KERNELS, compute_features
 from ..ops.formula import vaep_values
 from ..ops.fused import (
@@ -546,7 +548,49 @@ class VAEP:
         heads run through the prepared fold and kernel B1, seq heads both
         over one packing of the batch. Values on padding rows are garbage
         by contract.
+
+        Every call reports the JAX package's telemetry under ``(path,
+        platform)`` labels (``path`` is ``'fused'`` or ``'seq'``,
+        ``platform`` the model's device type): the valid-action batch size
+        (``vaep/rate_batch_actions``), the dispatch wall
+        (``vaep/rate_batch_seconds``), the ``vaep/rated_actions`` counter
+        and the ``vaep/rate_actions_per_sec`` gauge, and for seq heads
+        ``seq/rated_actions`` and ``seq/rate_seconds``, inside a
+        ``vaep/rate_batch`` span. All are measured at *dispatch*: nothing
+        here waits for the card (the action count is the batch's host
+        count), so on the card they bound the host's cost, not the card's
+        throughput. The dispatch notes the numeric guards
+        (:mod:`~socceraction_tpu_torch.obs.numerics`) for a later
+        ``drain_guards()``.
         """
+        kind = self._head_kind()
+        labels = {'path': 'seq' if kind == 'seq' else 'fused', 'platform': self.device.type}
+        t0 = time.perf_counter()
+        with span('vaep/rate_batch', games=batch.n_games, **labels):
+            values = self._rate(batch, dense_overrides=dense_overrides, bucket=bucket)
+        dispatch_s = time.perf_counter() - t0
+        n_actions = batch.total_actions
+        histogram('vaep/rate_batch_actions', unit='actions').observe(n_actions, **labels)
+        histogram('vaep/rate_batch_seconds', unit='s').observe(dispatch_s, **labels)
+        counter('vaep/rated_actions', unit='actions').inc(n_actions, **labels)
+        if dispatch_s > 0:
+            gauge('vaep/rate_actions_per_sec', unit='actions/s').set(
+                n_actions / dispatch_s, **labels
+            )
+        if kind == 'seq':
+            counter('seq/rated_actions', unit='actions').inc(n_actions, platform=labels['platform'])
+            histogram('seq/rate_seconds', unit='s').observe(dispatch_s, platform=labels['platform'])
+        return values
+
+    @torch.no_grad()
+    def _rate(
+        self,
+        batch: Any,
+        *,
+        dense_overrides: Optional[Dict[str, Any]] = None,
+        bucket: bool = True,
+    ) -> torch.Tensor:
+        """:meth:`rate_batch` without its span and metrics: the dispatch."""
         clf_a, clf_b = self._heads()
         kind = self._head_kind()
         overrides = self._overrides_on_device(batch, dense_overrides)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import time
 from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,6 +28,10 @@ import torch
 
 from .core.batch import ActionBatch, pack_actions, pack_row_values, unpack_values
 from .device import DeviceLike, resolve_device
+from .obs import gauge, histogram, span
+from .obs.numerics import record_nonfinite
+from .obs.perf import record_dispatch
+from .obs.residency import claim_bytes
 from .ops import xt as _xtops
 from .spadl import config as spadlconfig
 
@@ -100,6 +105,12 @@ def _resolve_variant(variant: Optional[str], accelerate: bool, keep_heatmaps: bo
             f'{variant} iterates are a different (non-monotone) sequence'
         )
     return variant
+
+
+def _pow2_bucket(n: int) -> int:
+    """Round a grid count up to a power of two (the ``n_grids`` metric
+    label stays cardinality-bounded at ``log2(max fleet size)`` values)."""
+    return 1 << max(n - 1, 0).bit_length()
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -234,6 +245,10 @@ class ExpectedThreat:
         r = float(sol.residual)
         self.solve_residual = r if math.isfinite(r) else None
         self.converged = bool(sol.converged)
+        # numeric guard on the certificate the fit already brought to the
+        # host: a non-finite surface or residual counts into num/*
+        record_nonfinite('solve_xt', 'grid', int(np.sum(~np.isfinite(self.xT))))
+        record_nonfinite('solve_xt', 'residual', int(not math.isfinite(r)))
 
     def _take_probabilities(self, probs: _xtops.XTProbabilities) -> None:
         self.scoring_prob_matrix = _host(probs.p_score)
@@ -322,7 +337,14 @@ class ExpectedThreat:
             )
             probs = _xtops.xt_probabilities(counts, l=self.l, w=self.w)
             sol = _xtops.solve_xt(probs, eps=self.eps, max_iter=self.max_iter, solver=variant)
-        self._adopt_fleet(sol, probs, keys, group_by)
+        # the fleet's device stacks (grids, probability planes and, dense,
+        # the transition stack) are the xT layer's footprint while the fit
+        # brings them to the host: claimed under `xt_fleet` for that window
+        claim = claim_bytes('xt_fleet', (probs, sol.grid))
+        try:
+            self._adopt_fleet(sol, probs, keys, group_by)
+        finally:
+            claim.release()
 
     def _adopt_fleet(
         self,
@@ -357,6 +379,11 @@ class ExpectedThreat:
         worst = float(self.solve_residual_per_grid_.max())
         self.solve_residual = worst if math.isfinite(worst) else None
         self.converged = bool(self.converged_per_grid_.all())
+        # fleet-wide numeric guard over the host certificate arrays
+        record_nonfinite('solve_xt', 'grid', int(np.sum(~np.isfinite(self.grids_))))
+        record_nonfinite(
+            'solve_xt', 'residual', int(np.sum(~np.isfinite(self.solve_residual_per_grid_)))
+        )
         self.xT = np.zeros((self.w, self.l))
 
     def _as_batch(self, actions: Actions) -> ActionBatch:
@@ -400,22 +427,53 @@ class ExpectedThreat:
                     'group_by requires a DataFrame (group keys live in frame columns)'
                 )
             codes, keys = self._group_codes(actions, group_by)
-            if len(keys) == 0:
+            n_grids = len(keys)
+            if n_grids == 0:
                 raise ValueError('group_by produced no groups (all keys null?)')
-            self._fit_torch_grouped(actions, codes, keys, group_by, variant)
-            return self
-        # a refit without group_by drops any previous fleet state
-        self.grids_ = None
-        self.group_keys_ = None
-        self.group_by_ = None
-        self.n_iter_per_grid_ = None
-        self.solve_residual_per_grid_ = None
-        self.converged_per_grid_ = None
-        self.scoring_prob_matrices_ = None
-        self.shot_prob_matrices_ = None
-        self.move_prob_matrices_ = None
-        self.transition_matrices_ = None
-        self._fit_torch(self._as_batch(actions), variant)
+        else:
+            codes = keys = None
+            n_grids = 1
+        labels = {
+            'grid': f'{self.l}x{self.w}',
+            'solver': self._effective_solver(n_grids),
+            'variant': variant,
+            'backend': 'torch',
+            'n_grids': str(_pow2_bucket(n_grids)),
+        }
+        t0 = time.perf_counter()
+        with span('xt/fit', **labels):
+            if group_by is not None:
+                self._fit_torch_grouped(actions, codes, keys, group_by, variant)
+            else:
+                # a refit without group_by drops any previous fleet state
+                self.grids_ = None
+                self.group_keys_ = None
+                self.group_by_ = None
+                self.n_iter_per_grid_ = None
+                self.solve_residual_per_grid_ = None
+                self.converged_per_grid_ = None
+                self.scoring_prob_matrices_ = None
+                self.shot_prob_matrices_ = None
+                self.move_prob_matrices_ = None
+                self.transition_matrices_ = None
+                self._fit_torch(self._as_batch(actions), variant)
+        solve_s = time.perf_counter() - t0
+        if not self.keep_heatmaps:
+            # live-roofline feed: the fit wall is host-synced (the
+            # certificate fetch waits for the solve), and the fn name is
+            # the instrumented solver's, so the cost lookup finds its books
+            fn = 'solve_xt' if labels['solver'] == 'dense' else 'solve_xt_matrix_free'
+            record_dispatch(fn, solve_s, bucket=_pow2_bucket(n_grids))
+        # the grid is user-controlled (any l×w): past-budget label sets
+        # collapse into the reserved overflow series instead of raising
+        histogram('xt/solve_iterations', unit='iterations', on_overflow='overflow').observe(
+            self.n_iter, **labels
+        )
+        histogram('xt/solve_seconds', unit='s', on_overflow='overflow').observe(solve_s, **labels)
+        if self.solve_residual is not None:
+            gauge('xt/solve_residual', unit='value', on_overflow='overflow').set(
+                self.solve_residual, **labels
+            )
         return self
 
     # -- inference ---------------------------------------------------------

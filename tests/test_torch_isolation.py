@@ -7,7 +7,8 @@
 - The modules ``chip_smoke.py`` runs import with those packages, and
   ``pandas``, ``pyarrow``, ``h5py`` and ``msgpack`` (absent on the GPU
   machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
-  feed and counterfactual phases also run so, at a tiny size on the CPU.
+  feed, counterfactual and telemetry phases also run so, at a tiny size
+  on the CPU.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -61,7 +62,9 @@ def test_the_scan_sees_the_port():
         'seq/classifier.py', 'obs/metrics.py', 'obs/trace.py', 'obs/residency.py',
         'resil/retry.py', 'resil/faults.py', 'pipeline/store.py', 'pipeline/packed.py',
         'pipeline/build.py', 'pipeline/feed.py', 'scenario/grid.py', 'scenario/engine.py',
-        'scenario/product.py', 'scenario/xt.py',
+        'scenario/product.py', 'scenario/xt.py', 'obs/context.py', 'obs/coldstart.py',
+        'obs/dispatch.py', 'obs/export.py', 'obs/memory.py', 'obs/numerics.py', 'obs/parity.py',
+        'obs/perf.py', 'obs/recorder.py', 'obs/slo.py', 'utils/profiling.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -81,6 +84,11 @@ def test_exact_match_is_not_a_prefix_match(tmp_path):
 
 _BLOCKER = '''
 import importlib.abc, sys
+# torch's compiler stack, which torch.profiler loads, probes optional
+# packages with importlib.util.find_spec: on the card's machine they are
+# absent and the probe finds nothing, here the blocker would raise from
+# it. It imports none of them; load it before the blocker goes in.
+import torch._dynamo
 BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu', 'pandas', 'msgpack', 'pyarrow',
            'h5py'}
 class Block(importlib.abc.MetaPathFinder):
@@ -136,6 +144,9 @@ chip_smoke.feed_phase(model, draw, {'grid': xt.xT, 'iterations': xt.n_iter}, cpu
                       atomic_low=100)
 # and the counterfactuals
 chip_smoke.scenario_phase(model, cpu, n_games=2, n_actions=256, nx=3, ny=2, reps=1)
+# and the telemetry phase
+import socceraction_tpu_torch.obs, socceraction_tpu_torch.utils.profiling
+chip_smoke.telemetry_phase(model, cpu, games=2, actions=256, reps=3, probes=2, pairs=2)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
