@@ -85,7 +85,17 @@ exits non-zero:
    ``ParityProbe`` on its own stream (f32 ≤ 1e-5, bf16 ≤ 1e-3, a planted
    1e-3 offset caught); a run log and a debug bundle with the card's
    memory; the dispatch observatory, the ``nvcc`` builds and the
-   cold-start report of this process.
+   cold-start report of this process;
+12. the rating dispatch and the gate's statistics: ``rate_batch`` forced
+   onto ``fused``, ``fused_bf16`` and ``materialized`` for both families
+   (B1 1, 1 and 0 launches; f32 paths within 1e-5 of the reference,
+   bf16 within 0.05 of f32; no host read; synced medians as actions/s; the
+   measured winner against the committed ``cuda`` profile entry), a
+   mixed MLP/seq pair (1e-5), both ``predict_proba_device_batch`` entries,
+   ``shadow_replay`` with 200 resamples and a drift watch on the batch and
+   on a copy shifted in ``start_x``, held to the port's statistics on the
+   CPU over the card's probabilities (1e-6), and B1 and B2 against their
+   plain versions at this phase's shapes.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -99,6 +109,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -155,6 +167,17 @@ from socceraction_tpu_torch.scenario import (
     rate_scenarios_looped,
     rate_scenarios_reference,
 )
+from socceraction_tpu_torch.learn import calibration as learn_calibration
+from socceraction_tpu_torch.learn import drift as learn_drift
+from socceraction_tpu_torch.learn import (
+    DriftConfig,
+    DriftWatch,
+    calibration_summary,
+    replay_probs,
+    shadow_replay,
+)
+from socceraction_tpu_torch.ops.profile import preferred_rating_path
+from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.vaep.base import VAEP, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 
@@ -371,21 +394,30 @@ def main_path_first_layer(model: VAEP, batch: Any) -> Dict[str, Any]:
     }
 
 
+@contextlib.contextmanager
+def captured(module: Any, name: str) -> Any:
+    """Record the arguments of every call of ``module.name`` in the
+    enclosed block (the list it yields), the calls going through."""
+    fn = getattr(module, name)
+    calls: List[Tuple[Any, ...]] = []
+
+    @functools.wraps(fn)  # and its attributes: a wrapper counts its launches on itself
+    def capture(*args: Any) -> Any:
+        calls.append(args)
+        return fn(*args)
+
+    setattr(module, name, capture)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def first_layer_operands_of(model: VAEP, batch: Any) -> Tuple[torch.Tensor, ...]:
     """The operands one ``rate_batch`` call hands B1."""
-    captured: List[Tuple[torch.Tensor, ...]] = []
-    launch = fused_ops.fused_first_layer_quant
-
-    def capture(*args: torch.Tensor) -> torch.Tensor:
-        captured.append(args)
-        return launch(*args)
-
-    fused_ops.fused_first_layer_quant = capture
-    try:
+    with captured(fused_ops, 'fused_first_layer_quant') as calls:
         model.rate_batch(batch)
-    finally:
-        fused_ops.fused_first_layer_quant = launch
-    return captured[0]
+    return calls[0]
 
 
 def atomic_batch(
@@ -635,18 +667,29 @@ def segment_operands(batch: ActionBatch, seed: int = 3) -> List[Tuple[str, int, 
 
 
 def check_segment_sum(label: str, s: int, vals: torch.Tensor, ids: torch.Tensor, exact: bool) -> Dict[str, Any]:
-    """B2 against its plain version on the card at one shape (phase 3)."""
+    """B2 against its plain version on the card at one shape (phase 3).
+
+    Integer-valued sums are held bitwise to the plain version in f32. Real
+    sums are held to the plain version in f64, atol/rtol 1e-5: the plain
+    version in f32 adds with ``index_add_``'s atomics, one long chain a
+    segment in an order that changes from run to run, and at the
+    calibration shape (about 85,000 terms a bin or more) it drifts past
+    1e-5 relative of the exact sum by itself; its own gap to f64 is
+    reported beside the kernel's.
+    """
     got = seg.segment_sum(vals, ids, s)
     want = seg.segment_sum_reference(vals, ids, s)
+    exact_sums = seg.segment_sum_reference(vals, ids, s, dtype=torch.float64)
     torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
     if exact:
         # integer-valued f32 sums are exact in any order
+        max_abs = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise RuntimeError(f'segment_sum {label}: counts differ from the plain version')
     else:
-        # atomics add in another order than the plain version: atol/rtol 1e-5
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        max_abs = float((got.double() - exact_sums).abs().max())
+        torch.testing.assert_close(got.double(), exact_sums, atol=1e-5, rtol=1e-5)
+    plain_f32_err = float((want.double() - exact_sums).abs().max())
     ok = (ids >= 0) & (ids < s)
     ids_clean = torch.where(ok, ids, 0).long()
     vals_clean = torch.where(ok, vals, 0.0)
@@ -658,6 +701,7 @@ def check_segment_sum(label: str, s: int, vals: torch.Tensor, ids: torch.Tensor,
         'segments': s,
         'exact': exact,
         'max_abs_err': max_abs,
+        'plain_f32_max_abs_err': plain_f32_err,
         # device time (a replayed graph); beside it the old reading, events
         # around 50 Python calls, which can time the host's enqueue
         'ms': graph_ms(lambda: seg.segment_sum(vals, ids, s), reps=50),
@@ -1886,6 +1930,323 @@ def telemetry_phase(
     return record
 
 
+# -- the rating dispatch and the gate's statistics (phase 12) -------------------------
+
+#: Paths phase 12 forces through ``SOCCERACTION_TPU_RATING_PATH``, with the
+#: launches of B1 one ``rate_batch`` call makes on each.
+PATH_LAUNCHES = {'fused': 1, 'fused_bf16': 1, 'materialized': 0}
+#: Bootstrap resamples of phase 12's shadow replay (the gate's default).
+N_BOOT = 200
+#: The env variable that forces a rating path (``ops/profile.py``).
+RATING_PATH_ENV = 'SOCCERACTION_TPU_RATING_PATH'
+
+
+@contextlib.contextmanager
+def forced_path(path: str) -> Any:
+    """``SOCCERACTION_TPU_RATING_PATH=path`` for the enclosed block."""
+    prev = os.environ.get(RATING_PATH_ENV)
+    os.environ[RATING_PATH_ENV] = path
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[RATING_PATH_ENV]
+        else:
+            os.environ[RATING_PATH_ENV] = prev
+
+
+def synced_median(fn: Callable[[], Any], device: torch.device, reps: int = 5) -> float:
+    """Median wall seconds of ``fn`` up to a sync, over ``reps`` calls
+    after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def make_seq_head(model_cls: Any, device: torch.device, seed: int = 0) -> SeqClassifier:
+    """A seq head at the default widths (32, 64, 64) with its seeded init and
+    the full-column statistics of a small seeded batch."""
+    names = model_cls._default_xfns
+    registry = fused_ops.REGISTRIES[model_cls._fused_registry]
+    sample = make_batch(model_cls, 8, ACTIONS, seed=1, device=device)
+    states, layout = fused_ops.build_train_states(sample, names=names, k=K, registry=registry)
+    mean, std = fused_ops.packed_feature_stats(states, layout)
+    clf = SeqClassifier(seed=seed, device=device)
+    clf.module = clf.init_params(layout)
+    clf.mean_, clf.std_ = mean, torch.where(std > 0, std, 1.0)
+    return clf
+
+
+def path_matrix(
+    model: VAEP, batch: Any, device: torch.device, card: str, label: str, reps: int = 5
+) -> Dict[str, Any]:
+    """``rate_batch`` forced onto each path in :data:`PATH_LAUNCHES`: B1's
+    launches counted from 0 around one call, the f32 paths held within
+    1e-5 of ``rate_batch_reference`` and ``fused_bf16`` within 0.05 of
+    ``fused``, the host reads and stream waits of one call (0 and 0), and a
+    synced median of ``reps`` calls as actions/s."""
+    ref = model.rate_batch_reference(batch)
+    n_actions = batch.total_actions
+    out: Dict[str, Any] = {}
+    f32 = None
+    for path, want_launches in PATH_LAUNCHES.items():
+        with forced_path(path):
+            model.rate_batch(batch)  # the fold, a first launch
+            sync(device)
+            gm.fused_first_layer_quant.launches = 0
+            values = model.rate_batch(batch)
+            sync(device)
+            launches = gm.fused_first_layer_quant.launches
+            if launches != kernel_launches(want_launches, device):
+                raise RuntimeError(f'{label}: {path} launched gather_matmul {launches} times')
+            if path == 'fused_bf16':
+                err, limit = float((values - f32).abs().max()), 0.05
+            else:
+                err, limit = float((values - ref).abs().max()), 1e-5
+            if path == 'fused':
+                f32 = values
+            if not (bool(torch.isfinite(values).all()) and err <= limit):
+                raise RuntimeError(f'{label}: {path} is {err} from its reference (limit {limit})')
+            reads = sync_profile(lambda: model.rate_batch(batch), device)['reads']
+            if reads['aten::_local_scalar_dense'] or reads['cudaStreamSynchronize']:
+                raise RuntimeError(f'{label}: {path} read the card back: {reads}')
+            median = synced_median(lambda: model.rate_batch(batch), device, reps)
+        out[path] = {'launches': launches, 'max_abs_err': err, 'limit': limit, 'reads': reads,
+                     'median_ms': median * 1e3, 'actions_per_s': n_actions / median}
+        print(f'{label}: {path} ({card}): {json.dumps(out[path])}')
+    winner = max(('fused', 'materialized'), key=lambda p: out[p]['actions_per_s'])
+    committed = preferred_rating_path(device.type, respect_env=False)
+    print(
+        f'{label}: measured winner {winner} ({out["fused"]["actions_per_s"]:.1f} fused, '
+        f'{out["materialized"]["actions_per_s"]:.1f} materialized actions/s); the committed '
+        f'{device.type} profile picks {committed}: {"agrees" if committed == winner else "disagrees"}'
+    )
+    return {'paths': out, 'winner': winner, 'committed': committed}
+
+
+def check_phase12_kernels(model: VAEP, batch: Any, device: torch.device) -> Dict[str, Any]:
+    """Each kernel against its plain version at the shapes phase 12 hands
+    it, captured from one more call of each entry outside the counted runs:
+    B1 under ``predict_proba_device_batch`` (one 128-wide head), B2 under
+    the calibration point sums and the drift histograms."""
+    head = model._models['scores']
+    with captured(fused_ops, 'fused_first_layer') as b1:
+        head.predict_proba_device_batch(batch, names=model.xfns, k=K)
+    ops = b1[0]
+    got = gm.fused_first_layer_quant(*ops)
+    want = gm.fused_first_layer_reference(*ops)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    tables, _, _, ids, x = ops
+    b1_rec = {
+        'entry': 'predict_proba_device_batch',
+        'shape': {'n': ids.shape[0], 'k': ids.shape[1], 'r': tables.shape[1], 'h': tables.shape[2],
+                  'd': x.shape[1]},
+        'max_abs_err': float((got - want).abs().max()),
+        'ms': graph_ms(lambda: gm.fused_first_layer_quant(*ops), reps=10),
+        'plain_ms': time_ms(lambda: gm.fused_first_layer_reference(*ops), reps=5),
+        **first_layer_bound(ops),
+    }
+    del got, want
+    probs = {c: p for c, p in replay_probs(model, batch).items()}
+    labels = model.compute_labels_batch(batch)[0]
+    with captured(learn_calibration, 'segment_sum') as cal:
+        learn_calibration.reliability_curve(probs['scores'], labels, batch.mask)
+    with captured(learn_drift, 'segment_sum') as dft:
+        DriftWatch.from_batch(model, batch)
+    b2_recs = []
+    for label, (vals, seg_ids, n_seg), exact in (
+        ('calibration: (w, w·p, w·y) into 3 x 10 bins', cal[0], False),
+        ('drift: 10 rows into 10 x 16 bins', dft[0], True),
+    ):
+        b2_recs.append(check_segment_sum(label, n_seg, vals.reshape(-1).float().contiguous(),
+                                         seg_ids.reshape(-1).contiguous(), exact))
+    return {'gather_matmul': b1_rec, 'segment_sum': b2_recs}
+
+
+class GivenProbs:
+    """A stand-in model for the statistics whose heads' probabilities are
+    given (the card's, moved to the CPU): ``replay_probs`` of it returns
+    them, so the CPU's statistics read the card's inputs exactly."""
+
+    def __init__(self, probs: Dict[str, torch.Tensor]) -> None:
+        self._models: Dict[str, Any] = {}
+        self._probs = probs
+
+    def _estimate_probabilities_batch(self, feats: Any, batch: Any = None) -> Dict[str, torch.Tensor]:
+        return self._probs
+
+
+def stats_phase(
+    model: VAEP, batch: Any, device: torch.device, card: str, n_boot: int = N_BOOT
+) -> Dict[str, Any]:
+    """The gate's statistics on the card against the port's on the CPU, over
+    the same inputs (the card's probabilities): ``shadow_replay`` of the
+    batch (``n`` bitwise; ECE, Brier and its decomposition, and the
+    intervals within 1e-6), then a drift reference and ``DriftWatch.check``
+    of the batch and of a copy shifted in ``start_x`` (edges and
+    proportions within 1e-6, PSI and KS within 1e-6, ``triggered``
+    equal). B2's launches and the walls are printed."""
+    label = 'statistics'
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    shadow = shadow_replay(model, batch=batch, n_boot=n_boot)
+    shadow_s = time.perf_counter() - t0
+    shadow_launches = seg.segment_sum.launches
+    cpu_batch = batch.to('cpu')
+    labels = dict(zip(('scores', 'concedes'), (t.cpu() for t in model.compute_labels_batch(batch))))
+    weights = cpu_batch.mask.to(torch.float32)
+    t0 = time.perf_counter()
+    cpu_summaries = {
+        col: calibration_summary(p.cpu(), labels[col], weights, n_boot=n_boot, device='cpu')
+        for col, p in shadow.probs.items()
+    }
+    cpu_s = time.perf_counter() - t0
+    gaps: Dict[str, float] = {}
+    for col, s in shadow.summaries.items():
+        got, want = s.to_dict(), cpu_summaries[col].to_dict()
+        if got['n'] != want['n']:
+            raise RuntimeError(f"{label}: {col} n {got['n']} on the card, {want['n']} on the CPU")
+        for key in ('ece', 'brier', 'brier_reliability', 'brier_resolution', 'brier_uncertainty',
+                    'ece_ci', 'brier_ci'):
+            gap = float(np.max(np.abs(np.subtract(got[key], want[key]))))
+            gaps[f'{col}.{key}'] = gap
+            if gap > 1e-6:
+                raise RuntimeError(f'{label}: {col} {key} is {gap} from the CPU (limit 1e-6)')
+    print(f'{label}: card vs CPU gaps {json.dumps(gaps)}')
+    print(
+        f'{label}: shadow_replay {batch.total_actions} actions, {n_boot} resamples: '
+        f'{shadow_s:.3f} s on the card, B2 {shadow_launches} launches; the CPU statistics '
+        f'{cpu_s:.3f} s; largest gap {max(gaps.values()):.3e} (limit 1e-6) ({card}); '
+        f'{json.dumps(shadow.to_dict())}'
+    )
+
+    shifted = dataclasses.replace(batch, start_x=batch.start_x * 0.2 + 80.0).with_total(
+        batch.total_actions
+    )
+    cpu_shifted = shifted.to('cpu')
+    cfg = DriftConfig()
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    watch = DriftWatch.from_batch(model, batch, cfg)
+    results = [watch.check(model, batch), watch.check(model, shifted)]
+    sync(device)
+    drift_s = time.perf_counter() - t0
+    drift_launches = seg.segment_sum.launches
+    given = [GivenProbs({c: p.cpu() for c, p in replay_probs(model, b).items()})
+             for b in (batch, shifted)]
+    cpu_watch = DriftWatch.from_batch(given[0], cpu_batch, cfg)
+    cpu_results = [cpu_watch.check(given[0], cpu_batch), cpu_watch.check(given[1], cpu_shifted)]
+    ref_gap = max(
+        float(np.abs(getattr(watch.reference, k) - getattr(cpu_watch.reference, k)).max())
+        for k in ('lo', 'hi', 'props')
+    )
+    # PSI reaches about 9 on the shifted copy, where one f32 ulp is 9.5e-7:
+    # the statistics are held relative to max(1, |value|)
+    stat_gap = max(
+        abs(getattr(r, stat)[name] - getattr(c, stat)[name]) / max(1.0, abs(getattr(c, stat)[name]))
+        for r, c in zip(results, cpu_results) for stat in ('psi', 'ks') for name in r.psi
+    )
+    if ref_gap > 1e-6 or stat_gap > 1e-6:
+        raise RuntimeError(f'{label}: drift card vs CPU: reference {ref_gap}, statistics {stat_gap}')
+    if [r.triggered for r in results] != [c.triggered for c in cpu_results]:
+        raise RuntimeError(f'{label}: drift triggered differently on the card and the CPU')
+    if results[0].triggered or not results[1].triggered:
+        raise RuntimeError(f'{label}: drift triggered {[r.triggered for r in results]}, want [False, True]')
+    print(
+        f'{label}: drift reference + 2 checks ({len(watch.reference.names)} rows x {cfg.n_bins} '
+        f'bins): {drift_s:.3f} s on the card, B2 {drift_launches} launches; card vs CPU: '
+        f'reference {ref_gap:.3e}, PSI/KS {stat_gap:.3e} relative (limit 1e-6); max PSI '
+        f'{results[0].max_psi:.3e} same traffic, {results[1].max_psi:.3f} shifted '
+        f'({results[1].max_psi_feature}) ({card})'
+    )
+    return {'shadow_launches': shadow_launches, 'drift_launches': drift_launches,
+            'shadow_s': shadow_s, 'drift_s': drift_s, 'max_gap': max(max(gaps.values()), ref_gap, stat_gap)}
+
+
+def rating_phase(
+    device: torch.device, card: str = 'CPU', games: int = GAMES, actions: int = ACTIONS,
+    reps: int = 5, n_boot: int = N_BOOT,
+) -> Dict[str, Any]:
+    """Phase 12: the rating dispatch and the gate's statistics.
+
+    (a) :func:`path_matrix` on the standard and the atomic family with
+    (128, 128) MLP heads; (b) a mixed pair (phase 4's MLP scores head, a
+    seq concedes head at 32/64/64) on the materialized path, within 1e-5 of
+    its reference, timed; (c) ``predict_proba_device_batch``: the MLP entry
+    one launch of B1 and within 1e-5 of ``predict_proba_device`` over the
+    feature tensor, the seq entry within 1e-6 of ``predict_proba_states``;
+    (d) :func:`stats_phase` on the standard batch.
+    """
+    label = 'rating paths'
+    record: Dict[str, Any] = {}
+    batch = synthetic_batch(games, actions, seed=0, device=device)
+    model = make_model(device)
+    record['standard'] = path_matrix(model, batch, device, card, f'{label} (standard)', reps)
+    abatch = atomic_batch(games, actions, seed=0, device=device)
+    record['atomic'] = path_matrix(make_model(device, model_cls=AtomicVAEP), abatch, device, card,
+                                   f'{label} (atomic)', reps)
+    del abatch
+
+    mixed = VAEP(models={'scores': model._models['scores'],
+                         'concedes': make_seq_head(VAEP, device)}, device=device)
+    if mixed._rating_path() != 'materialized':
+        raise RuntimeError(f'{label}: a mixed pair rates on {mixed._rating_path()}')
+    values = mixed.rate_batch(batch)
+    err = float((values - mixed.rate_batch_reference(batch)).abs().max())
+    if not (bool(torch.isfinite(values).all()) and err <= 1e-5):
+        raise RuntimeError(f'{label}: the mixed pair is {err} from its reference')
+    median = synced_median(lambda: mixed.rate_batch(batch), device, reps)
+    record['mixed'] = {'max_abs_err': err, 'median_ms': median * 1e3,
+                       'actions_per_s': batch.total_actions / median}
+    print(f"{label}: mixed MLP/seq pair ({card}): {json.dumps(record['mixed'])}")
+
+    names = model.xfns
+    head = model._models['scores']
+    gm.fused_first_layer_quant.launches = 0
+    probs = head.predict_proba_device_batch(batch, names=names, k=K)
+    sync(device)
+    launches = gm.fused_first_layer_quant.launches
+    if launches != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: predict_proba_device_batch launched B1 {launches} times')
+    plain = head.predict_proba_device(model.compute_features_batch(batch))
+    mlp_err = float((probs - plain)[batch.mask].abs().max())
+    seq_head = mixed._models['concedes']
+    seq_probs = seq_head.predict_proba_device_batch(batch, names=names, k=K)
+    states, layout = fused_ops.build_train_states(batch, names=names, k=K)
+    seq_plain = seq_head.predict_proba_states(states, layout).reshape(seq_probs.shape)
+    seq_err = float((seq_probs - seq_plain)[batch.mask].abs().max())
+    if mlp_err > 1e-5 or seq_err > 1e-6:
+        raise RuntimeError(f'{label}: predict_proba_device_batch mlp {mlp_err}, seq {seq_err}')
+    record['predict_proba_device_batch'] = {
+        'launches': launches, 'mlp_max_abs_err': mlp_err, 'seq_max_abs_err': seq_err,
+        'mlp_median_ms': synced_median(
+            lambda: head.predict_proba_device_batch(batch, names=names, k=K), device, reps) * 1e3,
+    }
+    print(f"{label}: predict_proba_device_batch ({card}): "
+          f"{json.dumps(record['predict_proba_device_batch'])}")
+    del mixed, plain, probs, seq_probs, seq_plain, states
+
+    record['statistics'] = stats_phase(model, batch, device, card, n_boot)
+    if device.type == 'cuda':
+        record['kernels'] = check_phase12_kernels(model, batch, device)
+        print(f"{label}: kernels at phase 12's shapes vs plain ({card}): {json.dumps(record['kernels'])}")
+    fused_paths = sum(
+        record[f]['paths'][p]['launches'] for f in ('standard', 'atomic') for p in PATH_LAUNCHES
+    )
+    record['launches'] = {
+        'gather_matmul': fused_paths + launches,
+        'segment_sum': record['statistics']['shadow_launches'] + record['statistics']['drift_launches'],
+    }
+    print(f"{label}: launches {json.dumps(record['launches'])}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1894,6 +2255,7 @@ def main() -> int:
     # interpreter, torch and the package are the import phase
     with TIMELINE.phase('import', start_unix=TIMELINE.begin()):
         pass
+    t_start = time.perf_counter()
     device = torch.device('cuda', 0)
     card = card_identity()
     print(card)
@@ -2045,6 +2407,14 @@ def main() -> int:
     t0 = time.perf_counter()
     telemetry = telemetry_phase(model, device, card)
     print(f'telemetry: phase 11 in {time.perf_counter() - t0:.1f} s')
+    del model
+    torch.cuda.empty_cache()
+
+    # -- phase 12, the rating dispatch and the gate's statistics -----------------------
+    t0 = time.perf_counter()
+    rating = rating_phase(device, card)
+    print(f'rating paths: phase 12 in {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
 
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
@@ -2060,6 +2430,7 @@ def main() -> int:
         'rate_scenarios_batch': scenario['fold_launches'],
         'rate_scenarios_looped': scenario['loop_launches'],
         'telemetry phase': telemetry['launches']['gather_matmul'],
+        'phase 12 (path matrix, predict_proba_device_batch)': rating['launches']['gather_matmul'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -2069,6 +2440,7 @@ def main() -> int:
         'atomic seq fit_packed': aseq['launches']['segment_sum'],
         'fed xT fit': feed['fit_launches'],
         'telemetry phase': telemetry['launches']['segment_sum'],
+        'phase 12 (shadow_replay, drift)': rating['launches']['segment_sum'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
@@ -2081,7 +2453,7 @@ def main() -> int:
         'launches_by_path': b1_paths,
         'max_abs_err': max(
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
-            atomic_train_b1['max_abs_err'],
+            atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -2101,6 +2473,7 @@ def main() -> int:
                     'plans': rec['launches']['gather_matmul_plans']}
             for label, rec in (('standard', serving), ('atomic', atomic_serving))
         },
+        'phase12_shape': rating['kernels']['gather_matmul'],
         'training_shapes': [
             {k: rec[k] for k in (
                 'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'backward_ms',
@@ -2116,7 +2489,7 @@ def main() -> int:
         'replaces': 'socceraction_tpu/ops/segment.py:94',
         'launches': sum(b2_paths.values()),
         'launches_by_path': b2_paths,
-        'max_abs_err': max(rec['max_abs_err'] for rec in seg_checks),
+        'max_abs_err': max(rec['max_abs_err'] for rec in seg_checks + rating['kernels']['segment_sum']),
         # the 192 x 125 payoff shape, the one every matrix-free sweep runs
         'ms': sweep['ms'],
         'plain_ms': sweep['plain_ms'],
@@ -2125,13 +2498,14 @@ def main() -> int:
         'library_ms': sweep['library_ms'],
         'shapes': [
             {k: rec[k] for k in (
-                'shape', 'segments', 'max_abs_err', 'ms', 'event_ms', 'plain_ms', 'library_ms',
-                'bound_ms', 'plan',
+                'shape', 'segments', 'max_abs_err', 'plain_f32_max_abs_err', 'ms', 'event_ms',
+                'plain_ms', 'library_ms', 'bound_ms', 'plan',
             )}
-            for rec in seg_checks
+            for rec in seg_checks + rating['kernels']['segment_sum']
         ],
         'ptxas': cuda_build.ptxas_report('segment_sum'),
     }]
+    print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({
         'ok': True,

@@ -11,6 +11,7 @@ the game's index in the batch.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
@@ -28,12 +29,14 @@ __all__ = [
     'AtomicActionBatch',
     'bucket_games',
     'bucket_ladder',
+    'bucket_window',
     'pack_actions',
     'pack_atomic_actions',
     'pack_row_values',
     'pad_batch_games',
     'pad_length',
     'unpack_values',
+    'window_ladder',
 ]
 
 _LANE = ACTION_AXIS_ALIGNMENT
@@ -334,6 +337,39 @@ def bucket_ladder(max_games: int) -> Tuple[int, ...]:
     return tuple(1 << i for i in range(top.bit_length()))
 
 
+def bucket_window(n: int, max_actions: int) -> int:
+    """Round a valid-action count up to its window-length rung.
+
+    The time-axis twin of :func:`bucket_games`: power-of-two multiples of
+    the 128-wide tile (128, 256, 512, ...) capped at ``max_actions``, so a
+    seq head served over windows of varying length sees
+    ``O(log2(max_actions / 128))`` action-axis shapes.
+    """
+    if n < 0:
+        raise ValueError(f'need a non-negative action count, got {n}')
+    if max_actions < 1:
+        raise ValueError(f'need a positive capacity, got {max_actions}')
+    rung = pad_length(max(n, 1))
+    rung = 1 << (rung - 1).bit_length()
+    return min(rung, max_actions)
+
+
+def window_ladder(max_actions: int) -> Tuple[int, ...]:
+    """Every window-length rung up to ``max_actions``, ascending.
+
+    ``max_actions`` (the capacity a batch was packed to, not necessarily a
+    power of two) is always the top rung.
+    """
+    rungs = []
+    n = 1
+    while True:
+        rung = bucket_window(n, max_actions)
+        rungs.append(rung)
+        if rung >= max_actions:
+            return tuple(rungs)
+        n = rung + 1
+
+
 def pad_batch_games(batch: Any, n_games: int) -> Any:
     """Pad a batch's game axis to ``n_games`` with masked padding games.
 
@@ -353,7 +389,12 @@ def pad_batch_games(batch: Any, n_games: int) -> Any:
         tail = a.new_full((n_games - G, *a.shape[1:]), fill)
         return torch.cat([a, tail])
 
-    padded = type(batch)(**{n: pad(n, t) for n, t in batch.fields().items()})
+    # a copy, not a new instance: __post_init__ would count a CPU batch's
+    # lengths again, a tensor read inside every bucketed rate_batch call
+    padded = copy.copy(batch)
+    for name, t in batch.fields().items():
+        object.__setattr__(padded, name, pad(name, t))
+    object.__setattr__(padded, 'ready', None)
     return padded.with_total(batch._host_total)
 
 

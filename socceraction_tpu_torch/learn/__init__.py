@@ -1,0 +1,51 @@
+"""The learning loop's statistics: calibration, drift, shadow replay, the gate.
+
+Port of the statistics of ``socceraction_tpu/learn``, the parts the
+promotion gate reads:
+
+- :mod:`.calibration`: reliability curves, ECE, the Brier decomposition
+  and bootstrap intervals, binned through kernel B2 on the card;
+- :mod:`.drift`: PSI and KS of a traffic window's fields and predictions
+  against the active model's training reference (one B2 launch of masked
+  histograms);
+- :mod:`.shadow`: replay of captured traffic through a model, with its
+  calibration per head;
+- :mod:`.gate`: the calibration, drift and parity bands and the typed
+  :class:`PromotionReport`.
+
+The loop itself (``ingest.py``, ``loop.py``) drives the model registry
+and the serving layer, and comes with them.
+"""
+
+from .calibration import CalibrationSummary, calibration_summary, reliability_curve
+from .drift import (
+    DriftConfig,
+    DriftReference,
+    DriftResult,
+    DriftWatch,
+    build_drift_reference,
+    drift_statistics,
+)
+from .gate import GateConfig, PromotionReport, compare_heads, evaluate_gate, record_report
+from .shadow import ShadowResult, pack_replay_batch, replay_probs, shadow_replay
+
+__all__ = [
+    'CalibrationSummary',
+    'DriftConfig',
+    'DriftReference',
+    'DriftResult',
+    'DriftWatch',
+    'GateConfig',
+    'PromotionReport',
+    'ShadowResult',
+    'build_drift_reference',
+    'calibration_summary',
+    'compare_heads',
+    'drift_statistics',
+    'evaluate_gate',
+    'pack_replay_batch',
+    'record_report',
+    'reliability_curve',
+    'replay_probs',
+    'shadow_replay',
+]

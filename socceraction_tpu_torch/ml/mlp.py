@@ -738,6 +738,27 @@ class MLPClassifier:
         """P(y=1) for features ``X`` of any leading shape ``(..., F)``."""
         return torch.sigmoid(self._fitted()((X - self.mean_) / self.std_))
 
+    @torch.no_grad()
+    def predict_proba_device_batch(
+        self, batch: Any, *, names: Sequence[str], k: int, registry: str = 'standard'
+    ) -> torch.Tensor:
+        """P(y=1) per action of a packed batch -> ``(G, A)``.
+
+        ``predict_proba_device(compute_features(batch, names, k))`` without
+        the feature tensor: the one-hot blocks are first-layer row gathers
+        (:func:`~socceraction_tpu_torch.ops.fused.fused_mlp_logits`, one
+        launch of kernel B1 on the card). ``names``, ``k`` and ``registry``
+        (``'standard'`` or ``'atomic'``) are the layout the head was trained
+        on.
+        """
+        from ..ops.fused import REGISTRIES, fused_mlp_logits
+
+        logits = fused_mlp_logits(
+            self._fitted(), batch, names=names, k=k, mean=self.mean_, std=self.std_,
+            registry=REGISTRIES[registry],
+        )
+        return torch.sigmoid(logits)
+
     def predict_proba(self, X: Any) -> np.ndarray:
         """sklearn-style ``(n, 2)`` probability matrix, as numpy."""
         x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=self.device)

@@ -51,6 +51,7 @@ from .quant import (
     fake_quant,
     quantize_columns,
     quantize_with_scale,
+    quantized_nbytes,
 )
 from .segment import segment_sum, segment_sum_rows
 
@@ -64,7 +65,10 @@ __all__ = [
     'TrainStates',
     'build_train_states',
     'concat_train_states',
+    'fused_mlp_logits',
+    'fused_pair_logits',
     'fused_train_logits',
+    'onehot_blocks',
     'packed_feature_stats',
     'pair_probs_prepared',
     'prepare_pair_fold',
@@ -214,6 +218,11 @@ def train_layout(
     return TrainLayout(tuple(names), k, off, tuple(spans), registry.name)
 
 
+def onehot_blocks(names: Sequence[str], registry: FusedRegistry = STANDARD_REGISTRY) -> List[str]:
+    """The kernels of ``names`` that the fold applies as table gathers."""
+    return [n for n in names if n in registry.onehot_widths]
+
+
 def _layout_split(
     layout: TrainLayout,
 ) -> Tuple[List[Tuple[str, int, int]], List[Tuple[int, int]]]:
@@ -268,6 +277,24 @@ def _dense_subkernel(Wk: torch.Tensor, dense_spans: List[Tuple[int, int]]) -> to
     return torch.cat([Wk[off : off + width] for off, width in dense_spans])
 
 
+def _fold_tables(Wk: torch.Tensor, layout: TrainLayout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A folded first-layer kernel ``Wk`` (one head's, or several stacked
+    along the output axis) as ``(k, combo_size, H)`` combined tables and
+    the ``(D, H)`` dense sub-kernel; raises unless ``Wk`` has the layout's
+    input rows."""
+    if Wk.shape[0] != layout.n_features:
+        raise ValueError(
+            f'first-layer kernel has {Wk.shape[0]} input rows but the '
+            f'feature layout ({layout.names!r}, k={layout.k}) emits '
+            f'{layout.n_features} columns'
+        )
+    blocks, dense_spans = _layout_split(layout)
+    tables = torch.stack(
+        [_combined_table(Wk, i, blocks, layout.registry) for i in range(layout.k)]
+    )
+    return tables, _dense_subkernel(Wk, dense_spans)
+
+
 def _hidden_chain(
     mlp: Any, h: torch.Tensor, hidden_dtype: Optional[torch.dtype] = None
 ) -> torch.Tensor:
@@ -309,6 +336,16 @@ class PreparedPair(NamedTuple):
     quantize: str
     h_a_width: int
 
+    @property
+    def table_nbytes(self) -> int:
+        """Device bytes of the combined tables (planes and int8 scales):
+        what the quantize modes trade against each other."""
+        return quantized_nbytes(self.tables)
+
+    def arrays(self) -> List[torch.Tensor]:
+        """The fold's device tensors (for residency claims)."""
+        return [a for a in (*self.tables, *self.w_dense, self.bias) if a is not None]
+
 
 @torch.no_grad()
 def prepare_pair_fold(
@@ -332,16 +369,7 @@ def prepare_pair_fold(
     Wk_b, bias_b = _standardized_first_layer(clf_b.module, clf_b.mean_, clf_b.std_)
     Wk = torch.cat([Wk_a, Wk_b], dim=1)
     bias = torch.cat([bias_a, bias_b])
-    layout = train_layout(names, k, registry)
-    if Wk.shape[0] != layout.n_features:
-        raise ValueError(
-            f'first-layer kernels have {Wk.shape[0]} input rows but the '
-            f'feature layout ({layout.names!r}, k={k}) emits '
-            f'{layout.n_features} columns'
-        )
-    blocks, dense_spans = _layout_split(layout)
-    tables = torch.stack([_combined_table(Wk, i, blocks, registry) for i in range(k)])
-    w_dense = _dense_subkernel(Wk, dense_spans)
+    tables, w_dense = _fold_tables(Wk, train_layout(names, k, registry))
     if quantize == 'int8' and (table_scale is not None or w_dense_scale is not None):
         if table_scale is None or w_dense_scale is None:
             raise ValueError('int8 scale pinning needs both table_scale and w_dense_scale')
@@ -396,16 +424,19 @@ def _packed_rows(
 def _pair_cost(
     prep: PreparedPair, mlp_a: Any, mlp_b: Any, batch: Any, dense_overrides: Any, *,
     names: Tuple[str, ...], k: int, registry_name: str,
+    hidden_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[float, float]:
     """Analytic ``(flops, bytes)`` of one pair dispatch, from shapes.
 
     B1's operands and output (:func:`~.gather_matmul.first_layer_cost`,
     every id counted: the data is not read), then each head's hidden
     chain: every later layer's input, weights and bias read and its
-    output written, ``2·N·in·out`` operations each, and the sigmoid's
-    output written. The batch's own reads by the feature kernels are
-    not counted, so the cost is a lower bound of what moves.
+    output written (in ``hidden_dtype``'s width), ``2·N·in·out``
+    operations each, and the sigmoid's output written. The batch's own
+    reads by the feature kernels are not counted, so the cost is a lower
+    bound of what moves.
     """
+    esize = 4 if hidden_dtype is None else torch.empty((), dtype=hidden_dtype).element_size()
     n = batch.n_games * batch.max_actions
     kt, r, h = prep.tables.data.shape
     table_dtype = torch.float32 if prep.quantize == 'int8' else prep.tables.data.dtype
@@ -415,7 +446,7 @@ def _pair_cost(
         for layer in mlp.layers()[1:]:
             fi, fo = layer.in_features, layer.out_features
             flops += 2 * n * fi * fo
-            nbytes += 4 * (n * fi + fi * fo + fo + n * fo)
+            nbytes += esize * (n * fi + fi * fo + fo + n * fo)
         nbytes += 4 * n
     return flops, nbytes
 
@@ -431,6 +462,7 @@ def _pair_dispatch(
     names: Tuple[str, ...],
     k: int,
     registry_name: str,
+    hidden_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The instrumented pair dispatch behind :func:`pair_probs_prepared`:
     its arguments are the tensors and modules it reads, so the dispatch
@@ -453,8 +485,8 @@ def _pair_dispatch(
     w_dense = dequantize(*prep.w_dense) if int8 else prep.w_dense.data
     h = fused_first_layer_quant(tables, w_dense, prep.bias, ids, x_dense)
     h = h.reshape(batch.n_games, batch.max_actions, -1)
-    a = _hidden_chain(mlp_a, h[..., : prep.h_a_width])
-    b = _hidden_chain(mlp_b, h[..., prep.h_a_width :])
+    a = _hidden_chain(mlp_a, h[..., : prep.h_a_width], hidden_dtype)
+    b = _hidden_chain(mlp_b, h[..., prep.h_a_width :], hidden_dtype)
     pa, pb = torch.sigmoid(a), torch.sigmoid(b)
     if guards_enabled():
         # in-dispatch guard, counted on the card beside the outputs and
@@ -477,12 +509,15 @@ def pair_probs_prepared(
     k: int,
     registry: FusedRegistry = STANDARD_REGISTRY,
     dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
+    hidden_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both heads' ``(G, A)`` probabilities through the prepared fold.
 
     Builds the packed rows, runs the fused gather + matmul first layer on
-    the (dequantized, for int8) tables, then each head's hidden chain and
-    a sigmoid. The dispatch is instrumented as ``pair_probs``
+    the (dequantized, for int8) tables, then each head's hidden chain
+    (narrowed to ``hidden_dtype`` after the first layer's relu, as
+    :func:`_hidden_chain` does) and a sigmoid. The dispatch is
+    instrumented as ``pair_probs``
     (:mod:`~socceraction_tpu_torch.obs.dispatch`) and, unless
     ``SOCCERACTION_TPU_NUM_GUARDS=0``, notes the JAX package's numeric
     guards (``fn='pair_probs'``: nonfinite ``probs``, ``logits`` past 88)
@@ -490,7 +525,96 @@ def pair_probs_prepared(
     """
     return _pair_dispatch(
         prep, clf_a.module, clf_b.module, batch, dense_overrides or None,
-        names=tuple(names), k=k, registry_name=registry.name,
+        names=tuple(names), k=k, registry_name=registry.name, hidden_dtype=hidden_dtype,
+    )
+
+
+def _fold_first_layer(
+    Wk: torch.Tensor,
+    bias: torch.Tensor,
+    batch: Any,
+    *,
+    names: Sequence[str],
+    k: int,
+    registry: FusedRegistry,
+    dense_overrides: Optional[Dict[str, torch.Tensor]],
+) -> torch.Tensor:
+    """First-layer activations ``(G, A, H)`` of a folded kernel ``Wk``
+    (one head's, or several stacked along the output axis): the combined
+    tables and the dense sub-kernel folded from it, then one launch of
+    :func:`~.gather_matmul.fused_first_layer` (kernel B1 on the card)."""
+    tables, w_dense = _fold_tables(Wk, train_layout(names, k, registry))
+    s = registry.make_states(batch, k)
+    x_dense, ids = _packed_rows(
+        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+    )
+    h = fused_first_layer(tables, w_dense, bias, ids, x_dense)
+    return h.reshape(batch.n_games, batch.max_actions, -1)
+
+
+def fused_mlp_logits(
+    mlp: Any,
+    batch: Any,
+    *,
+    names: Sequence[str],
+    k: int,
+    mean: Optional[torch.Tensor] = None,
+    std: Optional[torch.Tensor] = None,
+    registry: FusedRegistry = STANDARD_REGISTRY,
+    dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
+    hidden_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``(G, A)`` logits of ``mlp`` (an :class:`~..ml.mlp.MLP`) over a batch.
+
+    The function ``mlp((compute_features(batch) - mean) / std)`` computes,
+    without the feature tensor: standardization folds into ``Dense_0``,
+    its one-hot rows into per-state combined tables, and the first layer
+    is one launch of :func:`~.gather_matmul.fused_first_layer` (kernel B1
+    on the card; differentiable). ``dense_overrides[name]`` (``(G, A,
+    width)``) stands in for dense kernel ``name``'s block; ``hidden_dtype``
+    narrows the hidden chain after the first layer's relu
+    (:func:`_hidden_chain`), the first layer staying f32.
+    """
+    Wk, bias = _standardized_first_layer(mlp, mean, std)
+    h = _fold_first_layer(
+        Wk, bias, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+    )
+    return _hidden_chain(mlp, h, hidden_dtype)
+
+
+def fused_pair_logits(
+    mlp_a: Any,
+    mlp_b: Any,
+    batch: Any,
+    *,
+    names: Sequence[str],
+    k: int,
+    mean_a: Optional[torch.Tensor] = None,
+    std_a: Optional[torch.Tensor] = None,
+    mean_b: Optional[torch.Tensor] = None,
+    std_b: Optional[torch.Tensor] = None,
+    registry: FusedRegistry = STANDARD_REGISTRY,
+    dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
+    hidden_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two heads' ``(G, A)`` logits with their first layers stacked.
+
+    :func:`fused_mlp_logits` for both heads at once: both folded
+    ``Dense_0`` kernels side by side (width ``H_a + H_b``), so one launch
+    of the first layer serves both; the heads' widths and depths may
+    differ. Folds the weights on every call; serving caches its fold
+    (:func:`prepare_pair_fold`, :func:`pair_probs_prepared`).
+    """
+    Wk_a, bias_a = _standardized_first_layer(mlp_a, mean_a, std_a)
+    Wk_b, bias_b = _standardized_first_layer(mlp_b, mean_b, std_b)
+    h = _fold_first_layer(
+        torch.cat([Wk_a, Wk_b], dim=1), torch.cat([bias_a, bias_b]), batch,
+        names=names, k=k, registry=registry, dense_overrides=dense_overrides,
+    )
+    width = Wk_a.shape[1]
+    return (
+        _hidden_chain(mlp_a, h[..., :width], hidden_dtype),
+        _hidden_chain(mlp_b, h[..., width:], hidden_dtype),
     )
 
 
@@ -640,21 +764,10 @@ def fused_train_logits(
     """
     check_quantize_mode(quantize)
     Wk, bias = _standardized_first_layer(mlp, mean, std)
-    if Wk.shape[0] != layout.n_features:
-        raise ValueError(
-            f'first-layer kernel has {Wk.shape[0]} input rows but the '
-            f'feature layout ({layout.names!r}, k={layout.k}) emits '
-            f'{layout.n_features} columns'
-        )
-    blocks, dense_spans = _layout_split(layout)
-    tables = fake_quant(
-        torch.stack(
-            [_combined_table(Wk, i, blocks, layout.registry) for i in range(layout.k)]
-        ),
-        quantize,
-    )
-    if dense_spans and x_dense.shape[1]:
-        w_dense = fake_quant(_dense_subkernel(Wk, dense_spans), quantize)
+    tables, w_dense = _fold_tables(Wk, layout)
+    tables = fake_quant(tables, quantize)
+    if w_dense.shape[0] and x_dense.shape[1]:
+        w_dense = fake_quant(w_dense, quantize)
     else:
         w_dense = Wk.new_zeros((0, Wk.shape[1]))
     h = fused_first_layer(tables, w_dense, bias, combo_ids, x_dense)

@@ -57,19 +57,24 @@ def segment_sum_cost(n: int, num_segments: int) -> Tuple[float, float]:
 
 
 def segment_sum_reference(
-    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """The plain PyTorch version: ``(num_segments,)`` f32.
+    """The plain PyTorch version: ``(num_segments,)`` in ``dtype`` (f32).
 
     ``index_add_`` into zeros, with out-of-range ids (negatives included)
     masked to a zero contribution to segment 0. On the CPU it adds in
-    stream order, as the JAX package's XLA scatter does.
+    stream order, as the JAX package's XLA scatter does. ``torch.float64``
+    gives the sums a check can hold an f32 result to whatever order it
+    added in.
     """
     vals, ids = _flat(values, segment_ids)
-    vals = vals.to(torch.float32)
+    vals = vals.to(dtype)
     ids = ids.long()
     ok = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros(num_segments, dtype=torch.float32, device=vals.device)
+    out = torch.zeros(num_segments, dtype=dtype, device=vals.device)
     if num_segments == 0:
         return out
     return out.index_add_(0, torch.where(ok, ids, 0), torch.where(ok, vals, 0.0))

@@ -230,6 +230,21 @@ class SeqClassifier:
             mean=self.mean_, std=self.std_,
         ))
 
+    @torch.no_grad()
+    def predict_proba_device_batch(
+        self, batch: Any, *, names: Sequence[str], k: int, registry: str = 'standard'
+    ) -> torch.Tensor:
+        """P(y=1) per action of a packed batch -> ``(G, A)``: the batch
+        packed (:func:`~socceraction_tpu_torch.ops.fused.build_train_states`)
+        and the head run on its rows. ``names``, ``k`` and ``registry`` are
+        the layout the head was trained on."""
+        from ..ops.fused import REGISTRIES, build_train_states
+
+        states, layout = build_train_states(
+            batch, names=names, k=k, registry=REGISTRIES[registry]
+        )
+        return self.predict_proba_states(states, layout).reshape(batch.n_games, batch.max_actions)
+
     # -- persistence -------------------------------------------------------------
 
     def _hyperparameters(self) -> Dict[str, Any]:

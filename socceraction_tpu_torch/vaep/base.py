@@ -10,13 +10,19 @@ trains them from packed batches and rates packed batches:
   standardization statistics from the packed form and trains both heads
   with Adam, the MLP through the fused first layer (the CUDA kernel on the
   card), early-stopping on a validation split;
-- :meth:`VAEP.rate_batch` is the serving path. MLP heads: both heads'
-  first layers folded once into combined tables (optionally bf16/int8),
-  one fused gather + matmul first layer per batch, the hidden chains, and
-  the VAEP formula. Seq heads: both heads over one packing of the batch;
-- :meth:`VAEP.rate_batch_reference` is the same function through the
-  materialized feature tensor (a fresh packing for seq heads), in plain
-  PyTorch, for parity checks.
+- :meth:`VAEP.rate_batch` is the serving path, on one of four paths
+  chosen as the JAX package chooses them (:mod:`~..ops.profile`: the
+  measured platform profile, ``SOCCERACTION_TPU_RATING_PATH``). MLP heads
+  on ``'fused'``: both heads' first layers folded once into combined
+  tables (optionally bf16/int8), one fused gather + matmul first layer
+  per batch, the hidden chains, and the VAEP formula; ``'fused_bf16'``
+  the same with a bf16 hidden chain. Seq heads (``'seq'``): both heads
+  over one packing of the batch. ``'materialized'`` (forced, or a mixed
+  MLP/seq pair): the feature tensor for the MLP head, the packed rows for
+  a seq head (:meth:`VAEP._estimate_probabilities_batch`);
+- :meth:`VAEP.rate_batch_reference` is the same function through each
+  head's reference representation (the feature tensor, or a fresh
+  packing for a seq head), in plain PyTorch, for parity checks.
 
 The feature family (kernels, labels, formula, fused layout, batch class)
 is a set of class-level handles, which
@@ -69,6 +75,7 @@ from ..ops.fused import (
     train_layout,
 )
 from ..ops.labels import scores_concedes
+from ..ops.profile import FUSED_PATH_HIDDEN_DTYPES, hidden_dtype_for, preferred_rating_path
 from ..ops.quant import check_quantize_mode
 from ..seq.classifier import SeqClassifier
 from ..seq.model import seq_pair_probs
@@ -148,6 +155,17 @@ def split_rows(
     return idx[:cut], idx[cut + 1 :]
 
 
+def _check_head(col: str, head: Any) -> None:
+    """Raise unless ``head`` is an MLP or a seq head: tree heads need the
+    DataFrame layer (``VAEP.fit`` and the tree learners), which the port
+    does not have yet (ROADMAP A8)."""
+    if not isinstance(head, (MLPClassifier, SeqClassifier)):
+        raise ValueError(
+            f'head {col!r} is a {type(head).__name__}; the port rates MLP and seq heads '
+            'only (tree heads need VAEP.fit and the tree learners, ROADMAP A8)'
+        )
+
+
 class VAEP:
     """VAEP over packed batches of SPADL actions.
 
@@ -158,8 +176,9 @@ class VAEP:
     nb_prev_actions : int
         Game states per action (default 3).
     models : dict, optional
-        ``{'scores': head, 'concedes': head}`` on ``device``: two
-        ``MLPClassifier`` or two ``SeqClassifier`` (a mixed pair raises).
+        ``{'scores': head, 'concedes': head}`` on ``device``, each an
+        ``MLPClassifier`` or a ``SeqClassifier`` (a mixed pair rates on the
+        materialized path).
     device
         Where the model runs: ``cuda`` (default) or ``'cpu'``.
     """
@@ -193,14 +212,16 @@ class VAEP:
             if sorted(models) != sorted(_LABELS):
                 raise ValueError(f'models must be exactly {_LABELS}, got {sorted(models)}')
             for col, clf in models.items():
+                _check_head(col, clf)
                 if clf.mean_.device != self.device:
                     raise ValueError(
                         f'head {col!r} lives on {clf.mean_.device}, the model on {self.device}'
                     )
             self._models = {col: models[col] for col in _LABELS}
-            self._head_kind()  # a mixed pair raises here
         #: cached (key, PreparedPair) serving fold, see _prepared_pair
         self._pair_prep: Optional[Tuple[Any, PreparedPair]] = None
+        #: cached (key, {dense kernel: width}), see _dense_override_widths
+        self._dense_widths: Optional[Tuple[Any, Dict[str, int]]] = None
         #: int8 scales restored from a quantized checkpoint (or None)
         self._quant_scales: Optional[Dict[str, torch.Tensor]] = None
 
@@ -379,14 +400,17 @@ class VAEP:
         ``models/<head>.npz`` per head (:meth:`MLPClassifier.save` or
         :meth:`SeqClassifier.save`), ``models/quant_scales.npz`` with the
         fold's int8 scales when the model serves int8, and ``meta.json``
-        with the model's class, the format stamp (the oldest reader that
-        can load it: 3 with seq heads, 2 with a quantize mode, else 1) and
+        with the model's class, each head's kind, the format stamp (the
+        oldest reader that can load it: 3 with a seq head, 2 with a
+        quantize mode, else 1) and
         every artifact's sha256. Both packages' ``load_model`` read it.
         """
-        kind = self._head_kind()
+        self._heads()
         os.makedirs(os.path.join(path, 'models'), exist_ok=True)
         artifacts = []
+        heads = {}
         for col, model in self._models.items():
+            heads[col] = 'seq' if isinstance(model, SeqClassifier) else 'mlp'
             model.save(os.path.join(path, 'models', f'{col}.npz'))
             artifacts.append(f'models/{col}.npz')
         quantize = self.quantize
@@ -399,13 +423,13 @@ class VAEP:
             )
             artifacts.append(_QUANT_SCALES_ARTIFACT)
         meta = {
-            'format_version': 3 if kind == 'seq' else 2 if quantize != 'none' else 1,
+            'format_version': 3 if 'seq' in heads.values() else 2 if quantize != 'none' else 1,
             'class': type(self).__name__,
             'nb_prev_actions': self.nb_prev_actions,
             # the JAX package's loader builds its model with this backend
             'backend': 'jax',
             'xfns': list(self.xfns),
-            'heads': dict.fromkeys(self._models, kind),
+            'heads': heads,
             **({'quantize': quantize} if quantize != 'none' else {}),
             'checksums': {
                 rel: _file_sha256(os.path.join(path, rel)) for rel in sorted(artifacts)
@@ -456,17 +480,27 @@ class VAEP:
             raise NotFittedError('this model has no heads: fit or load them first')
         return self._models[_LABELS[0]], self._models[_LABELS[1]]
 
-    def _head_kind(self) -> str:
-        """``'mlp'`` or ``'seq'``: the learner both heads belong to. A mixed
-        pair raises (not ported)."""
-        heads = self._heads()
-        for kind, cls in _PACKED_HEAD_KINDS.items():
-            if all(isinstance(h, cls) for h in heads):
-                return kind
-        raise ValueError(
-            'the heads are of different kinds '
-            f'({[type(h).__name__ for h in heads]}); mixed MLP/seq pairs are not ported'
+    def _can_fuse(self) -> bool:
+        """True when the fused fold applies: every head is an MLP."""
+        return bool(self._models) and all(
+            isinstance(m, MLPClassifier) for m in self._models.values()
         )
+
+    def _can_seq(self) -> bool:
+        """True when the seq pair dispatch applies: every head is a GRU
+        sequence head."""
+        return bool(self._models) and all(
+            isinstance(m, SeqClassifier) for m in self._models.values()
+        )
+
+    @property
+    def time_rungs(self) -> bool:
+        """True when serving should bucket the action axis too
+        (:func:`~socceraction_tpu_torch.core.batch.bucket_window`): seq
+        heads, whose kernels look only backward over masked tails, so a
+        window cut to its rung rates bitwise as the full one. MLP models
+        keep the full action axis."""
+        return self._can_seq()
 
     def _prepared_pair(self) -> PreparedPair:
         """The serving fold, built once per (mode, heads) and cached.
@@ -500,7 +534,48 @@ class VAEP:
         self._pair_prep = (key, prep)
         return prep
 
+    def warm_serving(self) -> Optional[PreparedPair]:
+        """Build the serving fold now, so that its tables are resident
+        before the first rating; ``None`` unless both heads are MLPs."""
+        return self._prepared_pair() if self._can_fuse() else None
+
+    def serving_arrays(self) -> List[torch.Tensor]:
+        """The cached serving fold's device tensors (residency claims)."""
+        cached = self._pair_prep
+        return cached[1].arrays() if cached is not None else []
+
+    def serving_table_bytes(self) -> Optional[int]:
+        """Device bytes of the cached fold's combined tables (and int8
+        scales), or ``None`` before a fold is built."""
+        cached = self._pair_prep
+        return cached[1].table_nbytes if cached is not None else None
+
+    @staticmethod
+    def _bucketable(batch: Any) -> bool:
+        """True when the game axis may be padded: every field on one
+        device."""
+        return len({t.device for t in batch.fields().values()}) <= 1
+
     # -- rating ------------------------------------------------------------
+
+    def compute_features_batch(self, batch: Any) -> torch.Tensor:
+        """The ``(G, A, F)`` feature tensor of a batch, on its device."""
+        return self._compute_features_kernel(batch, names=self.xfns, k=self.nb_prev_actions)
+
+    def compute_labels_batch(self, batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ``(G, A)`` scores and concedes labels of a batch."""
+        return self._labels_kernel(batch)
+
+    def _dense_override_widths(self) -> Dict[str, int]:
+        """``{kernel name: width}`` of the overridable (dense) blocks,
+        cached per (feature set, k, family)."""
+        key = (self.xfns, self.nb_prev_actions, self._fused_registry)
+        cached = self._dense_widths
+        if cached is None or cached[0] != key:
+            layout = train_layout(self.xfns, self.nb_prev_actions, self._registry)
+            widths = {name: width for name, kind, _, width in layout.spans if kind == 'dense'}
+            cached = self._dense_widths = (key, widths)
+        return cached[1]
 
     def _overrides_on_device(
         self, batch: Any, dense_overrides: Optional[Dict[str, Any]]
@@ -510,8 +585,7 @@ class VAEP:
         self._check_batch(batch)
         if not dense_overrides:
             return {}
-        layout = train_layout(self.xfns, self.nb_prev_actions, self._registry)
-        widths = {name: width for name, kind, _, width in layout.spans if kind == 'dense'}
+        widths = self._dense_override_widths()
         out = {}
         for name, block in dense_overrides.items():
             if name not in widths:
@@ -529,6 +603,95 @@ class VAEP:
             out[name] = block
         return out
 
+    def _apply_dense_overrides(
+        self, feats: torch.Tensor, dense_overrides: Dict[str, torch.Tensor]
+    ) -> torch.Tensor:
+        """Write override blocks into a feature tensor at their kernels'
+        column offsets (in place) and return it: the materialized twin of
+        the fused path's ``dense_overrides``."""
+        layout = train_layout(self.xfns, self.nb_prev_actions, self._registry)
+        offsets = {name: off for name, _, off, _ in layout.spans}
+        for name, block in dense_overrides.items():
+            feats[..., offsets[name] : offsets[name] + block.shape[-1]] = block
+        return feats
+
+    @staticmethod
+    def _apply_packed_overrides(
+        states: TrainStates, layout: TrainLayout, dense_overrides: Dict[str, torch.Tensor]
+    ) -> TrainStates:
+        """The packed twin of :meth:`_apply_dense_overrides`: each
+        ``(G, A, width)`` block replaces its kernel's columns of a copy of
+        ``x_dense`` at the dense-local offset."""
+        x = states.x_dense.clone()
+        dense_off = 0
+        for name, kind, _, width in layout.spans:
+            if kind != 'dense':
+                continue
+            block = dense_overrides.get(name)
+            if block is not None:
+                x[:, dense_off : dense_off + width] = block.reshape(-1, width)
+            dense_off += width
+        return states._replace(x_dense=x)
+
+    def _estimate_probabilities_batch(
+        self,
+        feats: Optional[torch.Tensor],
+        batch: Optional[Any] = None,
+        dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Each head's ``(G, A)`` probabilities, by head kind.
+
+        An MLP head reads the feature tensor ``feats`` (``None`` when no
+        head needs it); a seq head the packed rows of ``batch``, built once
+        for all seq heads, with ``dense_overrides`` written into their
+        dense columns. Tree heads are not ported and raise.
+        """
+        probs: Dict[str, torch.Tensor] = {}
+        seq_pack: Optional[Tuple[TrainStates, TrainLayout]] = None
+        for col, model in self._models.items():
+            _check_head(col, model)
+            if isinstance(model, MLPClassifier):
+                probs[col] = model.predict_proba_device(feats)
+                continue
+            if batch is None:
+                raise ValueError(
+                    'sequence heads rate from the packed batch; pass the batch through'
+                )
+            if seq_pack is None:
+                states, layout = build_train_states(
+                    batch, names=self.xfns, k=self.nb_prev_actions, registry=self._registry
+                )
+                if dense_overrides:
+                    states = self._apply_packed_overrides(states, layout, dense_overrides)
+                seq_pack = (states, layout)
+            probs[col] = model.predict_proba_states(*seq_pack).reshape(
+                batch.n_games, batch.max_actions
+            )
+        return probs
+
+    def _materialized_probs(
+        self, batch: Any, overrides: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both heads' probabilities through their reference
+        representations; the feature tensor is built only when an MLP head
+        reads it."""
+        need_feats = any(not isinstance(m, SeqClassifier) for m in self._models.values())
+        feats = self.compute_features_batch(batch) if need_feats else None
+        if feats is not None and overrides:
+            feats = self._apply_dense_overrides(feats, overrides)
+        probs = self._estimate_probabilities_batch(feats, batch=batch, dense_overrides=overrides)
+        return probs[_LABELS[0]], probs[_LABELS[1]]
+
+    def _rating_path(self) -> str:
+        """The path :meth:`rate_batch` takes, by the JAX package's rules:
+        the profile's (or the env override's) path when both heads are
+        MLPs and it is a fused path, ``'seq'`` for two seq heads, else
+        ``'materialized'``."""
+        path = preferred_rating_path(self.device.type)
+        if self._can_fuse() and path in FUSED_PATH_HIDDEN_DTYPES:
+            return path
+        return 'seq' if self._can_seq() else 'materialized'
+
     @torch.no_grad()
     def rate_batch(
         self,
@@ -544,30 +707,34 @@ class VAEP:
         shape discipline; values of real games are unchanged) and slices the
         result back. ``dense_overrides`` substitutes precomputed
         ``(G, A, width)`` blocks for named dense feature kernels (a serving
-        layer injects the whole-match ``goalscore`` block this way). MLP
-        heads run through the prepared fold and kernel B1, seq heads both
-        over one packing of the batch. Values on padding rows are garbage
-        by contract.
+        layer injects the whole-match ``goalscore`` block this way) on every
+        path. The path is chosen per call (:meth:`_rating_path`): two MLP
+        heads rate through the prepared fold and kernel B1 (``'fused'``,
+        or ``'fused_bf16'`` with a bf16 hidden chain), two seq heads over
+        one packing of the batch (``'seq'``), anything else through each
+        head's reference representation (``'materialized'``). Values on
+        padding rows are garbage by contract.
 
         Every call reports the JAX package's telemetry under ``(path,
-        platform)`` labels (``path`` is ``'fused'`` or ``'seq'``,
-        ``platform`` the model's device type): the valid-action batch size
+        platform)`` labels (``path`` the path taken, ``platform`` the
+        model's device type): the valid-action batch size
         (``vaep/rate_batch_actions``), the dispatch wall
         (``vaep/rate_batch_seconds``), the ``vaep/rated_actions`` counter
-        and the ``vaep/rate_actions_per_sec`` gauge, and for seq heads
+        and the ``vaep/rate_actions_per_sec`` gauge, and on the seq path
         ``seq/rated_actions`` and ``seq/rate_seconds``, inside a
         ``vaep/rate_batch`` span. All are measured at *dispatch*: nothing
         here waits for the card (the action count is the batch's host
-        count), so on the card they bound the host's cost, not the card's
-        throughput. The dispatch notes the numeric guards
-        (:mod:`~socceraction_tpu_torch.obs.numerics`) for a later
-        ``drain_guards()``.
+        count, the path a cached profile entry), so on the card they bound
+        the host's cost, not the card's throughput. The dispatch notes the
+        numeric guards (:mod:`~socceraction_tpu_torch.obs.numerics`) for a
+        later ``drain_guards()``.
         """
-        kind = self._head_kind()
-        labels = {'path': 'seq' if kind == 'seq' else 'fused', 'platform': self.device.type}
+        self._heads()
+        path = self._rating_path()
+        labels = {'path': path, 'platform': self.device.type}
         t0 = time.perf_counter()
         with span('vaep/rate_batch', games=batch.n_games, **labels):
-            values = self._rate(batch, dense_overrides=dense_overrides, bucket=bucket)
+            values = self._rate(batch, dense_overrides=dense_overrides, bucket=bucket, path=path)
         dispatch_s = time.perf_counter() - t0
         n_actions = batch.total_actions
         histogram('vaep/rate_batch_actions', unit='actions').observe(n_actions, **labels)
@@ -577,7 +744,7 @@ class VAEP:
             gauge('vaep/rate_actions_per_sec', unit='actions/s').set(
                 n_actions / dispatch_s, **labels
             )
-        if kind == 'seq':
+        if path == 'seq':
             counter('seq/rated_actions', unit='actions').inc(n_actions, platform=labels['platform'])
             histogram('seq/rate_seconds', unit='s').observe(dispatch_s, platform=labels['platform'])
         return values
@@ -589,14 +756,16 @@ class VAEP:
         *,
         dense_overrides: Optional[Dict[str, Any]] = None,
         bucket: bool = True,
+        path: Optional[str] = None,
     ) -> torch.Tensor:
-        """:meth:`rate_batch` without its span and metrics: the dispatch."""
+        """:meth:`rate_batch` without its span and metrics: the dispatch
+        (on ``path``, default :meth:`_rating_path`)."""
         clf_a, clf_b = self._heads()
-        kind = self._head_kind()
+        path = self._rating_path() if path is None else path
         overrides = self._overrides_on_device(batch, dense_overrides)
         n_games = batch.n_games
         target = bucket_games(n_games) if bucket else n_games
-        if target != n_games:
+        if target != n_games and self._bucketable(batch):
             batch = pad_batch_games(batch, target)
             overrides = {
                 name: torch.cat([b, b.new_zeros((target - n_games, *b.shape[1:]))])
@@ -606,10 +775,15 @@ class VAEP:
             names=self.xfns, k=self.nb_prev_actions, registry=self._registry,
             dense_overrides=overrides,
         )
-        if kind == 'seq':
+        if path in FUSED_PATH_HIDDEN_DTYPES:
+            pa, pb = pair_probs_prepared(
+                self._prepared_pair(), clf_a, clf_b, batch,
+                hidden_dtype=hidden_dtype_for(path), **common,
+            )
+        elif path == 'seq':
             pa, pb = seq_pair_probs(clf_a, clf_b, batch, **common)
         else:
-            pa, pb = pair_probs_prepared(self._prepared_pair(), clf_a, clf_b, batch, **common)
+            pa, pb = self._materialized_probs(batch, overrides)
         return self._formula_kernel(batch, pa, pb)[:n_games]
 
     @torch.no_grad()
@@ -620,37 +794,12 @@ class VAEP:
         dense_overrides: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """Reference rating: the same function as :meth:`rate_batch` in
-        plain PyTorch. MLP heads read the full ``(G, A, F)`` feature
-        tensor; seq heads a fresh packing of the batch, each on its own."""
-        heads = self._heads()
-        kind = self._head_kind()
+        plain PyTorch, whatever path the profile picks. MLP heads read the
+        full ``(G, A, F)`` feature tensor, seq heads a fresh packing of the
+        batch, each on its own; no bucketing, no telemetry."""
+        self._heads()
         overrides = self._overrides_on_device(batch, dense_overrides)
-        k = self.nb_prev_actions
-        if kind == 'seq':
-            states, layout = build_train_states(
-                batch, names=self.xfns, k=k, registry=self._registry
-            )
-            if overrides:
-                x = states.x_dense.clone()
-                dense_off = 0
-                for name, dkind, _, width in layout.spans:
-                    if dkind != 'dense':
-                        continue
-                    if name in overrides:
-                        x[:, dense_off : dense_off + width] = overrides[name].reshape(-1, width)
-                    dense_off += width
-                states = states._replace(x_dense=x)
-            shape = (batch.n_games, batch.max_actions)
-            probs = [h.predict_proba_states(states, layout).reshape(shape) for h in heads]
-        else:
-            feats = self._compute_features_kernel(batch, names=self.xfns, k=k)
-            if overrides:
-                layout = train_layout(self.xfns, k, self._registry)
-                offsets = {name: off for name, _, off, _ in layout.spans}
-                for name, block in overrides.items():
-                    feats[..., offsets[name] : offsets[name] + block.shape[-1]] = block
-            probs = [h.predict_proba_device(feats) for h in heads]
-        return self._formula_kernel(batch, *probs)
+        return self._formula_kernel(batch, *self._materialized_probs(batch, overrides))
 
     def rate(self, game: Any, game_actions: 'pd.DataFrame') -> 'pd.DataFrame':
         """Offensive/defensive/total VAEP value of each action of one game.

@@ -31,6 +31,7 @@ from socceraction_tpu_torch.core import batch as tbatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch import xthreat
 from socceraction_tpu_torch.device import resolve_device
+from socceraction_tpu_torch.learn import calibration_summary, pack_replay_batch, reliability_curve
 from socceraction_tpu_torch.ml.mlp import MLPClassifier
 from socceraction_tpu_torch.ops import segment
 from socceraction_tpu_torch.pipeline import feed, packed
@@ -64,7 +65,9 @@ def test_the_scan_sees_the_port():
         'pipeline/build.py', 'pipeline/feed.py', 'scenario/grid.py', 'scenario/engine.py',
         'scenario/product.py', 'scenario/xt.py', 'obs/context.py', 'obs/coldstart.py',
         'obs/dispatch.py', 'obs/export.py', 'obs/memory.py', 'obs/numerics.py', 'obs/parity.py',
-        'obs/perf.py', 'obs/recorder.py', 'obs/slo.py', 'utils/profiling.py',
+        'obs/perf.py', 'obs/recorder.py', 'obs/slo.py', 'utils/profiling.py', 'ops/profile.py',
+        'learn/__init__.py', 'learn/calibration.py', 'learn/drift.py', 'learn/gate.py',
+        'learn/shadow.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -147,6 +150,9 @@ chip_smoke.scenario_phase(model, cpu, n_games=2, n_actions=256, nx=3, ny=2, reps
 # and the telemetry phase
 import socceraction_tpu_torch.obs, socceraction_tpu_torch.utils.profiling
 chip_smoke.telemetry_phase(model, cpu, games=2, actions=256, reps=3, probes=2, pairs=2)
+# and the rating dispatch with the gate's statistics
+import socceraction_tpu_torch.learn, socceraction_tpu_torch.ops.profile
+chip_smoke.rating_phase(cpu, games=2, actions=256, reps=1, n_boot=8)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -211,6 +217,11 @@ ENTRY_POINTS = {
     'iter_batches': lambda: next(feed.iter_batches(None, 1)),
     'ship_host_batch': lambda: packed.ship_host_batch(None),
     'copy_stream': lambda: packed.copy_stream(),
+    'calibration_summary': lambda: calibration_summary(np.ones(4), np.ones(4)),
+    'reliability_curve': lambda: reliability_curve(np.ones(4), np.ones(4)),
+    'pack_replay_batch': lambda: pack_replay_batch(
+        [(pd.DataFrame({'game_id': [1], 'team_id': [1]}), 1)], max_actions=128
+    ),
 }
 
 

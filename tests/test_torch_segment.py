@@ -94,6 +94,19 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     assert tseg.segment_sum(v, i, 0).shape == (0,)
 
 
+def test_plain_version_in_f64_gives_the_exact_sums():
+    """The f64 plain version (what the card check holds real sums to)
+    equals numpy's f64 sums by bucket, out-of-range ids dropped."""
+    vals, ids = _stream(5000, 7, seed=4, counts=False)
+    got = tseg.segment_sum_reference(
+        torch.from_numpy(vals), torch.from_numpy(ids), 7, dtype=torch.float64
+    )
+    assert got.dtype == torch.float64
+    v64 = vals.astype(np.float64)
+    want = [v64[ids == s].sum() for s in range(7)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize(
     'values, ids, error',
     [

@@ -423,8 +423,10 @@ def test_seq_heads_refuse_quantized_serving_and_mixed_pairs(fitted):
     mlp = tmlp.MLPClassifier(hidden=(4,), device='cpu')
     mlp.module = tmlp.MLP(568, (4,))
     mlp.mean_, mlp.std_ = torch.zeros(568), torch.ones(568)
-    with pytest.raises(ValueError, match='mixed MLP/seq pairs'):
-        VAEP(models={'scores': mlp, 'concedes': model._models['concedes']}, device='cpu')
+    # a mixed pair rates (on the materialized path) but has no fold to quantize
+    mixed = VAEP(models={'scores': mlp, 'concedes': model._models['concedes']}, device='cpu')
+    with pytest.raises(ValueError, match='needs MLP heads'):
+        mixed.set_quantize('int8')
 
 
 def test_warm_start_seq_from_seq_copies_the_heads(fitted):
