@@ -95,7 +95,24 @@ exits non-zero:
    ``shadow_replay`` with 200 resamples and a drift watch on the batch and
    on a copy shifted in ``start_x``, held to the port's statistics on the
    CPU over the card's probabilities (1e-6), and B1 and B2 against their
-   plain versions at this phase's shapes.
+   plain versions at this phase's shapes;
+13. the continuous-learning loop (``ContinuousLearner`` with no rating
+   service) over a seeded league season of 380 games x 1664 actions, 370
+   stored first, through a stand-in store whose landed games move its
+   fingerprint and a packed cache the phase brings up to date itself
+   (``PackedSeasonWriter.seed_from`` plus the new games): a bootstrap
+   iteration promoted as version 1; the last round of 10 games lands and
+   a warm-started iteration runs ((128, 128) heads, minibatches of 8192, 3
+   epochs, lr 3e-4, the fed fit launching B1 and B2); a degraded candidate
+   (fresh init, 0 epochs) rejected and left staged; ``rollback`` to
+   version 1. Each iteration's verdict, journal stages (the JAX package's
+   grammar), ``learn/stage_seconds``, wall and launches; its shadow
+   statistics (200 resamples over the 16 newest games not just landed)
+   held to the port's on the CPU over the card's probabilities (1e-6);
+   each promoted version read back from disk by a fresh ``ModelRegistry``
+   (no ``msgpack``), its claimed bytes beside the allocator's delta,
+   rating the phase-4 batch bitwise as its in-memory candidate; B1 at the
+   loop's training shape against its plain version.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -111,6 +128,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -158,7 +176,12 @@ from socceraction_tpu_torch.obs.coldstart import TIMELINE
 from socceraction_tpu_torch.obs.perf import DEVICE_PEAKS
 from socceraction_tpu_torch.ops.fused import train_layout
 from socceraction_tpu_torch.pipeline.feed import iter_batches
-from socceraction_tpu_torch.pipeline.packed import PackedSeason, PackedSeasonWriter, ship_host_batch
+from socceraction_tpu_torch.pipeline.packed import (
+    PackedSeason,
+    PackedSeasonWriter,
+    open_packed,
+    ship_host_batch,
+)
 from socceraction_tpu_torch.scenario import (
     ScenarioGrid,
     decision_surface,
@@ -169,15 +192,21 @@ from socceraction_tpu_torch.scenario import (
 )
 from socceraction_tpu_torch.learn import calibration as learn_calibration
 from socceraction_tpu_torch.learn import drift as learn_drift
+from socceraction_tpu_torch.learn import loop as loop_mod
 from socceraction_tpu_torch.learn import (
+    ContinuousLearner,
     DriftConfig,
     DriftWatch,
+    GateConfig,
+    LearnConfig,
     calibration_summary,
+    newest_game_ids,
     replay_probs,
     shadow_replay,
 )
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
+from socceraction_tpu_torch.serve import ModelRegistry
 from socceraction_tpu_torch.vaep.base import VAEP, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 
@@ -395,16 +424,19 @@ def main_path_first_layer(model: VAEP, batch: Any) -> Dict[str, Any]:
 
 
 @contextlib.contextmanager
-def captured(module: Any, name: str) -> Any:
-    """Record the arguments of every call of ``module.name`` in the
-    enclosed block (the list it yields), the calls going through."""
+def captured(module: Any, name: str, first_only: bool = False) -> Any:
+    """Record ``(args, kwargs, result)`` of the calls of ``module.name`` in
+    the enclosed block (the list it yields; ``first_only``: the first
+    call's only), the calls going through."""
     fn = getattr(module, name)
     calls: List[Tuple[Any, ...]] = []
 
     @functools.wraps(fn)  # and its attributes: a wrapper counts its launches on itself
-    def capture(*args: Any) -> Any:
-        calls.append(args)
-        return fn(*args)
+    def capture(*args: Any, **kwargs: Any) -> Any:
+        out = fn(*args, **kwargs)
+        if not (first_only and calls):
+            calls.append((args, kwargs, out))
+        return out
 
     setattr(module, name, capture)
     try:
@@ -417,7 +449,7 @@ def first_layer_operands_of(model: VAEP, batch: Any) -> Tuple[torch.Tensor, ...]
     """The operands one ``rate_batch`` call hands B1."""
     with captured(fused_ops, 'fused_first_layer_quant') as calls:
         model.rate_batch(batch)
-    return calls[0]
+    return calls[0][0]
 
 
 def atomic_batch(
@@ -2038,7 +2070,7 @@ def check_phase12_kernels(model: VAEP, batch: Any, device: torch.device) -> Dict
     head = model._models['scores']
     with captured(fused_ops, 'fused_first_layer') as b1:
         head.predict_proba_device_batch(batch, names=model.xfns, k=K)
-    ops = b1[0]
+    ops = b1[0][0]
     got = gm.fused_first_layer_quant(*ops)
     want = gm.fused_first_layer_reference(*ops)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
@@ -2061,8 +2093,8 @@ def check_phase12_kernels(model: VAEP, batch: Any, device: torch.device) -> Dict
         DriftWatch.from_batch(model, batch)
     b2_recs = []
     for label, (vals, seg_ids, n_seg), exact in (
-        ('calibration: (w, w·p, w·y) into 3 x 10 bins', cal[0], False),
-        ('drift: 10 rows into 10 x 16 bins', dft[0], True),
+        ('calibration: (w, w·p, w·y) into 3 x 10 bins', cal[0][0], False),
+        ('drift: 10 rows into 10 x 16 bins', dft[0][0], True),
     ):
         b2_recs.append(check_segment_sum(label, n_seg, vals.reshape(-1).float().contiguous(),
                                          seg_ids.reshape(-1).contiguous(), exact))
@@ -2247,6 +2279,348 @@ def rating_phase(
     return record
 
 
+# -- the continuous-learning loop (phase 13) -------------------------------------------
+
+#: Phase 13's season: 20 teams over 38 rounds; the last round's games land
+#: after the bootstrap.
+LOOP_GAMES, LOOP_NEW_GAMES = 380, 10
+#: The loop's feed chunk and its fallback replay window.
+LOOP_GAMES_PER_BATCH, LOOP_REPLAY_GAMES = 64, 16
+#: Phase 6's schedule: (128, 128) heads, minibatches of 8192, 3 epochs, lr 3e-4.
+LOOP_PARAMS = {**TRAIN_PARAMS, 'learning_rate': 3e-4}
+#: The journal's stage grammar for each verdict.
+JOURNAL_STAGES = {
+    'promoted': ['consumed', 'verdict', 'intent_publish', 'published', 'activated'],
+    'rejected': ['consumed', 'verdict'],
+}
+LOOP_DIR = os.path.join('build', 'learn')
+
+
+class LandingStore(ArrayStore):
+    """:class:`ArrayStore` whose games land over time: each landed game
+    writes a marker file, so the store's fingerprint moves and the packed
+    cache reads as stale until it is brought up to date."""
+
+    def __init__(self, path: str, n_games: int) -> None:
+        super().__init__(path, 0)
+        self.land(n_games)
+
+    def land(self, n: int) -> List[int]:
+        new = list(range(len(self._ids), len(self._ids) + n))
+        for g in new:
+            with open(os.path.join(self.path, f'game_{g}.landed'), 'w') as f:
+                f.write(str(g))
+        self._ids.extend(new)
+        return new
+
+
+def update_cache(draw: Any, store: LandingStore, cache_dir: str, chunk: int = 64) -> int:
+    """Bring the packed cache up to date with the landed games: the old
+    cache's rows copied (``PackedSeasonWriter.seed_from``), the new games
+    (the store's tail: it only appends) written from the draw in chunks;
+    returns the rows copied."""
+    old = PackedSeason(cache_dir) if os.path.isdir(cache_dir) else None
+    writer = PackedSeasonWriter(store, max_actions=draw.max_actions, cache_dir=cache_dir)
+    reused = writer.seed_from(old) if old is not None else 0
+    n = len(store.game_ids())
+    for lo in range(reused, n, chunk):
+        writer.write_chunk(lo, direct_chunk(draw, lo, min(lo + chunk, n)))
+    writer.finalize()
+    return reused
+
+
+class ArrayLearner(ContinuousLearner):
+    """The port's learner over a :class:`LandingStore`: the replay window
+    and the drift reference's games come from the packed cache (the card's
+    machine packs no DataFrames), chosen as the learner chooses stored
+    games (the newest ``fallback_replay_games``, excluding the new ones).
+    Keeps each trained candidate for the checks."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        self.trained: List[Any] = []
+        super().__init__(*args, **kwargs)
+
+    def _cache(self) -> PackedSeason:
+        cfg = self.config
+        season = open_packed(self.store, max_actions=cfg.max_actions, cache_dir=cfg.cache_dir)
+        if season is None:
+            raise RuntimeError('the packed cache is not up to date with the store')
+        return season
+
+    def _pack_games(self, ids: Any) -> Any:
+        return self._cache().take(list(ids), device=self.device)[0]
+
+    def _replay_batch(self, exclude: Any = ()) -> Tuple[Optional[Any], str]:
+        n = int(self.config.fallback_replay_games)
+        exclude = set(exclude)
+        all_ids = self.store.game_ids()
+        ids = newest_game_ids([g for g in all_ids if g not in exclude], n)
+        source = 'store_fallback'
+        if not ids and exclude:
+            ids, source = newest_game_ids(all_ids, n), 'store_fallback_in_sample'
+        return (self._pack_games(ids) if ids else None), source
+
+    def _train_candidate(self, active_model: Any) -> Any:
+        candidate = super()._train_candidate(active_model)
+        self.trained.append(candidate)
+        return candidate
+
+
+def loop_iteration(
+    learner: ArrayLearner, device: torch.device, card: str, label: str
+) -> Dict[str, Any]:
+    """One ``run_once`` with both kernels' counts zeroed just before and read
+    just after, synchronized, its shadow replays recorded; the verdict, the
+    stage seconds, the wall, the launches and the journal's stage sequence
+    of the iteration."""
+    journal_len = len(learner.journal.entries())
+    active = learner._active()
+    sync(device)
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    with captured(loop_mod, 'shadow_replay') as shadows, \
+            captured(fused_ops, 'fused_first_layer', first_only=True) as b1:
+        t0 = time.perf_counter()
+        report = learner.run_once()
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = {'gather_matmul': gm.fused_first_layer_quant.launches,
+                'segment_sum': seg.segment_sum.launches}
+    stages = [e['stage'] for e in learner.journal.entries()[journal_len:]]
+    rec = {
+        'verdict': report.verdict, 'version': report.candidate_version,
+        'reasons': report.reasons, 'replay': report.replay, 'wall_s': wall,
+        'stage_seconds': report.stage_seconds, 'launches': launches, 'journal': stages,
+        'heads': {c: {k: e.get(k) for k in ('delta_ece', 'delta_brier')}
+                  for c, e in report.heads.items()},
+    }
+    print(f'{label} ({card}): {json.dumps(rec)}')
+    if stages != JOURNAL_STAGES.get(report.verdict):
+        raise RuntimeError(f'{label}: journal stages {stages} for verdict {report.verdict}')
+    if device.type == 'cuda' and (launches['segment_sum'] < 1 or (
+            learner.config.train_params.get('max_epochs', 1) > 0 and launches['gather_matmul'] < 1)):
+        raise RuntimeError(f'{label}: the iteration did not launch the kernels: {launches}')
+    rec.update(report=report, active=active, shadows=shadows,
+               b1_operands=b1[0][0] if b1 else None)
+    return rec
+
+
+def loop_statistics(rec: Dict[str, Any], gate: GateConfig, label: str) -> Tuple[float, float]:
+    """The iteration's shadow statistics held to the port's on the CPU over
+    the card's probabilities, in f64: ``n`` bitwise, the rest within 1e-6.
+    (A long f32 sum in another order is no reference: the CPU's f32
+    statistics, whose gap is returned beside, sum a bin's about 13,000
+    probabilities near 0.5 of a degraded head one after another and drift
+    by about 1e-6 of ECE.) Returns the largest gaps to f64 and to f32."""
+    results = {'candidate': rec['shadows'][0]}
+    if len(rec['shadows']) > 1:
+        results['active'] = rec['shadows'][1]
+    gaps: Dict[str, float] = {}
+    f32_gap = 0.0
+    keys = ('ece', 'brier', 'brier_reliability', 'brier_resolution', 'brier_uncertainty',
+            'ece_ci', 'brier_ci')
+    for which, (args, kwargs, res) in results.items():
+        model, batch = args[0], kwargs['batch']
+        labels = dict(zip(('scores', 'concedes'),
+                          (t.cpu() for t in model.compute_labels_batch(batch))))
+        weights = batch.mask.to(torch.float32).cpu()
+        for col, probs in res.probs.items():
+            got = rec['report'].heads[col][which]
+            for dtype in (torch.float64, torch.float32):
+                want = calibration_summary(
+                    probs.cpu(), labels[col], weights, n_bins=gate.n_bins, n_boot=gate.n_boot,
+                    seed=gate.seed, ci_level=gate.ci_level, device='cpu', _dtype=dtype,
+                ).to_dict()
+                if got['n'] != want['n']:
+                    raise RuntimeError(f"{label}: {which} {col} n {got['n']}, CPU {want['n']}")
+                for key in keys:
+                    gap = float(np.max(np.abs(np.subtract(got[key], want[key]))))
+                    if dtype == torch.float64:
+                        gaps[f'{which}.{col}.{key}'] = gap
+                    else:
+                        f32_gap = max(f32_gap, gap)
+    worst = max(gaps.values())
+    if worst > 1e-6:
+        raise RuntimeError(f'{label}: shadow statistics card vs CPU f64 {json.dumps(gaps)} (limit 1e-6)')
+    return worst, f32_gap
+
+
+def _live_storages() -> Dict[Tuple[int, int], Tuple[int, str]]:
+    """Every CUDA storage a live tensor holds: ``(device, pointer) ->
+    (bytes, dtype and shape of the first tensor seen on it)``."""
+    out: Dict[Tuple[int, int], Tuple[int, str]] = {}
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+        except ReferenceError:  # a dead weakref proxy has no class to test
+            continue
+        st = obj.untyped_storage()
+        out.setdefault((st.device.index, st.data_ptr()),
+                       (st.nbytes(), f'{obj.dtype} {tuple(obj.shape)}'))
+    return out
+
+
+def load_residency(registry: ModelRegistry, version: str, device: torch.device) -> Dict[str, Any]:
+    """``registry.load('vaep', version)`` and the card bytes it keeps: the
+    claim, the allocator's delta of requested bytes (what the load asked
+    for and did not free) and of allocated bytes (the blocks that serve
+    them: the caching allocator hands out a cached block up to 1 MiB
+    larger than a large request whole), and the new live storages the
+    claim does not cover. The deltas are ``None`` on the CPU."""
+    cuda = device.type == 'cuda'
+    if cuda:
+        sync(device)
+        before, stats0 = _live_storages(), torch.cuda.memory_stats(device)
+    model = registry.load('vaep', version)
+    out: Dict[str, Any] = {'claimed_bytes': registry._claims[('vaep', version)].nbytes,
+                           'requested_delta_bytes': None, 'allocated_delta_bytes': None,
+                           'unclaimed_bytes': 0, 'unclaimed': []}
+    if cuda:
+        sync(device)
+        stats1 = torch.cuda.memory_stats(device)
+        for key in ('requested', 'allocated'):
+            stat = f'{key}_bytes.all.current'
+            out[f'{key}_delta_bytes'] = stats1[stat] - stats0[stat]
+        claimed = {(a.untyped_storage().device.index, a.untyped_storage().data_ptr())
+                   for a in registry._resident_arrays(model)}
+        new = [v for k, v in _live_storages().items() if k not in before and k not in claimed]
+        out['unclaimed_bytes'] = sum(n for n, _ in new)
+        out['unclaimed'] = sorted(new, reverse=True)[:5]
+    return out
+
+
+def learn_phase(
+    device: torch.device, card: str = 'CPU', games: int = LOOP_GAMES,
+    new_games: int = LOOP_NEW_GAMES, actions: int = ACTIONS,
+    games_per_batch: int = LOOP_GAMES_PER_BATCH, replay_games: int = LOOP_REPLAY_GAMES,
+    params: Optional[Dict[str, Any]] = None, n_boot: int = N_BOOT, rate_games: int = GAMES,
+) -> Dict[str, Any]:
+    """Phase 13: the continuous-learning loop with ``service=None``.
+
+    A seeded season (``games`` x ``actions``) of which all but the last
+    ``new_games`` are stored; its packed cache written from the arrays. (1)
+    A bootstrap iteration: promoted, version 1. (2) The last round lands
+    (the cache brought up to date: old rows seeded, new games written) and
+    a warm-started iteration runs. (3) A degraded candidate (fresh init, 0
+    epochs) on the same games: rejected, staged, the backlog bounded. (4)
+    ``rollback``: the previous version active. Each iteration's journal
+    stages, stage seconds, wall, launches and shadow statistics (held to
+    the CPU's); every promoted version loaded by a fresh registry from disk
+    (no ``msgpack``), its claimed bytes beside the allocator's delta, and
+    rating a ``rate_games`` x ``actions`` batch bitwise as the candidate it
+    was; B1 at the loop's training shape against its plain version.
+    """
+    label = 'learning loop'
+    t_phase = time.perf_counter()
+    params = dict(LOOP_PARAMS if params is None else params)
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    os.makedirs(LOOP_DIR)
+    try:
+        draw = synthetic_batch(games, actions, seed=13, device='cpu')
+        store = LandingStore(os.path.join(LOOP_DIR, 'store'), games - new_games)
+        cache_dir = os.path.join(LOOP_DIR, 'cache')
+        update_cache(draw, store, cache_dir)
+        registry = ModelRegistry(os.path.join(LOOP_DIR, 'registry'), device=device)
+        base = dict(
+            model_name='vaep', max_actions=actions, games_per_batch=games_per_batch,
+            random_state=0, fallback_replay_games=replay_games, cache_dir=cache_dir,
+            gate=GateConfig(n_boot=n_boot, max_ece_regression=0.05, max_brier_regression=0.02),
+            drift=DriftConfig(), journal_path=os.path.join(LOOP_DIR, 'journal.jsonl'),
+            debug_dir=os.path.join(LOOP_DIR, 'debug'),
+        )
+        good_cfg = LearnConfig(**base, train_params=params)
+        bad_cfg = LearnConfig(**{**base, 'warm_start': False},
+                              train_params={**params, 'max_epochs': 0})
+        print(f'{label}: {games - new_games} of {games} games stored, cache written, '
+              f'{time.perf_counter() - t_phase:.1f} s')
+
+        iters = {}
+        boot = ArrayLearner(store, registry, config=good_cfg)
+        iters['bootstrap'] = loop_iteration(boot, device, card, f'{label}: bootstrap')
+        if (iters['bootstrap']['verdict'], iters['bootstrap']['version']) != ('promoted', '1'):
+            raise RuntimeError(f'{label}: the bootstrap iteration was not promoted as version 1')
+        good = ArrayLearner(store, registry, config=good_cfg)
+        bad = ArrayLearner(store, registry, config=bad_cfg)
+        landed = store.land(new_games)
+        reused = update_cache(draw, store, cache_dir)
+        print(f'{label}: {len(landed)} games landed, {reused} cached rows reused')
+        iters['warm'] = loop_iteration(good, device, card, f'{label}: warm-started')
+        if sorted(iters['warm']['report'].new_games) != landed:
+            raise RuntimeError(f'{label}: the warm-started iteration trained on other games')
+        iters['degraded'] = loop_iteration(bad, device, card, f'{label}: degraded')
+        tag = iters['degraded']['report'].candidate_tag
+        staged = registry.candidates('vaep')
+        if iters['degraded']['verdict'] != 'rejected' or tag not in staged \
+                or len(staged) > bad_cfg.retention_keep:
+            raise RuntimeError(
+                f"{label}: the degraded candidate gave {iters['degraded']['verdict']}, staged {staged}"
+            )
+        before = registry.active()[:2]
+        rolled = good.rollback()
+        if registry.active()[:2] != rolled or rolled[1] != iters['bootstrap']['version']:
+            raise RuntimeError(f'{label}: rollback from {before} made {registry.active()[:2]} active')
+        print(f'{label}: rollback {before} -> {rolled}; staged candidates {staged}')
+
+        gaps = {name: loop_statistics(rec, good_cfg.gate, f'{label}: {name}')
+                for name, rec in iters.items() if rec['shadows']}
+        stats_gap = max(g[0] for g in gaps.values())
+        print(f'{label}: shadow statistics card vs the CPU in f64 (limit 1e-6) and in f32, '
+              f'largest gaps {json.dumps(gaps)} ({card})')
+
+        # every promoted version, read back from disk by a fresh registry
+        rate_batch = synthetic_batch(rate_games, actions, seed=0, device=device)
+        fresh = ModelRegistry(registry.root, device=device)
+        candidates = {rec['version']: learner.trained[-1]
+                      for rec, learner in ((iters['bootstrap'], boot), (iters['warm'], good))
+                      if rec['version'] is not None}
+        loads = {}
+        for version, candidate in candidates.items():
+            manifest = fresh.load_manifest('vaep', version)
+            if manifest['drift_reference'] is None or len(manifest['trained_game_ids']) != (
+                    games - new_games if version == '1' else games):
+                raise RuntimeError(f'{label}: version {version} manifest {sorted(manifest)}')
+            loads[version] = load_residency(fresh, version, device)
+            loaded = fresh.load('vaep', version)
+            gap = float((loaded.rate_batch(rate_batch) - candidate.rate_batch(rate_batch)).abs().max())
+            loads[version].update(max_abs_gap=gap, msgpack_loaded='msgpack' in sys.modules)
+            res = loads[version]
+            if gap != 0.0 or res['msgpack_loaded'] or res['unclaimed_bytes'] or (
+                    res['requested_delta_bytes'] not in (None, res['claimed_bytes'])):
+                raise RuntimeError(f'{label}: version {version} loaded: {res}')
+        print(f'{label}: registry.load from disk, rated {rate_batch.total_actions} actions '
+              f'against the in-memory candidates ({card}): {json.dumps(loads)}')
+
+        kernel = None
+        ops = iters['warm']['b1_operands']
+        if device.type == 'cuda' and ops is not None:
+            ops = tuple(t.detach() for t in ops)
+            got = gm.fused_first_layer_quant(*ops)
+            want = gm.fused_first_layer_reference(*ops)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+            tables, _, _, ids, x = ops
+            kernel = {
+                'shape': {'n': ids.shape[0], 'k': ids.shape[1], 'r': tables.shape[1],
+                          'h': tables.shape[2], 'd': x.shape[1]},
+                'max_abs_err': float((got - want).abs().max()),
+                'ms': graph_ms(lambda: gm.fused_first_layer_quant(*ops), reps=50),
+                'plain_ms': graph_ms(lambda: gm.fused_first_layer_reference(*ops), reps=20),
+                **first_layer_bound(ops),
+            }
+            print(f'{label}: kernel gather_matmul at the loop\'s training shape vs plain ({card}): '
+                  f'{json.dumps(kernel)}')
+        launches = {k: sum(rec['launches'][k] for rec in iters.values())
+                    for k in ('gather_matmul', 'segment_sum')}
+        summary = {name: {k: rec[k] for k in ('verdict', 'version', 'wall_s', 'stage_seconds',
+                                                 'launches', 'journal')}
+                   for name, rec in iters.items()}
+        print(f'{label}: {json.dumps(summary)}; phase 13 in {time.perf_counter() - t_phase:.1f} s')
+        return {'launches': launches, 'iterations': summary, 'loads': loads,
+                'stats_gap': stats_gap, 'kernel': kernel}
+    finally:
+        shutil.rmtree(LOOP_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2416,6 +2790,10 @@ def main() -> int:
     print(f'rating paths: phase 12 in {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
 
+    # -- phase 13, the continuous-learning loop -----------------------------------------
+    learn = learn_phase(device, card)
+    torch.cuda.empty_cache()
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -2431,6 +2809,7 @@ def main() -> int:
         'rate_scenarios_looped': scenario['loop_launches'],
         'telemetry phase': telemetry['launches']['gather_matmul'],
         'phase 12 (path matrix, predict_proba_device_batch)': rating['launches']['gather_matmul'],
+        'learning loop (phase 13, 3 iterations)': learn['launches']['gather_matmul'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -2441,6 +2820,7 @@ def main() -> int:
         'fed xT fit': feed['fit_launches'],
         'telemetry phase': telemetry['launches']['segment_sum'],
         'phase 12 (shadow_replay, drift)': rating['launches']['segment_sum'],
+        'learning loop (phase 13, 3 iterations)': learn['launches']['segment_sum'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
@@ -2454,6 +2834,7 @@ def main() -> int:
         'max_abs_err': max(
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
             atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
+            learn['kernel']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -2474,6 +2855,7 @@ def main() -> int:
             for label, rec in (('standard', serving), ('atomic', atomic_serving))
         },
         'phase12_shape': rating['kernels']['gather_matmul'],
+        'loop_training_shape': learn['kernel'],
         'training_shapes': [
             {k: rec[k] for k in (
                 'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'backward_ms',

@@ -11,10 +11,13 @@ promotion gate reads:
 - :mod:`.shadow`: replay of captured traffic through a model, with its
   calibration per head;
 - :mod:`.gate`: the calibration, drift and parity bands and the typed
-  :class:`PromotionReport`.
-
-The loop itself (``ingest.py``, ``loop.py``) drives the model registry
-and the serving layer, and comes with them.
+  :class:`PromotionReport`;
+- :mod:`.ingest`: :class:`SeasonWatcher` and :func:`extend_packed`, the
+  incremental packed-cache build;
+- :mod:`.loop`: :class:`ContinuousLearner`, the ingest → warm-started fit
+  → shadow → gate → publish loop over the model registry, with the
+  durable iteration journal (the rating service is not ported yet:
+  ``service=None``).
 """
 
 from .calibration import CalibrationSummary, calibration_summary, reliability_curve
@@ -27,22 +30,29 @@ from .drift import (
     drift_statistics,
 )
 from .gate import GateConfig, PromotionReport, compare_heads, evaluate_gate, record_report
+from .ingest import SeasonWatcher, extend_packed, newest_game_ids
+from .loop import ContinuousLearner, LearnConfig
 from .shadow import ShadowResult, pack_replay_batch, replay_probs, shadow_replay
 
 __all__ = [
     'CalibrationSummary',
+    'ContinuousLearner',
     'DriftConfig',
     'DriftReference',
     'DriftResult',
     'DriftWatch',
     'GateConfig',
+    'LearnConfig',
     'PromotionReport',
+    'SeasonWatcher',
     'ShadowResult',
     'build_drift_reference',
     'calibration_summary',
     'compare_heads',
     'drift_statistics',
     'evaluate_gate',
+    'extend_packed',
+    'newest_game_ids',
     'pack_replay_batch',
     'record_report',
     'reliability_curve',

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.segment import segment_sum
+from ..ops.segment import segment_sum, segment_sum_reference
 
 __all__ = ['CalibrationSummary', 'calibration_summary', 'reliability_curve']
 
@@ -46,21 +46,23 @@ _CHUNK_BYTES = 1 << 30
 _BYTES_PER_ROW = 4 + 16 + 12 + 12
 
 
-def _as_tensor(a: Any, device: torch.device) -> torch.Tensor:
+def _as_tensor(a: Any, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32).reshape(-1)
-    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device).reshape(-1)
+        return a.to(device=device, dtype=dtype).reshape(-1)
+    host = np.float32 if dtype == torch.float32 else np.float64
+    return torch.as_tensor(np.asarray(a, dtype=host), device=device).reshape(-1)
 
 
 def _flatten(
-    probs: Any, labels: Any, weights: Any, device: DeviceLike
+    probs: Any, labels: Any, weights: Any, device: DeviceLike,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(p, y, w)`` flat f32 on the device of ``probs`` when it is a
-    tensor, else on ``device`` (default ``cuda``)."""
+    """``(p, y, w)`` flat in ``dtype`` (f32) on the device of ``probs`` when
+    it is a tensor, else on ``device`` (default ``cuda``)."""
     dev = probs.device if isinstance(probs, torch.Tensor) else resolve_device(device)
-    p = _as_tensor(probs, dev)
-    y = _as_tensor(labels, dev)
-    w = torch.ones_like(p) if weights is None else _as_tensor(weights, dev)
+    p = _as_tensor(probs, dev, dtype)
+    y = _as_tensor(labels, dev, dtype)
+    w = torch.ones_like(p) if weights is None else _as_tensor(weights, dev, dtype)
     if p.shape != y.shape or p.shape != w.shape:
         raise ValueError(
             f'probs/labels/weights disagree on shape: {tuple(p.shape)} vs '
@@ -85,6 +87,13 @@ def _binned_sums(
     vals = torch.stack([w, w * p, w * y], dim=-2)  # (..., 3, N)
     base = torch.arange(rows * 3, dtype=torch.int32, device=p.device).reshape(*lead, 3, 1)
     ids = bins.unsqueeze(-2) + base * n_bins
+    if vals.dtype == torch.float64:  # the f64 reference of a check: the plain sums, unnarrowed
+        if vals.device.type != 'cpu':
+            raise ValueError(
+                f'float64 statistics are a CPU reference; got tensors on {vals.device}'
+            )
+        return segment_sum_reference(vals, ids, rows * 3 * n_bins, dtype=torch.float64).reshape(
+            *lead, 3, n_bins)
     return segment_sum(vals, ids, rows * 3 * n_bins).reshape(*lead, 3, n_bins)
 
 
@@ -192,6 +201,7 @@ def calibration_summary(
     ci_level: float = 0.95,
     device: DeviceLike = None,
     _indices: Optional[Any] = None,
+    _dtype: torch.dtype = torch.float32,
 ) -> CalibrationSummary:
     """Calibration summary of one probability head.
 
@@ -215,13 +225,20 @@ def calibration_summary(
     _indices
         ``(n_boot, N)`` row indices to use instead of drawing them (tests
         inject the JAX package's draws).
+    _dtype
+        The arithmetic: ``torch.float32`` (the gate's, the JAX package's),
+        or ``torch.float64`` on the CPU only, the exact sums a check holds
+        an f32 result to (long f32 sums in two orders drift apart by more
+        than either drifts from f64). f64 tensors on a card raise.
     """
     if n_bins < 2:
         raise ValueError(f'need at least 2 bins, got {n_bins}')
     if n_boot < 1:
         raise ValueError(f'need at least 1 bootstrap resample, got {n_boot}')
-    p, y, w = _flatten(probs, labels, weights, device)
-    bins = _bins(p, n_bins)
+    if _dtype not in (torch.float32, torch.float64):
+        raise ValueError(f'_dtype must be float32 or float64, got {_dtype}')
+    p, y, w = _flatten(probs, labels, weights, device, _dtype)
+    bins = _bins(p.to(torch.float32), n_bins)
     point = _point_metrics(p, y, w, _binned_sums(p, y, w, bins, n_bins))
     n_rows = p.shape[0]
     chunk = max(1, _CHUNK_BYTES // (_BYTES_PER_ROW * max(n_rows, 1)))
@@ -234,7 +251,7 @@ def calibration_summary(
         chunks = list(idx.split(chunk))
     # one row gather per chunk: (p, y, w, bin) side by side (bins < 2**24
     # are exact in f32)
-    cols = torch.stack([p, y, w, bins.to(torch.float32)], dim=1)
+    cols = torch.stack([p, y, w, bins.to(p.dtype)], dim=1)
     eces, briers = [], []
     for rows in chunks:
         drawn = cols.index_select(0, rows.to(p.device).reshape(-1)).reshape(*rows.shape, 4)
@@ -244,7 +261,7 @@ def calibration_summary(
         eces.append(e)
         briers.append(b)
     lo = (1.0 - ci_level) / 2.0
-    q = torch.tensor([lo, 1.0 - lo], dtype=torch.float32, device=p.device)
+    q = torch.tensor([lo, 1.0 - lo], dtype=p.dtype, device=p.device)
     ece_ci = torch.quantile(torch.cat(eces), q)
     brier_ci = torch.quantile(torch.cat(briers), q)
     host = torch.cat([torch.stack(point), ece_ci, brier_ci]).tolist()

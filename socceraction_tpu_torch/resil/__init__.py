@@ -1,18 +1,22 @@
-"""Resilience layer: fault injection and retries.
+"""Resilience layer: fault injection, retries and the iteration journal.
 
 Copies of the JAX package's ``socceraction_tpu/resil/faults.py``
-(:func:`fault_point`, :class:`FaultPlan`, :class:`FaultSpec`) and
+(:func:`fault_point`, :class:`FaultPlan`, :class:`FaultSpec`),
 ``resil/retry.py`` (:class:`RetryPolicy`, :func:`retry_call`), which the
-season store reads through. The circuit breaker and the iteration
-journal come with the serving and learning layers.
+season store and the model registry read through, and ``resil/journal.py``
+(:class:`IterationJournal`, :class:`JournalState`), the learning loop's
+durable record. The circuit breaker comes with the serving layer.
 """
 
 from .faults import FaultPlan, FaultSpec, fault_point, injected_faults
+from .journal import IterationJournal, JournalState
 from .retry import RetryPolicy, classify_error, retry_call
 
 __all__ = [
     'FaultPlan',
     'FaultSpec',
+    'IterationJournal',
+    'JournalState',
     'RetryPolicy',
     'classify_error',
     'fault_point',

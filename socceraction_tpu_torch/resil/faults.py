@@ -2,9 +2,12 @@
 
 A copy of the JAX package's ``socceraction_tpu/resil/faults.py``:
 
-- :func:`fault_point` — named markers in the production code paths (the
-  port has one so far: ``'ingest.read'`` inside the parquet read of
-  :class:`~socceraction_tpu_torch.pipeline.store.SeasonStore`). Disarmed
+- :func:`fault_point` — named markers in the production code paths
+  (``'ingest.read'`` inside the parquet read of
+  :class:`~socceraction_tpu_torch.pipeline.store.SeasonStore`,
+  ``'registry.load'`` inside the model registry's retried checkpoint
+  load, ``'learn.publish'`` between the learning loop's journaled publish
+  intent and the registry rename). Disarmed
   — the default, always, in production — a call is one module-global
   read and a ``None`` check: no locks, no metrics, no allocation.
 - :class:`FaultPlan` — the armed schedule: a seed plus a list of

@@ -7,8 +7,9 @@
 - The modules ``chip_smoke.py`` runs import with those packages, and
   ``pandas``, ``pyarrow``, ``h5py`` and ``msgpack`` (absent on the GPU
   machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
-  feed, counterfactual and telemetry phases also run so, at a tiny size
-  on the CPU.
+  feed, counterfactual, telemetry, rating-path and learning-loop phases
+  also run so, at a tiny size on the CPU, with a checkpoint published and
+  loaded back through the model registry.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -31,12 +32,18 @@ from socceraction_tpu_torch.core import batch as tbatch
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch import xthreat
 from socceraction_tpu_torch.device import resolve_device
-from socceraction_tpu_torch.learn import calibration_summary, pack_replay_batch, reliability_curve
+from socceraction_tpu_torch.learn import (
+    ContinuousLearner,
+    calibration_summary,
+    pack_replay_batch,
+    reliability_curve,
+)
 from socceraction_tpu_torch.ml.mlp import MLPClassifier
 from socceraction_tpu_torch.ops import segment
 from socceraction_tpu_torch.pipeline import feed, packed
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.seq.model import init_seq_params
+from socceraction_tpu_torch.serve import ModelRegistry
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -67,7 +74,8 @@ def test_the_scan_sees_the_port():
         'obs/dispatch.py', 'obs/export.py', 'obs/memory.py', 'obs/numerics.py', 'obs/parity.py',
         'obs/perf.py', 'obs/recorder.py', 'obs/slo.py', 'utils/profiling.py', 'ops/profile.py',
         'learn/__init__.py', 'learn/calibration.py', 'learn/drift.py', 'learn/gate.py',
-        'learn/shadow.py',
+        'learn/shadow.py', 'learn/ingest.py', 'learn/loop.py', 'resil/journal.py',
+        'serve/__init__.py', 'serve/capture.py', 'serve/registry.py', 'convert.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -153,6 +161,20 @@ chip_smoke.telemetry_phase(model, cpu, games=2, actions=256, reps=3, probes=2, p
 # and the rating dispatch with the gate's statistics
 import socceraction_tpu_torch.learn, socceraction_tpu_torch.ops.profile
 chip_smoke.rating_phase(cpu, games=2, actions=256, reps=1, n_boot=8)
+# a checkpoint written and read back through a registry: the port's own codec
+import os, tempfile
+import socceraction_tpu_torch.serve, socceraction_tpu_torch.resil.journal
+from socceraction_tpu_torch.serve import ModelRegistry
+root = tempfile.mkdtemp(dir='.')
+registry = ModelRegistry(os.path.join(root, 'registry'), device='cpu')
+registry.publish('vaep', '1', model)
+back = registry.load('vaep', '1')
+batch = synthetic_batch(2, 256, seed=4, device='cpu')
+assert torch.equal(back.rate_batch(batch), model.rate_batch(batch))
+# and the learning loop's phase over its stand-in store
+chip_smoke.learn_phase(cpu, games=6, new_games=2, actions=128, games_per_batch=2, replay_games=2,
+                       params={'hidden': (8,), 'batch_size': 256, 'max_epochs': 3,
+                               'learning_rate': 3e-4}, n_boot=8, rate_games=2)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -222,6 +244,8 @@ ENTRY_POINTS = {
     'pack_replay_batch': lambda: pack_replay_batch(
         [(pd.DataFrame({'game_id': [1], 'team_id': [1]}), 1)], max_actions=128
     ),
+    'ModelRegistry': lambda: ModelRegistry('no-such-registry'),
+    'ContinuousLearner': lambda: ContinuousLearner(None, None),
 }
 
 

@@ -140,6 +140,31 @@ def test_zero_weight_rows_contribute_nothing():
     assert s1.n == s0.n
 
 
+def test_f64_summary_is_the_exact_sums():
+    """``_dtype=torch.float64`` (the reference a card check holds its f32
+    statistics to) bins as f32 does, and sums as numpy does in f64; it is a
+    CPU reference only, and f64 tensors on another device raise."""
+    p, y, w = _draws(30000, seed=11)
+    p = (0.5 + 0.02 * (p - 0.5)).astype(np.float32)  # one crowded bin, as a degraded head's
+    s64 = tcal.calibration_summary(p, y, w, n_boot=4, device='cpu', _dtype=torch.float64)
+    s32 = tcal.calibration_summary(p, y, w, n_boot=4, device='cpu')
+    assert s64.n == s32.n
+    bins = np.clip((p * 10).astype(np.int32), 0, 9)
+    pd_, yd, wd = (a.astype(np.float64) for a in (p, y, w))
+    mass = np.bincount(bins, wd, 10)
+    conf = np.bincount(bins, wd * pd_, 10) / np.maximum(mass, 1e-12)
+    acc = np.bincount(bins, wd * yd, 10) / np.maximum(mass, 1e-12)
+    ece = float((mass / wd.sum() * np.abs(conf - acc)).sum())
+    brier = float((wd * (pd_ - yd) ** 2).sum() / wd.sum())
+    assert abs(s64.ece - ece) <= 1e-12 and abs(s64.brier - brier) <= 1e-12
+    assert abs(s32.ece - ece) <= 1e-5  # f32: about 15,000 terms a bin, one after another
+    with pytest.raises(ValueError, match='float32 or float64'):
+        tcal.calibration_summary(p, y, w, device='cpu', _dtype=torch.float16)
+    on_meta = [torch.from_numpy(a).to('meta') for a in (p, y, w)]
+    with pytest.raises(ValueError, match='CPU reference'):
+        tcal.calibration_summary(*on_meta, n_boot=4, _dtype=torch.float64)
+
+
 def test_calibration_validation_errors():
     p, y, _ = _draws(n=16)
     with pytest.raises(ValueError, match='bins'):

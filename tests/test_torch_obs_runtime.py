@@ -37,6 +37,7 @@ from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch.obs import dispatch as tdispatch
 from socceraction_tpu_torch.obs import memory as tmemory
 from socceraction_tpu_torch.obs import metrics as tmetrics
+from socceraction_tpu_torch.obs import numerics as tnumerics
 from socceraction_tpu_torch.obs import parity as tparity
 from socceraction_tpu_torch.obs import perf as tperf
 from socceraction_tpu_torch.obs import recorder as trecorder
@@ -369,6 +370,10 @@ def test_main_path_telemetry_matches_jax():
             xt=lambda: ExpectedThreat(device='cpu'),
         ),
     }
+    # the guard ring is process-wide: drain what earlier tests on this
+    # worker left, or a full ring's evictions (num/guard_drops) read as
+    # this run's telemetry
+    tnumerics.drain_guards()
     out = {}
     for name, metrics in (('jax', jmetrics), ('torch', tmetrics)):
         s = steps[name]
