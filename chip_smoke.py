@@ -209,6 +209,8 @@ from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.serve import ModelRegistry
 from socceraction_tpu_torch.vaep.base import VAEP, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
+from socceraction_tpu_torch import parallel as scale
+from socceraction_tpu_torch.parallel import vaep as scale_vaep
 
 #: The serving batch: 512 games of 1664 actions (851,968 rows).
 GAMES, ACTIONS = 512, 1664
@@ -2621,7 +2623,426 @@ def learn_phase(
         shutil.rmtree(LOOP_DIR, ignore_errors=True)
 
 
+# -- the scale-out layer (phase 14) ----------------------------------------------------
+
+#: Full-batch steps of the distributed train step and of ``train_distributed``
+#: in a world of one (a), and of each two-rank run (b).
+SCALE_STEPS, SCALE_RANK_STEPS = 3, 2
+#: Seconds phase 14 (b)'s two ranks may take, start to end.
+SCALE_RANK_TIMEOUT_S = 420.0
+#: Where phase 14 (b)'s ranks write their results (git-ignored, removed).
+SCALE_DIR = os.path.join('build', 'scale')
+
+
+class ScaleSizes(NamedTuple):
+    """Phase 14's shapes: the xT draw, the training and rating batch, the heads."""
+
+    xt_games: int = XT_GAMES
+    games: int = GAMES
+    actions: int = ACTIONS
+    hidden: Tuple[int, ...] = HIDDEN
+
+
+def counted(device: torch.device, fn: Callable[[], Any]) -> Tuple[Any, Dict[str, Any]]:
+    """``fn()`` with both kernels' counts zeroed just before it and read
+    just after, and its wall time, synchronized on the card."""
+    sync(device)
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, {
+        'gather_matmul': gm.fused_first_layer_quant.launches,
+        'segment_sum': seg.segment_sum.launches,
+        'wall_s': time.perf_counter() - t0,
+    }
+
+
+def scale_init(n_features: int, hidden: Tuple[int, ...]) -> Dict[str, Any]:
+    """Both heads as the distributed step's ``init_fn(0, ...)`` draws them."""
+    return {
+        head: mlp_mod.init_mlp(n_features, hidden, mlp_mod._generator(0, mlp_mod._INIT_STREAM, i))
+        for i, head in enumerate(('scores', 'concedes'))
+    }
+
+
+def plain_train_steps(
+    batch: Any, hidden: Tuple[int, ...], steps: int, lr: float = 1e-3
+) -> List[Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """The distributed step's full-batch steps in one process, with no
+    process group: ``fused_pair_logits`` (B1), the masked loss, autograd
+    and ``adam_update`` -> ``(loss, parameters)`` after each step."""
+    names = VAEP._default_xfns
+    modules = {
+        h: m.to(batch.device) for h, m in scale_init(train_layout(names, K).n_features, hidden).items()
+    }
+    flat = [p for h in ('scores', 'concedes') for p in modules[h].parameters()]
+    state = mlp_mod.AdamState.zeros(flat)
+    ys, yc = VAEP._labels_kernel(batch)
+    w = batch.mask.to(torch.float32)
+
+    def bce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        y = y.to(torch.float32)
+        losses = (
+            -y * torch.nn.functional.logsigmoid(logits)
+            - (1.0 - y) * torch.nn.functional.logsigmoid(-logits)
+        )
+        return torch.sum(losses * w) / torch.clamp(w.sum(), min=1.0)
+
+    out = []
+    for _ in range(steps):
+        ls, lc = fused_ops.fused_pair_logits(
+            modules['scores'], modules['concedes'], batch, names=names, k=K
+        )
+        loss = bce(ls, ys) + bce(lc, yc)
+        state, _ = mlp_mod.adam_update(flat, torch.autograd.grad(loss, flat), state, lr)
+        out.append((loss.detach(), head_params(modules)))
+    return out
+
+
+def head_params(modules: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{'head/Dense_i.weight': tensor, ...}``: copies of both heads' parameters."""
+    return {f'{h}/{n}': t.detach().clone() for h, m in modules.items() for n, t in m.state_dict().items()}
+
+
+def params_gap(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) -> Tuple[float, bool]:
+    """``(max |got - want|, within rtol 1e-4 and atol 1e-6 everywhere)``."""
+    gap, ok = 0.0, True
+    for name, w in want.items():
+        g = got[name].to(w.device)
+        gap = max(gap, float((g - w).abs().max()))
+        ok = ok and bool(torch.allclose(g, w, rtol=1e-4, atol=1e-6))
+    return gap, ok
+
+
+def scale_xt(mesh: Any, draw: Any, device: torch.device) -> Dict[str, Any]:
+    """The sharded xT fits of phase 14 on one rank's view of the draw."""
+    out = {}
+    counts, out['counts_launches'] = counted(
+        device, lambda: scale.sharded_xt_counts(draw, mesh, l=16, w=12)
+    )
+    out['counts'] = {k: v.cpu() for k, v in counts._asdict().items()}
+    (grid, it), out['mf_launches'] = counted(
+        device, lambda: scale.sharded_xt_fit_matrix_free(draw, mesh, l=192, w=125)
+    )
+    out['mf'] = (grid.cpu(), int(it))
+    return out
+
+
+def scale_world_one(device: torch.device, card: str, sizes: ScaleSizes) -> Dict[str, Any]:
+    """Phase 14 (a): a world of one rank in this process (NCCL on the card,
+    gloo on the CPU, a file store in a temporary directory), each entry
+    point at full width against the port's single-device path."""
+    import torch.distributed as dist
+
+    label = 'scale-out (a), one rank'
+    rec: Dict[str, Any] = {'paths': {}}
+    paths = rec['paths']
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    # one rank on this host: its bootstrap needs no interface but loopback
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    os.environ.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, 'store'), 1), rank=0, world_size=1
+        )
+        try:
+            one = torch.ones(1, device=device)
+            dist.all_reduce(one)
+            if float(one) != 1.0:
+                raise RuntimeError(f'{label}: a {backend} all-reduce over one rank gave {float(one)}')
+            mesh = scale.make_mesh(device_type=device.type)
+            if tuple(mesh.shape) != (1, 1) or mesh.mesh_dim_names != ('games', 'model'):
+                raise RuntimeError(f'{label}: make_mesh() gave {mesh.mesh_dim_names} {tuple(mesh.shape)}')
+
+            # -- xT on phase 5's draw
+            draw = synthetic_batch(sizes.xt_games, sizes.actions, seed=2, device=device)
+            fields = xt_fields(draw)
+            counts = xtops.xt_counts(*fields, l=16, w=12)
+            local = scale_xt(mesh, draw, device)
+            paths['sharded_xt_counts 16x12'] = local['counts_launches']
+            for k, v in counts._asdict().items():
+                if not torch.equal(local['counts'][k], v.cpu()):
+                    raise RuntimeError(f'{label}: sharded {k} counts differ from xt_counts')
+            sol = xtops.solve_xt(xtops.xt_probabilities(counts, l=16, w=12))
+            (grid, _, it), paths['sharded_xt_fit 16x12'] = counted(
+                device, lambda: scale.sharded_xt_fit(draw, mesh, l=16, w=12)
+            )
+            checks = {'sharded_xt_fit 16x12': (grid, it, sol.grid, sol.iterations)}
+            ref, _ = xtops.solve_xt_matrix_free(*fields, l=192, w=125)
+            paths['sharded_xt_fit_matrix_free 192x125'] = local['mf_launches']
+            checks['sharded_xt_fit_matrix_free 192x125'] = (*local['mf'], ref.grid, ref.iterations)
+            gid = group_ids(draw)
+            (grid, it), paths[f'fleet 192x125 x {XT_GROUPS}'] = counted(
+                device, lambda: scale.sharded_xt_fit_matrix_free(
+                    draw, mesh, l=192, w=125, group_id=gid, n_groups=XT_GROUPS
+                ),
+            )
+            fleet, _ = xtops.solve_xt_matrix_free(*fields, l=192, w=125, group_id=gid, n_groups=XT_GROUPS)
+            checks[f'fleet 192x125 x {XT_GROUPS}'] = (grid, it, fleet.grid, fleet.iterations)
+            for name, (g, i, want_g, want_i) in checks.items():
+                gap = float((g.to(device) - want_g).abs().max())
+                its, want_its = _np(torch.as_tensor(i)), _np(want_i)
+                if not (gap <= 1e-6 and np.array_equal(its, want_its)):
+                    raise RuntimeError(f'{label}: {name}: grid gap {gap} (1e-6), iterations {its} vs {want_its}')
+                paths[name].update(grid_gap=gap, iterations=its.tolist())
+            mf = paths['sharded_xt_fit_matrix_free 192x125']
+            if mf['segment_sum'] != kernel_launches(3 + int(local['mf'][1]), device):
+                raise RuntimeError(f"{label}: the sharded 192x125 fit launched B2 {mf['segment_sum']} times")
+            rec['xt'] = {'counts': {k: v.cpu() for k, v in counts._asdict().items()},
+                         'mf': (ref.grid.cpu(), int(ref.iterations))}
+            del draw, fields, gid
+            empty_cache(device)
+
+            # -- training at full width, against the same steps with no process group
+            batch = synthetic_batch(sizes.games, sizes.actions, seed=3, device=device)
+            names = VAEP._default_xfns
+            n_features = train_layout(names, K).n_features
+            init_fn, step_fn, place = scale.make_train_step(mesh, names, K, sizes.hidden)
+
+            def steps() -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+                params, opt = init_fn(0, n_features)
+                losses = []
+                for _ in range(SCALE_STEPS):
+                    params, opt, loss = step_fn(params, opt, place(batch))
+                    losses.append(loss)
+                return losses, scale_vaep.gather_params(params, mesh, sizes.hidden)
+
+            (losses, whole), paths['make_train_step'] = counted(device, steps)
+            plain = plain_train_steps(batch, sizes.hidden, SCALE_STEPS)
+            got = head_params(whole)
+            for i, (loss, want) in enumerate(plain):
+                if not torch.equal(losses[i], loss):
+                    raise RuntimeError(f'{label}: step {i + 1} loss {float(losses[i])} != {float(loss)}')
+            if not all(torch.equal(got[n], t) for n, t in plain[-1][1].items()):
+                raise RuntimeError(f'{label}: the train step parameters differ from the plain steps')
+            rec['plain'] = [(float(loss), {n: t.cpu() for n, t in p.items()})
+                            for loss, p in plain[:SCALE_RANK_STEPS]]
+            paths['make_train_step'].update(losses=[float(x) for x in losses], bitwise=True)
+            models, paths['train_distributed'] = counted(
+                device, lambda: scale.train_distributed(
+                    batch, mesh, names, k=K, hidden=sizes.hidden, epochs=SCALE_STEPS
+                ),
+            )
+            if not all(torch.equal(head_params({h: m.module for h, m in models.items()})[n], t)
+                       for n, t in got.items()):
+                raise RuntimeError(f'{label}: train_distributed differs from its steps')
+            model = VAEP(models=models, device=device)
+            want = model.rate_batch(batch)
+            (values, _), paths['sharded_rate'] = counted(device, lambda: scale.sharded_rate(model, batch, mesh))
+            if not torch.equal(values, want):
+                raise RuntimeError(f'{label}: sharded_rate is not bitwise rate_batch')
+            del batch, model, want, values, plain, whole
+            empty_cache(device)
+
+            # -- the sequence-parallel path and the replica lanes, on phase 4's model
+            smodel = make_model(device, sizes.hidden)
+            sbatch = synthetic_batch(sizes.games, sizes.actions, seed=0, device=device)
+            want = smodel.rate_batch(sbatch)
+            seq_mesh = scale.make_sequence_mesh(seq_parallel=1, device_type=device.type)
+            got_seq, paths['sequence_rate'] = counted(
+                device, lambda: scale.sequence_rate(smodel, sbatch, seq_mesh)
+            )
+            gap = masked_gap(got_seq, want, sbatch.mask)
+            if not gap <= 1e-6:
+                raise RuntimeError(f'{label}: sequence_rate {gap} from rate_batch (1e-6)')
+            paths['sequence_rate']['max_abs_err'] = gap
+            rec['seq_want'] = want.cpu()
+            disp = scale.ReplicaDispatcher(smodel, 1)
+            lane, paths['rate_replica'] = counted(device, lambda: disp.rate_replica(0, sbatch))
+            gang, paths['rate_mesh'] = counted(device, lambda: disp.rate_mesh([sbatch]))
+            plain_values = smodel.rate_batch(sbatch, bucket=False).cpu().numpy()
+            if not (np.array_equal(lane, plain_values) and np.array_equal(gang[0], plain_values)):
+                raise RuntimeError(f'{label}: a replica lane is not bitwise rate_batch')
+        finally:
+            dist.destroy_process_group()
+    for name, line in paths.items():
+        print(f'{label}: {name}: {json.dumps(line)} ({card})')
+    return rec
+
+
+def empty_cache(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+
+
+def scale_rank(out_dir: str, device_type: str, sizes: ScaleSizes) -> None:
+    """One of phase 14 (b)'s two ranks (gloo; on the card both sit on
+    ``cuda:0``): the sharded xT counts and 192 x 125 fit of the draw, the
+    train steps data-parallel (2, 1) and tensor-parallel (1, 2) from the
+    distributed step's init, and ``sequence_rate`` over 2 ``seq`` shards;
+    its results and launch counts go to ``out_dir/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from socceraction_tpu_torch.utils.env import init_distributed
+
+    rank, _ = init_distributed(backend='gloo', device_type=device_type)
+    device = resolve_device(device_type)
+    if device.type == 'cuda':
+        set_precision()
+        # the parent built them: digest-named libraries load without nvcc
+        cuda_build.load_libraries(KERNELS)
+    out: Dict[str, Any] = {'builds': dict(cuda_build.build_seconds), 'paths': {}}
+    mesh = scale.make_mesh(device_type=device_type)
+    draw = synthetic_batch(sizes.xt_games, sizes.actions, seed=2, device=device)
+    xt = scale_xt(mesh, draw, device)
+    out.update(counts=xt['counts'], mf=xt['mf'])
+    out['paths']['sharded_xt_counts 16x12'] = xt['counts_launches']
+    out['paths']['sharded_xt_fit_matrix_free 192x125'] = xt['mf_launches']
+    del draw
+    empty_cache(device)
+
+    batch = synthetic_batch(sizes.games, sizes.actions, seed=3, device=device)
+    names = VAEP._default_xfns
+    n_features = train_layout(names, K).n_features
+    for name, mp in (('data-parallel (2, 1)', 1), ('tensor-parallel (1, 2)', 2)):
+        m = mesh if mp == 1 else scale.make_mesh(model_parallel=2, device_type=device_type)
+        init_fn, step_fn, place = scale.make_train_step(m, names, K, sizes.hidden)
+
+        def steps() -> Tuple[List[float], Dict[str, torch.Tensor]]:
+            params, opt = init_fn(0, n_features)
+            local = place(batch)
+            losses = []
+            for _ in range(SCALE_RANK_STEPS):
+                params, opt, loss = step_fn(params, opt, local)
+                losses.append(float(loss))
+            return losses, head_params(scale_vaep.gather_params(params, m, sizes.hidden))
+
+        (losses, params), out['paths'][f'train steps {name}'] = counted(device, steps)
+        out[name] = (losses, {n: t.cpu() for n, t in params.items()})
+    del batch
+    empty_cache(device)
+
+    seq_mesh = scale.make_sequence_mesh(seq_parallel=2, device_type=device_type)
+    smodel = make_model(device, sizes.hidden)
+    sbatch = synthetic_batch(sizes.games, sizes.actions, seed=0, device=device)
+    values, out['paths']['sequence_rate seq=2'] = counted(
+        device, lambda: scale.sequence_rate(smodel, sbatch, seq_mesh)
+    )
+    out['seq'] = (seq_mesh.get_local_rank('seq'), values.cpu())
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def scale_two_ranks(
+    device: torch.device, card: str, sizes: ScaleSizes, world_one: Dict[str, Any], timeout_s: float,
+) -> Dict[str, Any]:
+    """Phase 14 (b): two gloo ranks on the one device, spawned through the
+    port's launcher, held to (a): counts bitwise, the 192 x 125 grid within
+    1e-6 with equal iterations on both ranks and to (a), the train steps'
+    losses at rtol 1e-5 and parameters at rtol 1e-4, atol 1e-6 of the
+    plain steps and bitwise across the ranks, ``sequence_rate`` within 1e-6
+    of ``rate_batch``. Returns the launches by path, summed over ranks."""
+    from socceraction_tpu_torch.utils.env import run_distributed_workers
+
+    label = 'scale-out (b), two ranks on one card' if device.type == 'cuda' else 'scale-out (b), two CPU ranks'
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    os.makedirs(SCALE_DIR)
+    try:
+        t0 = time.perf_counter()
+        run_distributed_workers(
+            os.path.abspath(__file__), 2,
+            args=('--scale-rank', SCALE_DIR, device.type, json.dumps(sizes._asdict())),
+            timeout_s=timeout_s,
+            # CPU ranks share the host's cores: one thread each
+            env={'OMP_NUM_THREADS': '1'} if device.type == 'cpu' else None,
+        )
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(SCALE_DIR, f'rank{r}.pt'), weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(SCALE_DIR, ignore_errors=True)
+
+    want = world_one['xt']
+    for r, res in enumerate(ranks):
+        for k, v in want['counts'].items():
+            if not torch.equal(res['counts'][k], v):
+                raise RuntimeError(f'{label}: rank {r} {k} counts differ from one rank')
+        grid, it = res['mf']
+        gap = float((grid - want['mf'][0]).abs().max())
+        if not (gap <= 1e-6 and it == want['mf'][1]):
+            raise RuntimeError(f"{label}: rank {r} 192x125 grid gap {gap}, iterations {it} vs {want['mf'][1]}")
+        res['paths']['sharded_xt_fit_matrix_free 192x125'].update(grid_gap=gap, iterations=it)
+    summary: Dict[str, Any] = {}
+    for name in ('data-parallel (2, 1)', 'tensor-parallel (1, 2)'):
+        (l0, p0), (l1, p1) = ranks[0][name], ranks[1][name]
+        if l0 != l1 or not all(torch.equal(p0[n], p1[n]) for n in p0):
+            raise RuntimeError(f'{label}: {name}: the ranks hold different losses or parameters')
+        plain_losses = [loss for loss, _ in world_one['plain']]
+        loss_ok = np.allclose(l0, plain_losses, rtol=1e-5, atol=0)
+        gap, params_ok = params_gap(p0, world_one['plain'][-1][1])
+        if not (loss_ok and params_ok):
+            raise RuntimeError(f'{label}: {name}: losses {l0} vs {plain_losses}, parameter gap {gap}')
+        summary[name] = {'losses': l0, 'plain_losses': plain_losses, 'max_param_gap': gap}
+    blocks = sorted((res['seq'] for res in ranks), key=lambda s: s[0])
+    values = torch.cat([b for _, b in blocks], dim=1)
+    mask = synthetic_batch(sizes.games, sizes.actions, seed=0, device='cpu').mask
+    gap = masked_gap(values, world_one['seq_want'], mask)
+    if not gap <= 1e-6:
+        raise RuntimeError(f'{label}: sequence_rate at seq=2 {gap} from rate_batch (1e-6)')
+    summary['sequence_rate seq=2'] = {'max_abs_err': gap}
+    launches: Dict[str, Dict[str, int]] = {}
+    for r, res in enumerate(ranks):
+        for name, line in res['paths'].items():
+            print(f'{label}: rank {r}: {name}: {json.dumps(line)} ({card})')
+            tot = launches.setdefault(name, {'gather_matmul': 0, 'segment_sum': 0})
+            for kernel in tot:
+                tot[kernel] += line[kernel]
+    print(f"{label}: builds in the ranks (0.0: loaded, not compiled): "
+          f"{json.dumps([res['builds'] for res in ranks])}")
+    print(f'{label}: held to one rank: {json.dumps(summary)}; both ranks in {spawn_s:.1f} s ({card})')
+    return launches
+
+
+def scale_phase(
+    device: torch.device, card: str = 'CPU', sizes: ScaleSizes = ScaleSizes(),
+    rank_timeout_s: float = SCALE_RANK_TIMEOUT_S,
+) -> Dict[str, Any]:
+    """Phase 14: the scale-out layer, (a) in a world of one rank, then (b)
+    over two ranks on the same device, which must end within
+    ``rank_timeout_s``. Returns every path's launches."""
+    t0 = time.perf_counter()
+    one = scale_world_one(device, card, sizes)
+    t1 = time.perf_counter()
+    two = scale_two_ranks(device, card, sizes, one, rank_timeout_s)
+    print(f'scale-out: phase 14 in {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, '
+          f'(b) {time.perf_counter() - t1:.1f} s)')
+    return {
+        'one': {name: {k: line[k] for k in ('gather_matmul', 'segment_sum')}
+                for name, line in one['paths'].items()},
+        'two': two,
+    }
+
+
+def scale_paths(launches: Dict[str, Any], kernel: str) -> Dict[str, int]:
+    """Phase 14's paths that launch ``kernel``, labelled for the kernels
+    line; raises if one of them launched it no time."""
+    out = {}
+    for part, label in (('one', 'phase 14 (a) one rank'), ('two', 'phase 14 (b) two ranks')):
+        for name, counts in launches[part].items():
+            if counts[kernel]:
+                out[f'{label}: {name}'] = counts[kernel]
+    expected = {
+        'gather_matmul': ('make_train_step', 'train_distributed', 'sharded_rate', 'sequence_rate',
+                          'rate_replica', 'rate_mesh', 'train steps data-parallel (2, 1)',
+                          'train steps tensor-parallel (1, 2)', 'sequence_rate seq=2'),
+        'segment_sum': ('sharded_xt_fit 16x12', 'sharded_xt_fit_matrix_free 192x125',
+                        f'fleet 192x125 x {XT_GROUPS}', 'sharded_xt_counts 16x12'),
+    }[kernel]
+    seen = {name.split(': ', 1)[1] for name in out}
+    missing = [name for name in expected if name not in seen]
+    if missing:
+        raise RuntimeError(f'phase 14 paths launched {kernel} no time: {missing}')
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
+        # one of phase 14 (b)'s ranks, spawned by scale_two_ranks
+        out_dir, device_type, sizes = sys.argv[2:5]
+        scale_rank(out_dir, device_type, ScaleSizes(**json.loads(sizes)))
+        return 0
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
@@ -2794,6 +3215,10 @@ def main() -> int:
     learn = learn_phase(device, card)
     torch.cuda.empty_cache()
 
+    # -- phase 14, the scale-out layer ------------------------------------------------
+    scale_launches = scale_phase(device, card)
+    torch.cuda.empty_cache()
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -2810,6 +3235,7 @@ def main() -> int:
         'telemetry phase': telemetry['launches']['gather_matmul'],
         'phase 12 (path matrix, predict_proba_device_batch)': rating['launches']['gather_matmul'],
         'learning loop (phase 13, 3 iterations)': learn['launches']['gather_matmul'],
+        **scale_paths(scale_launches, 'gather_matmul'),
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -2821,6 +3247,7 @@ def main() -> int:
         'telemetry phase': telemetry['launches']['segment_sum'],
         'phase 12 (shadow_replay, drift)': rating['launches']['segment_sum'],
         'learning loop (phase 13, 3 iterations)': learn['launches']['segment_sum'],
+        **scale_paths(scale_launches, 'segment_sum'),
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]

@@ -43,7 +43,7 @@ from ..obs.numerics import record_nonfinite
 from ..obs.perf import record_dispatch
 from ..ops.quant import check_quantize_mode
 
-__all__ = ['AdamState', 'MLP', 'MLPClassifier', 'MLP_FORMAT_VERSION']
+__all__ = ['AdamState', 'MLP', 'MLPClassifier', 'MLP_FORMAT_VERSION', 'adam_update', 'init_mlp']
 
 #: Newest ``MLPClassifier.save`` artifact format this port reads and
 #: writes (the JAX package's ``MLP_FORMAT_VERSION``).
@@ -121,6 +121,48 @@ def _weighted_bce(
     return torch.sum(losses * weights) / torch.clamp(torch.sum(w), min=1.0)
 
 
+@torch.no_grad()
+def adam_update(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    state: AdamState,
+    learning_rate: float,
+) -> Tuple[AdamState, torch.Tensor]:
+    """One optax Adam step on ``params``, in place -> (new state, update norm).
+
+    The bias corrections ``1 - b**t`` are taken in f32, as optax takes
+    them on f32 parameters.
+    """
+    t = state.count + 1
+    bc1 = float(np.float32(1) - np.float32(_B1) ** np.float32(t))
+    bc2 = float(np.float32(1) - np.float32(_B2) ** np.float32(t))
+    grads = list(grads)
+    # multi-tensor ops: a few launches per step, not ten per parameter
+    mu = torch._foreach_mul(state.mu, _B1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - _B1))
+    nu = torch._foreach_mul(state.nu, _B2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - _B2))
+    den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(den, _EPS)
+    updates = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+    torch._foreach_mul_(updates, -learning_rate)
+    torch._foreach_add_(list(params), updates)
+    return AdamState(t, tuple(mu), tuple(nu)), _global_norm(updates)
+
+
+def init_mlp(n_features: int, hidden: Sequence[int], generator: torch.Generator) -> MLP:
+    """Fresh weights on the CPU, as flax's ``Dense`` draws them: a LeCun
+    normal kernel truncated at two standard deviations and a zero bias,
+    drawn from ``generator`` layer by layer."""
+    module = MLP(n_features, hidden)
+    with torch.no_grad():
+        for layer in module.layers():
+            std = layer.in_features ** -0.5 / _TRUNCATED_STD
+            nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            layer.bias.zero_()
+    return module
+
+
 class _EpochTrainer:
     """Minibatch Adam over fixed-shape steps, one epoch per :meth:`run`.
 
@@ -167,28 +209,9 @@ class _EpochTrainer:
         perm = torch.randperm(self.n, generator=_generator(self.seed, epoch))
         return perm.to(self.device)
 
-    @torch.no_grad()
     def _adam(self, grads: Sequence[torch.Tensor], state: AdamState) -> Tuple[AdamState, torch.Tensor]:
-        """One optax Adam step applied in place -> (new state, update norm).
-
-        The bias corrections ``1 - b**t`` are taken in f32, as optax takes
-        them on f32 parameters.
-        """
-        t = state.count + 1
-        bc1 = float(np.float32(1) - np.float32(_B1) ** np.float32(t))
-        bc2 = float(np.float32(1) - np.float32(_B2) ** np.float32(t))
-        grads = list(grads)
-        # multi-tensor ops: a few launches per step, not ten per parameter
-        mu = torch._foreach_mul(state.mu, _B1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - _B1))
-        nu = torch._foreach_mul(state.nu, _B2)
-        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - _B2))
-        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(den, _EPS)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        torch._foreach_mul_(updates, -self.learning_rate)
-        torch._foreach_add_(self.params, updates)
-        return AdamState(t, tuple(mu), tuple(nu)), _global_norm(updates)
+        """One optax Adam step applied in place -> (new state, update norm)."""
+        return adam_update(self.params, grads, state, self.learning_rate)
 
     def _run(
         self, opt_state: AdamState, epoch: int, data: Dict[str, torch.Tensor]
@@ -514,14 +537,7 @@ class MLPClassifier:
         bias. The draws come from a CPU generator of the seed's init stream,
         so every device starts from the same weights; the JAX package's
         weights have the same distribution, not the same values."""
-        module = MLP(n_features, self.hidden)
-        gen = _generator(self.seed, _INIT_STREAM)
-        with torch.no_grad():
-            for layer in module.layers():
-                std = layer.in_features ** -0.5 / _TRUNCATED_STD
-                nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
-                layer.bias.zero_()
-        return module.to(self.device)
+        return init_mlp(n_features, self.hidden, _generator(self.seed, _INIT_STREAM)).to(self.device)
 
     def _check_init_params(self, init_params: MLP, n_features: int) -> MLP:
         """A validated copy of a warm-start ``MLP`` on the device: the

@@ -24,6 +24,13 @@ JAX package runs one ``lax.while_loop``): Picard tests the signed
 ``max(new - old) > eps``, the accelerated variants ``max|f - x|``, the
 fleet loop ``any(~done)``, all in f32 as the JAX loop compares them, so
 iteration counts and certificates mean what they mean there.
+
+The counts and the matrix-free solve also run on a game shard of a
+larger batch (the JAX package's ``axis_name``): with ``group=`` (a
+``torch.distributed`` process group) every count and every sweep's payoff
+is summed over the group's ranks before it is used. Every rank then holds
+the same bits after each sum, so every rank's host loop reads the same
+residual and leaves at the same sweep; the ranks stay in step.
 """
 
 from __future__ import annotations
@@ -493,6 +500,16 @@ def _certificate(
     )
 
 
+def _reducer(group: Any) -> Callable[..., Tuple[torch.Tensor, ...]]:
+    """``psum`` over a process group: its tensors summed over the group's
+    ranks in one collective (returned as they are for ``group=None``)."""
+    if group is None:
+        return lambda *ts: ts
+    from ..parallel.collectives import all_reduce_sum
+
+    return lambda *ts: tuple(all_reduce_sum(ts, group))
+
+
 def _check_groups(group_id: Optional[torch.Tensor], n_groups: Optional[int]) -> None:
     if (group_id is None) != (n_groups is None):
         raise ValueError('group_id and n_groups must be passed together')
@@ -511,6 +528,7 @@ def xt_counts(
     w: int,
     group_id: Optional[torch.Tensor] = None,
     n_groups: Optional[int] = None,
+    group: Any = None,
 ) -> XTCounts:
     """All xT count matrices in one pass over a flat action stream.
 
@@ -521,8 +539,11 @@ def xt_counts(
     ``(G, w*l, w*l)`` transition stack, each from one segment sum over
     ``group * w*l + cell``. Out-of-range group ids (``-1``) add nothing.
     Every count is one :func:`~.segment.segment_sum` (kernel B2 on the card).
+    With ``group`` (a process group whose ranks each hold a game shard)
+    the four counts are summed over its ranks in one all-reduce.
     """
     _check_groups(group_id, n_groups)
+    reduce = _reducer(group)
     s = _action_stream(type_id, result_id, start_x, start_y, end_x, end_y, mask, l, w)
     n_cells = w * l
     f32 = torch.float32
@@ -536,13 +557,13 @@ def xt_counts(
         trans = segment_sum_2d(
             s.is_success_move.to(f32), g, pair, n_groups, n_cells * n_cells
         ).reshape(n_groups, n_cells, n_cells)
-        return XTCounts(shots=shots, goals=goals, moves=moves, trans=trans)
+        return XTCounts(*reduce(shots, goals, moves, trans))
 
     shots = segment_sum(s.is_shot.to(f32), s.start_flat, n_cells)
     goals = segment_sum(s.is_goal.to(f32), s.start_flat, n_cells)
     moves = segment_sum(s.is_move.to(f32), s.start_flat, n_cells)
     trans = segment_sum(s.is_success_move.to(f32), pair, n_cells * n_cells)
-    return XTCounts(shots=shots, goals=goals, moves=moves, trans=trans.reshape(n_cells, n_cells))
+    return XTCounts(*reduce(shots, goals, moves, trans.reshape(n_cells, n_cells)))
 
 
 class XTProbabilities(NamedTuple):
@@ -656,6 +677,7 @@ def solve_xt_matrix_free(
     accelerate: bool = False,
     group_id: Optional[torch.Tensor] = None,
     n_groups: Optional[int] = None,
+    group: Any = None,
 ) -> Tuple[XTSolution, XTProbabilities]:
     """Value iteration without materializing the transition matrix.
 
@@ -672,10 +694,17 @@ def solve_xt_matrix_free(
     its own group's surface, each sweep is one ``G·w·l``-segment sum, and
     the ``(G, w, l)`` grids are solved in one loop with per-grid masking.
 
+    With ``group`` (a process group whose ranks each hold a game shard of
+    the batch) the counts and every sweep's payoff are summed over its
+    ranks, so every rank iterates the surface of the whole batch and stops
+    at the same sweep: one all-reduce for the counts and one a sweep,
+    each after the rank's own segment sums.
+
     Returns ``(XTSolution, XTProbabilities)`` with ``transition=None``.
     """
     solver = _resolve_solver(solver, accelerate)
     _check_groups(group_id, n_groups)
+    reduce = _reducer(group)
     s = _action_stream(type_id, result_id, start_x, start_y, end_x, end_y, mask, l, w)
     n_cells = w * l
     f32 = torch.float32
@@ -686,9 +715,11 @@ def solve_xt_matrix_free(
         g_ok = (g >= 0) & (g < G)
         g_safe = g.clamp(0, G - 1)
 
-        shots = segment_sum_2d(s.is_shot.to(f32), g, s.start_flat, G, n_cells)
-        goals = segment_sum_2d(s.is_goal.to(f32), g, s.start_flat, G, n_cells)
-        moves = segment_sum_2d(s.is_move.to(f32), g, s.start_flat, G, n_cells)
+        shots, goals, moves = reduce(
+            segment_sum_2d(s.is_shot.to(f32), g, s.start_flat, G, n_cells),
+            segment_sum_2d(s.is_goal.to(f32), g, s.start_flat, G, n_cells),
+            segment_sum_2d(s.is_move.to(f32), g, s.start_flat, G, n_cells),
+        )
         p_score, p_shot, p_move = _cell_probabilities(shots, goals, moves, l, w)
 
         # per-action weight against the action's own group's start counts
@@ -705,16 +736,18 @@ def solve_xt_matrix_free(
 
         def sweep(xT: torch.Tensor) -> torch.Tensor:
             contrib = xT.reshape(-1)[end_idx] * wgt
-            payoff = segment_sum(contrib, seg, G * n_cells)
+            (payoff,) = reduce(segment_sum(contrib, seg, G * n_cells))
             return gs + p_move * payoff.reshape(G, w, l)
 
         xT, it, resid = _batched_value_iteration(sweep, gs, eps, max_iter, solver)
         sol = XTSolution(xT, resid, it, resid <= _f32(eps))
         return sol, XTProbabilities(p_score, p_shot, p_move, None)
 
-    shots = segment_sum(s.is_shot.to(f32), s.start_flat, n_cells)
-    goals = segment_sum(s.is_goal.to(f32), s.start_flat, n_cells)
-    moves = segment_sum(s.is_move.to(f32), s.start_flat, n_cells)
+    shots, goals, moves = reduce(
+        segment_sum(s.is_shot.to(f32), s.start_flat, n_cells),
+        segment_sum(s.is_goal.to(f32), s.start_flat, n_cells),
+        segment_sum(s.is_move.to(f32), s.start_flat, n_cells),
+    )
     p_score, p_shot, p_move = _cell_probabilities(shots, goals, moves, l, w)
 
     # 1/starts[start cell] for successful moves: every successful move is
@@ -726,7 +759,7 @@ def solve_xt_matrix_free(
 
     def sweep(xT: torch.Tensor) -> torch.Tensor:
         contrib = xT.reshape(-1)[end_idx] * wgt
-        payoff = segment_sum(contrib, s.start_flat, n_cells)
+        (payoff,) = reduce(segment_sum(contrib, s.start_flat, n_cells))
         return gs + p_move * payoff.reshape(w, l)
 
     xT, it, resid = _SINGLE_GRID_LOOPS[solver](sweep, gs, eps, max_iter)

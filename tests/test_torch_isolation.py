@@ -9,7 +9,8 @@
   machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
   feed, counterfactual, telemetry, rating-path and learning-loop phases
   also run so, at a tiny size on the CPU, with a checkpoint published and
-  loaded back through the model registry.
+  loaded back through the model registry; so does its scale-out phase, in
+  a process of its own.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -76,6 +77,8 @@ def test_the_scan_sees_the_port():
         'learn/__init__.py', 'learn/calibration.py', 'learn/drift.py', 'learn/gate.py',
         'learn/shadow.py', 'learn/ingest.py', 'learn/loop.py', 'resil/journal.py',
         'serve/__init__.py', 'serve/capture.py', 'serve/registry.py', 'convert.py',
+        'parallel/__init__.py', 'parallel/collectives.py', 'parallel/mesh.py', 'parallel/xt.py',
+        'parallel/vaep.py', 'parallel/sequence.py', 'parallel/serve.py', 'utils/env.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -93,7 +96,7 @@ def test_exact_match_is_not_a_prefix_match(tmp_path):
     assert set(_imported_top_levels(f)) & BANNED == {'socceraction_tpu'}
 
 
-_BLOCKER = '''
+_BLOCK = '''
 import importlib.abc, sys
 # torch's compiler stack, which torch.profiler loads, probes optional
 # packages with importlib.util.find_spec: on the card's machine they are
@@ -109,6 +112,9 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
+'''
+
+_BLOCKER = _BLOCK + '''
 import chip_smoke
 import socceraction_tpu_torch.vaep.base, socceraction_tpu_torch.convert
 import socceraction_tpu_torch.ops.cuda_build
@@ -185,6 +191,30 @@ def test_chip_smoke_path_imports_with_blocked_packages(tmp_path):
     proc = subprocess.run(
         [sys.executable, '-c', _BLOCKER, str(ROOT)],
         capture_output=True, text=True, timeout=120, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'isolated' in proc.stdout
+
+
+#: The smoke's scale-out phase at a tiny size on the CPU: one gloo rank in
+#: the blocked process, then two ranks it spawns (fresh interpreters).
+_SCALE_BLOCKER = _BLOCK + """
+import torch
+import chip_smoke
+import socceraction_tpu_torch.parallel, socceraction_tpu_torch.utils.env
+chip_smoke.scale_phase(torch.device('cpu'), sizes=chip_smoke.ScaleSizes(
+    xt_games=4, games=2, actions=256, hidden=(8, 8)), rank_timeout_s=120.0)
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print('isolated')
+"""
+
+
+def test_chip_smoke_scale_phase_runs_with_blocked_packages(tmp_path):
+    # its ranks are held to 120 s; the process around them gets more
+    proc = subprocess.run(
+        [sys.executable, '-c', _SCALE_BLOCKER, str(ROOT)],
+        capture_output=True, text=True, timeout=240, cwd=tmp_path,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'isolated' in proc.stdout
