@@ -112,7 +112,23 @@ exits non-zero:
    each promoted version read back from disk by a fresh ``ModelRegistry``
    (no ``msgpack``), its claimed bytes beside the allocator's delta,
    rating the phase-4 batch bitwise as its in-memory candidate; B1 at the
-   loop's training shape against its plain version.
+   loop's training shape against its plain version;
+14. the scale-out layer: (a) one NCCL rank in this process against the
+   single-device paths, (b) two gloo ranks spawned on the same card
+   (``--scale-rank``) against (a), with B1 and B2's launches per path;
+15. the cross-process telemetry plane: phase 4's model saved through the
+   checkpoint codec, four replica processes spawned on the same card
+   (``--fleet-replica``), each loading it and the built kernels, rating
+   its own seeded 512 x 1664 batch (replica 0 phase 4's, bitwise) once
+   to warm up and then 8 requests concurrently with the others through
+   B1, scoring each in an SLO engine, probing one for parity and serving
+   its telemetry endpoint on a unix socket; replica 0 serves one request
+   under a context this process minted, both writing run logs. A
+   ``FleetAggregator`` here scrapes all four: the merged rated actions,
+   ``rate_batch`` calls and SLO events equal the replicas' own counts
+   exactly, with a divergence row per replica; after a SIGKILL of the
+   last replica, exactly it is stale, the status degraded and the sums
+   unchanged; the two run logs hold one request id one hop apart.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -132,6 +148,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tarfile
@@ -173,6 +190,23 @@ from socceraction_tpu_torch.obs import (
     span,
 )
 from socceraction_tpu_torch.obs.coldstart import TIMELINE
+from socceraction_tpu_torch.obs.context import (
+    RequestContext,
+    new_request_context,
+    record_request_done,
+    record_request_enqueue,
+    record_segment,
+)
+from socceraction_tpu_torch.obs.endpoint import (
+    EndpointError,
+    Telemetry,
+    fetch,
+    scrape_health,
+    serve_telemetry,
+)
+from socceraction_tpu_torch.obs.fleet import FleetAggregator
+from socceraction_tpu_torch.obs.metrics import MetricRegistry
+from socceraction_tpu_torch.obs.slo import SLOConfig, SLOEngine
 from socceraction_tpu_torch.obs.perf import DEVICE_PEAKS
 from socceraction_tpu_torch.ops.fused import train_layout
 from socceraction_tpu_torch.pipeline.feed import iter_batches
@@ -207,7 +241,7 @@ from socceraction_tpu_torch.learn import (
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.serve import ModelRegistry
-from socceraction_tpu_torch.vaep.base import VAEP, split_rows
+from socceraction_tpu_torch.vaep.base import VAEP, load_model, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 from socceraction_tpu_torch import parallel as scale
 from socceraction_tpu_torch.parallel import vaep as scale_vaep
@@ -618,7 +652,8 @@ def serving_phase(model: VAEP, batch: Any, card: str, label: str) -> Dict[str, A
     )
     for row in prof['top']:
         print(f'  profile: {json.dumps(row)}')
-    return {'launches': launches, 'main_b1': main_b1, 'actions_per_s': n_actions / median}
+    return {'launches': launches, 'main_b1': main_b1, 'actions_per_s': n_actions / median,
+            'median_s': median}
 
 
 def on_device(evt: Any) -> bool:
@@ -3037,11 +3072,410 @@ def scale_paths(launches: Dict[str, Any], kernel: str) -> Dict[str, int]:
     return out
 
 
+# -- the cross-process telemetry plane (phase 15) --------------------------------------
+
+#: Where phase 15 writes the model, phase 4's values, the replicas' sockets,
+#: run logs and reports (git-ignored, removed at the end). The sockets are
+#: bound by this relative path: an AF_UNIX path holds at most 107 bytes,
+#: and a checkout's absolute path has no such limit.
+FLEET_DIR = os.path.join('build', 'fleet')
+#: Seconds the replica processes may take from their spawn to serving
+#: their endpoints; every replica is killed when one fails or this passes.
+FLEET_TIMEOUT_S = 240.0
+#: The latency objective each replica scores its requests against and the
+#: aggregator evaluates mesh-wide. A request of 512 whole games takes tens
+#: of milliseconds on a shared card: only a fault, not contention, should
+#: read as a bad event, since the phase holds the event counts exactly.
+FLEET_LATENCY_MS = 1000.0
+#: The aggregator's divergence threshold. Each replica's parity error is a
+#: few f32 ulps of the values, so two replicas can sit 2 to 4 times apart
+#: by rounding alone; a replica degraded by a fault sits orders away.
+FLEET_SICK_FACTOR = 50.0
+
+
+class FleetSizes(NamedTuple):
+    """Phase 15's shapes: replica processes, each one's batch and requests."""
+
+    replicas: int = 4
+    games: int = GAMES
+    actions: int = ACTIONS
+    requests: int = 8
+
+
+def fleet_slo() -> SLOConfig:
+    return SLOConfig.simple(latency_ms=FLEET_LATENCY_MS)
+
+
+def rate_request(
+    model: VAEP, batch: Any, ctx: RequestContext, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """One rating request under ``ctx``: ``rate_batch`` inside a
+    ``serve/flush`` span that lists the request, synchronized, then the
+    values copied to the host; the request's enqueue, its four segments
+    (queue wait since ``ctx`` arrived, the gap to the dispatch, the
+    synced ``rate_batch``, the copy back) and its end go to the run log.
+    Returns the values on ``device`` and on the host, and the wall."""
+    record_request_enqueue(ctx, queue_depth=0)
+    t_flush = time.perf_counter()
+    with span('serve/flush', bucket=batch.n_games, request_ids=[ctx.request_id]) as flush:
+        t_dispatch = time.perf_counter()
+        values = model.rate_batch(batch)
+        sync(device)
+        t_slice = time.perf_counter()
+        host = values.cpu()
+        t_done = time.perf_counter()
+    segments = {
+        'queue_wait': t_flush - ctx.enqueue_t,
+        'pad': t_dispatch - t_flush,
+        'dispatch': t_slice - t_dispatch,
+        'slice': t_done - t_slice,
+    }
+    for name, seconds in segments.items():
+        ctx.segments[name] = seconds
+        record_segment(name, seconds, request_id=ctx.request_id)
+    wall = t_done - ctx.enqueue_t
+    record_request_done(ctx, 'ok', wall, bucket=batch.n_games, coalesced=1,
+                        flush_span_id=flush.span_id)
+    return values, host, wall
+
+
+def wait_for(paths: List[str], deadline: float, what: str) -> None:
+    """Poll until every path exists; raise once ``deadline`` (monotonic) passes."""
+    while not all(os.path.exists(p) for p in paths):
+        if time.monotonic() > deadline:
+            missing = [p for p in paths if not os.path.exists(p)]
+            raise RuntimeError(f'timed out waiting for {what}: {missing}')
+        time.sleep(0.005)
+
+
+def write_json(path: str, obj: Any) -> None:
+    """``obj`` as JSON at ``path``, whole or not at all (a reader polls for it)."""
+    with open(path + '.tmp', 'w', encoding='utf-8') as fh:
+        json.dump(obj, fh)
+    os.replace(path + '.tmp', path)
+
+
+def fleet_replica(fleet_dir: str, index: int, device_type: str) -> None:
+    """One of phase 15's replica processes, spawned by :func:`fleet_phase`.
+
+    Loads the parent's model through the checkpoint codec (and, on the
+    card, the parent's built kernels: no ``nvcc``), draws its batch from
+    its seed, rates one warm-up call, waits for every replica to be warm,
+    then rates its requests through :func:`rate_request` under a run log
+    (replica 0's first request under the parent's context), each scored by
+    an :class:`SLOEngine`, the last one probed by a :class:`ParityProbe`.
+    Replica 0 holds every request's values bitwise to phase 4's. It writes
+    its report, then serves its telemetry endpoint until its standard
+    input closes.
+    """
+    # with no card this raises: a replica never rates on the CPU in its place
+    device = resolve_device(device_type)
+    if device.type == 'cuda':
+        set_precision()
+        cuda_build.load_libraries(KERNELS)
+    with open(os.path.join(fleet_dir, 'spec.json'), encoding='utf-8') as fh:
+        spec = json.load(fh)
+    replica = f'replica-{index}'
+    deadline = time.monotonic() + spec['timeout_s']
+    model = load_model(spec['model'], device=device)
+    batch = synthetic_batch(spec['games'], spec['actions'], seed=spec['seeds'][index], device=device)
+    want = torch.load(spec['values'], weights_only=True) if index == 0 else None
+    slo = SLOEngine(fleet_slo())
+    probe = ParityProbe(sample_rate=1.0, max_abs_err=1e-5, queue_size=1)
+    n_requests = spec['requests']
+    gm.fused_first_layer_quant.launches = 0
+    walls, dispatch, bitwise = [], [], []
+    with RunLog(os.path.join(fleet_dir, replica, 'obs.jsonl'), config={'phase': 15, 'replica': replica}):
+        model.rate_batch(batch)
+        sync(device)
+        first_rated_unix = time.time()
+        # the requests overlap only once every replica is warm
+        write_json(os.path.join(fleet_dir, f'warm-{index}'), {})
+        wait_for([os.path.join(fleet_dir, f'warm-{i}') for i in range(spec['replicas'])],
+                 deadline, 'every replica to be warm')
+        for k in range(n_requests):
+            ctx = (RequestContext.from_wire(spec['headers']) if index == 0 and k == 0
+                   else new_request_context('rate'))
+            values, host, wall = rate_request(model, batch, ctx, device)
+            slo.observe_request('rate', wall, 'ok')
+            walls.append(wall)
+            dispatch.append(ctx.segments['dispatch'])
+            if want is not None:
+                bitwise.append(torch.equal(host, want))
+            if k == n_requests - 1:
+                probe.submit_flush(model, batch, None, values, exemplar=ctx.request_id)
+        if not probe.flush(timeout=300):
+            raise RuntimeError(f'{replica}: the parity probe did not finish')
+        probe.close()
+    launches = gm.fused_first_layer_quant.launches
+    parity = probe.stats()
+    if not (parity['probes'] == 1 and parity['max_abs_err'] <= 1e-5):
+        raise RuntimeError(f'{replica}: parity probe {parity}')
+    if want is not None and not all(bitwise):
+        raise RuntimeError(f'{replica}: values differ from phase 4 (bitwise per request: {bitwise})')
+    report = {
+        'replica': replica,
+        'calls': n_requests + 1,
+        'rated_actions': (n_requests + 1) * batch.total_actions,
+        'requests': n_requests,
+        'first_rated_unix': first_rated_unix,
+        'request_walls_s': walls,
+        'median_rate_batch_s': float(np.median(dispatch)),
+        'launches': launches,
+        'parity_max_abs_err': parity['max_abs_err'],
+        # replica 0 only: its batch is phase 4's
+        'bitwise_phase4': all(bitwise) if want is not None else None,
+        'memory_allocated': torch.cuda.memory_allocated(device) if device.type == 'cuda' else None,
+        'max_memory_allocated': torch.cuda.max_memory_allocated(device) if device.type == 'cuda' else None,
+    }
+    # the report is in place before the endpoint answers: the parent reads
+    # it once /health answers
+    write_json(os.path.join(fleet_dir, f'{replica}.json'), report)
+    print(f'fleet {replica}: {json.dumps(report)}', flush=True)
+    with serve_telemetry(telemetry=Telemetry(replica=replica, extra={'device': str(device)}),
+                         unix_path=spec['sockets'][index]):
+        sys.stdin.read()
+
+
+def fleet_tail(path: str, n: int = 3000) -> str:
+    with open(path, encoding='utf-8', errors='replace') as fh:
+        return fh.read()[-n:]
+
+
+def series_total(metrics: Dict[str, Any], name: str, **labels: str) -> float:
+    """The sum of ``total`` over a snapshot dict's series of ``name``
+    whose labels include ``labels``."""
+    return sum(
+        float(s.get('total') or 0.0)
+        for s in (metrics.get(name) or {}).get('series', ())
+        if all((s.get('labels') or {}).get(k) == v for k, v in labels.items())
+    )
+
+
+def series_count(metrics: Dict[str, Any], name: str) -> int:
+    return sum(int(s.get('count') or 0) for s in (metrics.get(name) or {}).get('series', ()))
+
+
+def request_events(path: str, request_id: str) -> List[Dict[str, Any]]:
+    """The run log's events of one request: its enqueue and done, and the
+    ``serve/flush`` span that lists it."""
+    out = []
+    with open(path, encoding='utf-8') as fh:
+        for line in fh:
+            event = json.loads(line)
+            if event.get('request_id') == request_id or (
+                event.get('event') == 'span_close' and event.get('name') == 'serve/flush'
+                and request_id in (event.get('attrs') or {}).get('request_ids', ())
+            ):
+                out.append(event)
+    return out
+
+
+def check_fleet_merge(
+    snap: Any, docs: Dict[str, Dict[str, Any]], reports: Dict[str, Dict[str, Any]], sizes: FleetSizes,
+) -> Dict[str, Any]:
+    """The merged counters against the replicas' own documents and reports,
+    exactly: rated actions, ``rate_batch`` calls (the warm-ups included)
+    and the SLO's events of each objective. Raises on any difference."""
+    merged = snap.metrics
+    rated = series_total(merged, 'vaep/rated_actions')
+    per_doc = sum(series_total(d['metrics'], 'vaep/rated_actions') for d in docs.values())
+    reported = sum(r['rated_actions'] for r in reports.values())
+    if not rated == per_doc == reported:
+        raise RuntimeError(f'merged vaep/rated_actions {rated}, documents {per_doc}, reported {reported}')
+    calls = series_count(merged, 'vaep/rate_batch_seconds')
+    want_calls = sizes.replicas * (sizes.requests + 1)
+    if not calls == want_calls == sum(r['calls'] for r in reports.values()):
+        raise RuntimeError(f'merged vaep/rate_batch_seconds count {calls}, want {want_calls}')
+    events = {}
+    for objective in (o.name for o in fleet_slo().objectives):
+        got = series_total(merged, 'slo/events', objective=objective)
+        own = sum(series_total(d['metrics'], 'slo/events', objective=objective) for d in docs.values())
+        if not got == own == sizes.replicas * sizes.requests:
+            raise RuntimeError(f'merged slo/events{{objective={objective}}} {got}, replicas {own}')
+        events[objective] = got
+    return {'rated_actions': rated, 'rate_batch_calls': calls, 'slo_events': events}
+
+
+def fleet_phase(
+    model: VAEP, values: torch.Tensor, device: torch.device, card: str = 'CPU',
+    sizes: FleetSizes = FleetSizes(), phase4_median_s: Optional[float] = None,
+    timeout_s: float = FLEET_TIMEOUT_S,
+) -> Dict[str, int]:
+    """Phase 15: ``sizes.replicas`` replica processes share ``device``, each
+    rating its own batch and serving its telemetry endpoint; one
+    :class:`FleetAggregator` here scrapes and merges them.
+
+    The parent saves ``model`` through the checkpoint codec and ``values``
+    (phase 4's, on the seed-0 batch) for the replicas, mints a request
+    context that replica 0 serves one hop away, and spawns the replicas
+    (fresh interpreters: this process holds the card). It waits for every
+    endpoint to answer ``/health``, then holds the merge to the replicas'
+    own counts (:func:`check_fleet_merge`), the SLO mesh-wide, a divergence
+    row per replica and signal, and the two run logs to one request id one
+    hop apart; then it SIGKILLs the last replica and holds the next pass
+    to exactly that replica stale, the status degraded and the sums
+    unchanged. Returns each replica's B1 launches."""
+    label = f'fleet ({sizes.replicas} replica processes on {device}, {card})'
+    fleet_dir = os.path.abspath(FLEET_DIR)
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR, mode=0o700)
+    ids = [f'replica-{i}' for i in range(sizes.replicas)]
+    sockets = [os.path.join(FLEET_DIR, f'{rid}.sock') for rid in ids]
+    addresses = dict(zip(ids, sockets))
+    model.save_model(os.path.join(fleet_dir, 'model'))
+    torch.save(values.cpu(), os.path.join(fleet_dir, 'phase4_values.pt'))
+    t_phase = time.perf_counter()
+    procs: Dict[str, subprocess.Popen] = {}
+    logs = {rid: os.path.join(fleet_dir, f'{rid}.log') for rid in ids}
+    try:
+        with RunLog(os.path.join(fleet_dir, 'front', 'obs.jsonl'), config={'phase': 15, 'role': 'front'}):
+            ctx = new_request_context('rate')
+            record_request_enqueue(ctx, queue_depth=0)
+            write_json(os.path.join(fleet_dir, 'spec.json'), {
+                'model': os.path.join(fleet_dir, 'model'),
+                'values': os.path.join(fleet_dir, 'phase4_values.pt'),
+                # replica 0 draws phase 4's batch
+                'seeds': list(range(sizes.replicas)),
+                'games': sizes.games, 'actions': sizes.actions,
+                'requests': sizes.requests, 'replicas': sizes.replicas,
+                'sockets': sockets, 'headers': ctx.to_wire(), 'timeout_s': timeout_s,
+            })
+            env = dict(os.environ)
+            if device.type == 'cpu':
+                env['OMP_NUM_THREADS'] = '1'  # CPU replicas share the host's cores
+            spawned = {}
+            for i, rid in enumerate(ids):
+                with open(logs[rid], 'w') as log:
+                    spawned[rid] = time.time()
+                    procs[rid] = subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), '--fleet-replica', fleet_dir,
+                         str(i), device.type],
+                        stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT, env=env,
+                    )
+            # ready: each endpoint answers /health, within the group's limit
+            deadline = time.monotonic() + timeout_s
+            pending = set(ids)
+            while pending:
+                for rid in sorted(pending):
+                    if procs[rid].poll() is not None:
+                        raise RuntimeError(
+                            f'{label}: {rid} exited {procs[rid].returncode}:\n{fleet_tail(logs[rid])}')
+                    try:
+                        health = scrape_health(addresses[rid], timeout=1.0)
+                    except EndpointError:
+                        continue
+                    if health.get('replica') != rid:
+                        raise RuntimeError(f'{label}: {rid} answered as {health}')
+                    pending.discard(rid)
+                if pending and time.monotonic() > deadline:
+                    raise RuntimeError(f'{label}: no /health from {sorted(pending)} in {timeout_s} s')
+                time.sleep(0.02)
+            ready_s = time.perf_counter() - t_phase
+            reports = {}
+            for rid in ids:
+                with open(os.path.join(fleet_dir, f'{rid}.json'), encoding='utf-8') as fh:
+                    reports[rid] = json.load(fh)
+            record_request_done(ctx, 'ok', time.perf_counter() - ctx.enqueue_t)
+
+        aggregator = FleetAggregator(
+            addresses, stale_after_s=timeout_s, sick_factor=FLEET_SICK_FACTOR,
+            slo=fleet_slo(), registry=MetricRegistry(),
+        )
+        t0 = time.perf_counter()
+        outcomes = aggregator.scrape()
+        scrape_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = aggregator.aggregate()
+        aggregate_s = time.perf_counter() - t0
+        if not all(outcomes.values()) or snap.status != 'ok' or snap.stale_replicas:
+            raise RuntimeError(f'{label}: scrape {outcomes}, status {snap.status}, stale '
+                               f'{snap.stale_replicas}, divergence {snap.divergence}')
+        docs = {rid: aggregator.last_wire(rid) for rid in ids}
+        merge = check_fleet_merge(snap, docs, reports, sizes)
+        rows = {(r['replica'], r['signal']) for r in snap.divergence}
+        want_rows = {(rid, s) for rid in ids for s in ('parity_max_abs_err', 'error_rate')}
+        if not want_rows <= rows:
+            raise RuntimeError(f'{label}: divergence rows {sorted(rows)}')
+        if snap.slo is None or any(o.get('breaching') for o in snap.slo['objectives'].values()):
+            raise RuntimeError(f'{label}: mesh-wide SLO {snap.slo}')
+        t0 = time.perf_counter()
+        doc_bytes = len(fetch(sockets[0], '/snapshot'))
+        doc_s = time.perf_counter() - t0
+
+        # one hop: the parent's enqueue and done, replica 0's under the same id
+        front = request_events(os.path.join(fleet_dir, 'front', 'obs.jsonl'), ctx.request_id)
+        hop = request_events(os.path.join(fleet_dir, ids[0], 'obs.jsonl'), ctx.request_id)
+        if (sorted(e['event'] for e in front) != ['request_done', 'request_enqueue']
+                or any(e.get('hop') for e in front)):
+            raise RuntimeError(f'{label}: the front run log holds {front}')
+        if (sorted(e['event'] for e in hop) != ['request_done', 'request_enqueue', 'span_close']
+                or any(e.get('hop') != 1 for e in hop if e['event'] != 'span_close')
+                or set(next(e for e in hop if e['event'] == 'request_done')['segments'])
+                != {'queue_wait', 'pad', 'dispatch', 'slice'}):
+            raise RuntimeError(f'{label}: replica 0 run log holds {hop}')
+
+        # SIGKILL the last replica: loud staleness, its counters kept
+        victim = ids[-1]
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=30)
+        outcomes = aggregator.scrape()
+        after = aggregator.aggregate()
+        if outcomes[victim] or after.stale_replicas != (victim,) or after.status != 'degraded':
+            raise RuntimeError(f'{label}: after the kill: scrape {outcomes}, stale '
+                               f'{after.stale_replicas}, status {after.status}')
+        if check_fleet_merge(after, docs, reports, sizes) != merge:
+            raise RuntimeError(f'{label}: the merged sums moved after {victim} died')
+    finally:
+        # a replica serves until its standard input closes
+        for proc in procs.values():
+            proc.stdin.close()
+        for rid, proc in procs.items():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    for rid, proc in procs.items():
+        if rid != victim and proc.returncode != 0:
+            raise RuntimeError(f'{label}: {rid} exited {proc.returncode}:\n{fleet_tail(logs[rid])}')
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+
+    launches = {}
+    for rid in ids:
+        rep = reports[rid]
+        want = kernel_launches(sizes.requests + 1, device)
+        if rep['launches'] != want:
+            raise RuntimeError(f"{label}: {rid} launched gather_matmul {rep['launches']} times, not {want}")
+        launches[rid] = rep['launches']
+        line = {k: rep[k] for k in ('calls', 'rated_actions', 'median_rate_batch_s', 'launches',
+                                    'parity_max_abs_err', 'bitwise_phase4', 'memory_allocated',
+                                    'max_memory_allocated')}
+        line['start_to_first_rated_batch_s'] = rep['first_rated_unix'] - spawned[rid]
+        print(f'{label}: {rid}: {json.dumps(line)}')
+    print(f'{label}: rate_batch median while {sizes.replicas} share the device: '
+          f"{json.dumps({rid: reports[rid]['median_rate_batch_s'] for rid in ids})}; phase 4 alone: "
+          f'{phase4_median_s}')
+    print(f'{label}: merged, exact: {json.dumps(merge)}; divergence: '
+          f'{json.dumps(list(snap.divergence))}')
+    print(f'{label}: one scrape of {sizes.replicas} endpoints {scrape_s:.6f} s, aggregate '
+          f'{aggregate_s:.6f} s, one wire document {doc_s:.6f} s ({doc_bytes} bytes); after the '
+          f'SIGKILL of {victim}: stale {list(after.stale_replicas)}, status {after.status}; '
+          f'request {ctx.request_id} one hop; B1 launches {json.dumps(launches)}; ready in '
+          f'{ready_s:.1f} s, phase 15 in {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
         # one of phase 14 (b)'s ranks, spawned by scale_two_ranks
         out_dir, device_type, sizes = sys.argv[2:5]
         scale_rank(out_dir, device_type, ScaleSizes(**json.loads(sizes)))
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == '--fleet-replica':
+        # one of phase 15's replica processes, spawned by fleet_phase
+        fleet_dir, index, device_type = sys.argv[2:5]
+        fleet_replica(fleet_dir, int(index), device_type)
         return 0
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3081,6 +3515,8 @@ def main() -> int:
         model.rate_batch(batch).cpu()
     TIMELINE.mark('first_rated_action')
     serving = serving_phase(model, batch, card, 'main path')
+    # the values phase 15's replica 0 must reproduce bitwise
+    phase4_values = model.rate_batch(batch).cpu()
     del batch
     torch.cuda.empty_cache()
 
@@ -3202,7 +3638,6 @@ def main() -> int:
     t0 = time.perf_counter()
     telemetry = telemetry_phase(model, device, card)
     print(f'telemetry: phase 11 in {time.perf_counter() - t0:.1f} s')
-    del model
     torch.cuda.empty_cache()
 
     # -- phase 12, the rating dispatch and the gate's statistics -----------------------
@@ -3217,6 +3652,12 @@ def main() -> int:
 
     # -- phase 14, the scale-out layer ------------------------------------------------
     scale_launches = scale_phase(device, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 15, the cross-process telemetry plane ----------------------------------
+    fleet_launches = fleet_phase(model, phase4_values, device, card,
+                                 phase4_median_s=serving['median_s'])
+    del model
     torch.cuda.empty_cache()
 
     for rec in seg_checks:
@@ -3236,6 +3677,7 @@ def main() -> int:
         'phase 12 (path matrix, predict_proba_device_batch)': rating['launches']['gather_matmul'],
         'learning loop (phase 13, 3 iterations)': learn['launches']['gather_matmul'],
         **scale_paths(scale_launches, 'gather_matmul'),
+        **{f'phase15 {rid}': n for rid, n in fleet_launches.items()},
     }
     b2_paths = {
         'xT fits': seg_launches,

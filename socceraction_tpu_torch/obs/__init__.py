@@ -32,10 +32,18 @@ one dashboard and one run-log reader serve both):
 - :mod:`.residency` — named-owner byte claims, reconciled against the
   census by :func:`residency_report`.
 - :mod:`.coldstart` — the cold-start timeline.
+- :mod:`.wire`, :mod:`.endpoint`, :mod:`.fleet` — the cross-process
+  telemetry plane: the versioned snapshot document and its exact merge,
+  each replica's scrape surface on a unix socket, and the aggregator that
+  merges a fleet's documents, flags stale replicas and evaluates the SLO
+  mesh-wide. Their names load lazily, on first access, so importing this
+  package starts no HTTP machinery.
 
 Every module imports with the standard library and numpy alone; torch is
 touched only where a caller asks for device work.
 """
+
+from typing import Any
 
 from .coldstart import ColdstartTimeline, coldstart_report, process_start_unix
 from .context import DeadlineExceeded, RequestContext, new_request_context
@@ -72,6 +80,21 @@ from .recorder import RECORDER, FlightRecorder, default_debug_dir, dump_debug_bu
 from .residency import Claim, claim_bytes, owned_bytes, residency_report
 from .slo import SLOConfig, SLOEngine, SLOObjective
 from .trace import RunLog, Span, current_runlog, current_span, run_manifest, span
+
+#: The cross-process plane's names, by module, loaded by ``__getattr__``
+#: (the JAX package's lazy homes for them).
+_LAZY = {
+    'wire': (
+        'REPLICAS', 'ReplicaRegistry', 'WireError', 'decode_snapshot',
+        'encode_snapshot', 'merge_wires', 'typed_snapshot_from_dict',
+    ),
+    'endpoint': (
+        'Telemetry', 'TelemetryEndpoint', 'scrape', 'scrape_health',
+        'serve_telemetry',
+    ),
+    'fleet': ('FleetAggregator', 'FleetSnapshot'),
+}
+_LAZY_HOME = {name: module for module, names in _LAZY.items() for name in names}
 
 __all__ = [
     'NAME_RE',
@@ -132,4 +155,14 @@ __all__ = [
     'span',
     'timed_labels',
     'timer_report_compat',
+    *_LAZY_HOME,
 ]
+
+
+def __getattr__(name: str) -> Any:
+    module = _LAZY_HOME.get(name)
+    if module is None:
+        raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+    import importlib
+
+    return getattr(importlib.import_module(f'{__name__}.{module}'), name)

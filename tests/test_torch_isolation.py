@@ -9,8 +9,8 @@
   machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
   feed, counterfactual, telemetry, rating-path and learning-loop phases
   also run so, at a tiny size on the CPU, with a checkpoint published and
-  loaded back through the model registry; so does its scale-out phase, in
-  a process of its own.
+  loaded back through the model registry; so do its scale-out phase and
+  its telemetry-plane phase, each in a process of its own.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -79,6 +79,7 @@ def test_the_scan_sees_the_port():
         'serve/__init__.py', 'serve/capture.py', 'serve/registry.py', 'convert.py',
         'parallel/__init__.py', 'parallel/collectives.py', 'parallel/mesh.py', 'parallel/xt.py',
         'parallel/vaep.py', 'parallel/sequence.py', 'parallel/serve.py', 'utils/env.py',
+        'obs/wire.py', 'obs/endpoint.py', 'obs/fleet.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -218,6 +219,54 @@ def test_chip_smoke_scale_phase_runs_with_blocked_packages(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'isolated' in proc.stdout
+
+
+#: The smoke's telemetry-plane phase at a tiny size on the CPU: two replica
+#: processes it spawns (fresh interpreters) and the aggregator in the
+#: blocked process. One thread, so that replica 0 (one thread too)
+#: reproduces the values rated here bitwise.
+_FLEET_BLOCKER = _BLOCK + """
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+import socceraction_tpu_torch.obs.wire, socceraction_tpu_torch.obs.endpoint
+import socceraction_tpu_torch.obs.fleet
+sizes = chip_smoke.FleetSizes(replicas=2, games=2, actions=256, requests=2)
+model = chip_smoke.make_model('cpu', (8, 8))
+values = model.rate_batch(chip_smoke.synthetic_batch(2, 256, seed=0, device='cpu'))
+launches = chip_smoke.fleet_phase(model, values, torch.device('cpu'), sizes=sizes, timeout_s=90.0)
+assert launches == {'replica-0': 0, 'replica-1': 0}, launches
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print('isolated')
+"""
+
+
+def test_chip_smoke_fleet_phase_runs_with_blocked_packages(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, '-c', _FLEET_BLOCKER, str(ROOT)],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'isolated' in proc.stdout
+    assert 'stale [\'replica-1\'], status degraded' in proc.stdout
+    # the phase cleans up after itself
+    assert not (tmp_path / 'build' / 'fleet').exists()
+
+
+def test_fleet_replica_fails_without_a_gpu(tmp_path):
+    """A replica asked for the card with none present raises at the
+    device, before it reads its spec or rates: it never falls back."""
+    (tmp_path / 'spec.json').write_text('{}')
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / 'chip_smoke.py'), '--fleet-replica', str(tmp_path), '0', 'cuda'],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path, env=env,
+    )
+    assert proc.returncode != 0
+    assert 'no CUDA device is available; pass device="cpu"' in proc.stderr
+    assert 'fleet replica-0' not in proc.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == ['spec.json']
 
 
 @pytest.fixture
