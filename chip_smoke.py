@@ -128,7 +128,29 @@ exits non-zero:
    ``rate_batch`` calls and SLO events equal the replicas' own counts
    exactly, with a divergence row per replica; after a SIGKILL of the
    last replica, exactly it is stale, the status degraded and the sums
-   unchanged; the two run logs hold one request id one hop apart.
+   unchanged; the two run logs hold one request id one hop apart;
+16. in-process serving: a ``RatingService`` over phase 4's model at the
+   JAX service's default shape (window 1664, ladder 1 to 64, 2 ms wait,
+   queue 256), each request a one-game host staging batch built from
+   seeded arrays and submitted where ``rate`` arrives once it has packed
+   its frame (the card's machine has no pandas): (a) ``warmup()``, one B1
+   launch a rung; (b) 16 client threads x 32 requests of 1200 to 1664
+   actions, each within 1e-5 of its own one-game ``rate_batch_reference``
+   and ``rate_batch``, with requests/s, actions/s, the request-seconds
+   quantiles, flushes by reason, fill and buckets, B1 launches equal to
+   the fused flushes, no fallback flush and no new shape; one flush under
+   ``torch.profiler`` with no host read before its values' copy, and flush
+   walls against a bare ``rate_batch`` at the same bucket; (c) two
+   versions in a ``ModelRegistry`` under ``build/serve``, swapped while 4
+   clients submit 16 requests each (every request wholly one version's,
+   every request after the swap v2's) and rolled back; (d) a breaker drill
+   on an injected clock (``serve.dispatch`` faults on calls 1 and 2: two
+   flushes through the reference, one skipped while open, one half-open
+   probe through B1 that closes it); (e) B1's library load made to fail
+   as ``dlopen`` would (an ``OSError``), which B1's wrapper raises as a
+   ``KernelError``: the request fails, the breaker and the fallback count
+   do not move, and the next request is served through B1; (f)
+   ``close(drain=True)`` resolves the queue and refuses what comes after.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -153,6 +175,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -163,7 +186,7 @@ from socceraction_tpu_torch.atomic.spadl import config as atomicconfig
 from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
 from socceraction_tpu_torch.convert import mlp_from_jax_params
 from socceraction_tpu_torch.core.batch import ActionBatch, AtomicActionBatch
-from socceraction_tpu_torch.core.synthetic import synthetic_batch
+from socceraction_tpu_torch.core.synthetic import _draw_spadl_columns, synthetic_batch
 from socceraction_tpu_torch.device import DeviceLike, resolve_device
 from socceraction_tpu_torch.ml import mlp as mlp_mod
 from socceraction_tpu_torch.ops import cuda_build
@@ -240,7 +263,10 @@ from socceraction_tpu_torch.learn import (
 )
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
-from socceraction_tpu_torch.serve import ModelRegistry
+from socceraction_tpu_torch.resil import CircuitBreaker, FaultPlan, FaultSpec
+from socceraction_tpu_torch.serve import ModelRegistry, RatingService
+from socceraction_tpu_torch.serve import service as serve_service
+from socceraction_tpu_torch.serve.session import goalscore_block, score_prefix
 from socceraction_tpu_torch.vaep.base import VAEP, load_model, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
 from socceraction_tpu_torch import parallel as scale
@@ -532,7 +558,8 @@ def make_batch(model_cls: Any, n_games: int, n_actions: int, *, seed: int, devic
 
 
 def make_model(
-    device: DeviceLike = None, hidden: Tuple[int, ...] = HIDDEN, model_cls: Any = VAEP
+    device: DeviceLike = None, hidden: Tuple[int, ...] = HIDDEN, model_cls: Any = VAEP,
+    head_seed: int = 100,
 ) -> VAEP:
     """A ``model_cls`` (VAEP or AtomicVAEP) with two seeded random MLP
     heads, carried through the converter.
@@ -543,7 +570,8 @@ def make_model(
     biases sit at logit(0.01) (a goal within ten actions is a rare event),
     and the ``Dense_0`` row of a one-hot column is scaled by ``min(1, 2σ)``
     (a rarely active column gets few updates, so its weight on the raw
-    0/1 input stays small instead of growing as ``1/σ``).
+    0/1 input stays small instead of growing as ``1/σ``). ``head_seed``
+    seeds the scores head's weights (the concedes head's is one more).
     """
     names = model_cls._default_xfns
     sample = model_cls._compute_features_kernel(
@@ -561,7 +589,7 @@ def make_model(
     row_scale = np.where(onehot, np.minimum(1.0, 2.0 * std), 1.0)[:, None]
     heads = {}
     for seed, col in enumerate(('scores', 'concedes')):
-        rng = np.random.default_rng(100 + seed)
+        rng = np.random.default_rng(head_seed + seed)
         widths = (n_features, *hidden, 1)
         layers = {}
         for i in range(len(widths) - 1):
@@ -3466,6 +3494,499 @@ def fleet_phase(
     return launches
 
 
+# -- phase 16: in-process serving ----------------------------------------------------------
+
+SERVE_DIR = os.path.join('build', 'serve')
+#: The drill's injected clock: the breaker's dwell before its probe.
+SERVE_RECOVERY_S = 10.0
+#: Request values against each reference (one-game ``rate_batch`` and
+#: ``rate_batch_reference``), and the gap that tells two versions apart.
+SERVE_ATOL = 1e-5
+SERVE_APART = 1e-3
+
+
+class ServeSizes(NamedTuple):
+    """Phase 16's shapes: the JAX service's defaults (window, ladder top,
+    wait, queue), the traffic (clients x requests, each one game of
+    ``low`` to ``max_actions`` actions) and the swap's clients."""
+
+    max_actions: int = ACTIONS
+    max_batch_size: int = 64
+    max_wait_ms: float = 2.0
+    max_queue: int = 256
+    clients: int = 16
+    requests: int = 32
+    low: int = 1200
+    swap_clients: int = 4
+    swap_requests: int = 16
+    drain_requests: int = 5
+    hidden: Tuple[int, ...] = HIDDEN
+
+
+class ServeRequest(NamedTuple):
+    """One request built from arrays: its host staging batch (numpy
+    fields, as ``pack_actions(..., as_numpy=True)`` returns them), its
+    goalscore block and its action count."""
+
+    staging: ActionBatch
+    gs: np.ndarray
+    n: int
+
+
+def serve_request(rng: np.random.Generator, n: int, max_actions: int) -> ServeRequest:
+    """A one-game request of ``n`` actions drawn as ``synthetic_batch``
+    draws its columns, padded to ``max_actions`` as the packer pads, with
+    the whole-match goalscore block the service computes for a frame."""
+    cols = _draw_spadl_columns(rng, 1, n, np.float32, np.int32)
+    fields = {}
+    for name, a in cols.items():
+        full = np.zeros((1, max_actions), dtype=a.dtype)
+        full[:, :n] = a
+        fields[name] = full
+    valid = np.arange(max_actions)[None, :] < n
+    fields['mask'] = valid
+    fields['n_actions'] = np.array([n], dtype=np.int32)
+    fields['game_id'] = np.zeros(1, dtype=np.int32)
+    fields['row_index'] = np.where(valid, np.arange(max_actions, dtype=np.int32), -1).astype(np.int32)
+    is_home = cols['is_home'][0]
+    team, opp, _a, _b = score_prefix(
+        cols['type_id'][0].astype(np.int64), cols['result_id'][0].astype(np.int64),
+        is_home == bool(is_home[0]),
+    )
+    return ServeRequest(ActionBatch(**fields), goalscore_block(team, opp, max_actions), n)
+
+
+def submit_request(svc: RatingService, req: ServeRequest) -> Any:
+    """``req`` into the service where ``rate`` arrives once it has packed
+    its frame (``_submit``): admission, the batcher, coalescing, padding,
+    the breaker, B1, the guards and the slicing are the service's own."""
+    ctx = new_request_context('rate')
+    return svc._submit(serve_service._Payload(req.staging, req.gs, keep=(0, req.n), ctx=ctx),
+                       'rate', ctx)
+
+
+def request_references(model: VAEP, req: ServeRequest, device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
+    """``rate_batch_reference`` and ``rate_batch`` of the request's own
+    one-game batch on ``device`` (values of its ``n`` actions)."""
+    batch, overrides = serve_service._upload(req.staging, req.gs, device)
+    ref = model.rate_batch_reference(batch, dense_overrides=overrides)[0, : req.n].cpu().numpy()
+    fused = model.rate_batch(batch, dense_overrides=overrides)[0, : req.n].cpu().numpy()
+    return ref, fused
+
+
+def series_quantiles(name: str, **labels: str) -> Dict[str, Any]:
+    """The process registry's quantile estimates of one histogram series."""
+    s = REGISTRY.snapshot().series(name, **labels)
+    return dict(s.quantiles or {}) if s is not None else {}
+
+
+def serve_counts() -> Dict[str, float]:
+    snap = REGISTRY.snapshot()
+    out = {f'flushes_{r}': snap.value('serve/flushes', reason=r) for r in ('full', 'deadline', 'close')}
+    out['fallback_flushes'] = snap.value('serve/fallback_flushes')
+    out['swaps'] = snap.value('serve/model_swaps')
+    out['rollbacks'] = snap.value('serve/model_swaps', reason='rollback')
+    return out
+
+
+def segment_means(before: Any, after: Any) -> Dict[str, float]:
+    """Mean seconds of each ``serve/segment_seconds`` segment between two
+    registry snapshots: the queue wait a request, pad, dispatch (the copy
+    to the card, ``rate_batch`` and the values' copy back) and slice a
+    flush."""
+    out = {}
+    for seg_name in ('queue_wait', 'pad', 'dispatch', 'slice'):
+        a = after.series('serve/segment_seconds', segment=seg_name)
+        b = before.series('serve/segment_seconds', segment=seg_name)
+        n = (a.count if a else 0) - (b.count if b else 0)
+        if n:
+            out[seg_name] = ((a.total if a else 0.0) - (b.total if b else 0.0)) / n
+    return out
+
+
+def delta(after: Dict[str, float], before: Dict[str, float]) -> Dict[str, float]:
+    return {k: after[k] - before[k] for k in after}
+
+
+def count_takes(svc: RatingService) -> List[Tuple[int, int]]:
+    """Record ``(requests, bucket)`` of every flush the service's batcher
+    runs from now on; returns the list it appends to."""
+    takes: List[Tuple[int, int]] = []
+    real = svc._batcher._runner
+
+    def runner(payloads: List[Any], bucket: int, *, lane: int = 0) -> List[Any]:
+        takes.append((len(payloads), bucket))
+        return real(payloads, bucket, lane=lane)
+
+    svc._batcher._runner = runner
+    return takes
+
+
+def read_events(prof: Any) -> Dict[str, Any]:
+    """Host reads and stream waits in a profiled flush, each against the
+    start of the values' copy (the ``serve/values_copy`` range)."""
+    from torch.autograd import DeviceType
+
+    reads = ('aten::_local_scalar_dense', 'cudaStreamSynchronize', 'cudaDeviceSynchronize')
+    # the host's events: a range also shows on the card's timeline
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    copies = [e.time_range.start for e in events if e.name == 'serve/values_copy']
+    if len(copies) != 1:
+        raise RuntimeError(f'the profiled flush has {len(copies)} values copies')
+    found = [(e.name, e.time_range.start) for e in events if e.name in reads]
+    # the host's time in the flush's pinned copies of its fields, against
+    # the host's time in rate_batch's own ops (everything between the
+    # first field's upload and the values' copy that is not an upload)
+    pins = [e for e in events if e.name == 'aten::pin_memory']
+    pin_us = sum(e.time_range.end - e.time_range.start for e in pins)
+    return {'values_copies': 1,
+            'reads': {n: sum(1 for name, _ in found if name == n) for n in reads},
+            'before_copy': sorted({name for name, t in found if t < copies[0]}),
+            'pin_memory_calls': len(pins), 'pin_memory_host_ms': pin_us / 1e3}
+
+
+def serve_phase(
+    model: VAEP, device: torch.device, card: str = 'CPU', sizes: ServeSizes = ServeSizes(),
+    phase4_median_s: Optional[float] = None,
+) -> Dict[str, int]:
+    """Phase 16: ``RatingService`` over ``model`` at the JAX service's
+    default shape, through B1. Returns B1's launches by part.
+
+    The phase does not call ``rate(df)`` (the card's machine has no
+    pandas): each request's one-game host staging batch is built from
+    seeded arrays (:func:`serve_request`) and submitted where ``rate``
+    arrives once it has packed its frame (:func:`submit_request`);
+    everything after packing is the service's own code. (a) ``warmup()``
+    dispatches every rung of the ladder once (one B1 launch each); (b)
+    ``sizes.clients`` closed-loop client threads send ``sizes.requests``
+    requests each, every request held to its own one-game references;
+    one flush is profiled for host reads; flushes are timed against a
+    bare ``rate_batch`` at the same bucket; (c) two versions published in
+    a ``ModelRegistry`` under ``build/serve``, swapped while clients
+    submit, then rolled back; (d) a breaker drill on an injected clock
+    with ``serve.dispatch`` faults; (e) B1's library load made to fail,
+    which reaches the request as a ``KernelError``; (f)
+    ``close(drain=True)``.
+    """
+    label = f'serve ({device}, {card})'
+    A = sizes.max_actions
+    rng = np.random.default_rng(16)
+    shape = dict(max_actions=A, max_batch_size=sizes.max_batch_size,
+                 max_wait_ms=sizes.max_wait_ms, max_queue=sizes.max_queue)
+    launches: Dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    def b1() -> int:
+        return gm.fused_first_layer_quant.launches
+
+    # -- (a) warm-up: every rung once, past the breaker
+    svc = RatingService(model, **shape)
+    gm.fused_first_layer_quant.launches = 0
+    walls = []
+    for b in svc.ladder:
+        sync(device)
+        t0 = time.perf_counter()
+        svc.warmup((b,))
+        walls.append(time.perf_counter() - t0)
+    launches['warmup'] = b1()
+    warm_shapes = svc.compiled_shapes
+    if launches['warmup'] != kernel_launches(len(svc.ladder), device) or warm_shapes != len(svc.ladder):
+        raise RuntimeError(f"{label}: warm-up launched B1 {launches['warmup']} times over "
+                           f'{warm_shapes} shapes for the ladder {svc.ladder}')
+    print(f'{label}: (a) warmup {json.dumps({"ladder": list(svc.ladder), "wall_s": walls, "b1": launches["warmup"], "compiled_shapes": warm_shapes})}')
+
+    # -- (b) traffic: closed-loop clients, one game per request
+    n_total = sizes.clients * sizes.requests
+    reqs = [serve_request(rng, int(rng.integers(sizes.low, A + 1)), A) for _ in range(n_total)]
+    results: List[Any] = [None] * n_total
+    client_walls = [0.0] * n_total
+    errors: List[BaseException] = []
+
+    def client(c: int) -> None:
+        try:
+            for k in range(sizes.requests):
+                i = c * sizes.requests + k
+                t0 = time.perf_counter()
+                results[i] = submit_request(svc, reqs[i]).result(timeout=300)
+                client_walls[i] = time.perf_counter() - t0
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    before, takes, snap0 = serve_counts(), count_takes(svc), REGISTRY.snapshot()
+    gm.fused_first_layer_quant.launches = 0
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(sizes.clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches['traffic'] = b1()
+    counts = delta(serve_counts(), before)
+    segments = segment_means(snap0, REGISTRY.snapshot())
+    flushes = list(takes)
+    if errors:
+        raise RuntimeError(f'{label}: a client failed: {errors[0]!r}')
+    n_flushes = len(flushes)
+    n_actions = sum(r.n for r in reqs)
+    if launches['traffic'] != kernel_launches(n_flushes, device) or counts['fallback_flushes'] != 0:
+        raise RuntimeError(f"{label}: {launches['traffic']} B1 launches for {n_flushes} fused "
+                           f"flushes, {counts['fallback_flushes']} fallback flushes")
+    if svc.compiled_shapes != warm_shapes:
+        raise RuntimeError(f'{label}: traffic added shapes: {svc.compiled_shapes} after {warm_shapes}')
+    ref_gap = fused_gap = 0.0
+    for req, got in zip(reqs, results):
+        ref, fused = request_references(model, req, device)
+        if got.shape != (req.n, 3) or not np.isfinite(got).all():
+            raise RuntimeError(f'{label}: a request came back {got.shape}, finite {np.isfinite(got).all()}')
+        ref_gap = max(ref_gap, float(np.abs(got - ref).max()))
+        fused_gap = max(fused_gap, float(np.abs(got - fused).max()))
+    if not (ref_gap <= SERVE_ATOL and fused_gap <= SERVE_ATOL):
+        raise RuntimeError(f'{label}: requests {ref_gap} from rate_batch_reference, {fused_gap} '
+                           f'from rate_batch (limit {SERVE_ATOL})')
+    buckets: Dict[str, int] = {}
+    for _n, b in flushes:
+        buckets[str(b)] = buckets.get(str(b), 0) + 1
+    walls_sorted = np.sort(client_walls)
+    traffic = {
+        'requests': n_total, 'actions': n_actions, 'clients': sizes.clients, 'wall_s': wall,
+        'requests_per_s': n_total / wall, 'actions_per_s': n_actions / wall,
+        'request_seconds_quantiles': series_quantiles('serve/request_seconds', kind='rate'),
+        'client_wall_p50_s': float(np.percentile(walls_sorted, 50)),
+        'client_wall_p99_s': float(np.percentile(walls_sorted, 99)),
+        'flushes': n_flushes, 'flushes_by_reason': {k[8:]: v for k, v in counts.items() if k.startswith('flushes_')},
+        'mean_fill_ratio': float(np.mean([n / b for n, b in flushes])),
+        'mean_requests_per_flush': n_total / n_flushes, 'buckets': buckets,
+        'segment_mean_s': segments,
+        'b1_launches': launches['traffic'], 'fallback_flushes': counts['fallback_flushes'],
+        'compiled_shapes': svc.compiled_shapes,
+        'max_abs_err_vs_reference': ref_gap, 'max_abs_err_vs_rate_batch': fused_gap,
+    }
+    print(f'{label}: (b) traffic {json.dumps(traffic)}')
+
+    # one flush of a full 64-bucket under the profiler, on this thread: no
+    # host read before the values' copy; then flush walls against a bare
+    # rate_batch of the same padded batch
+    from torch.profiler import ProfilerActivity, profile
+
+    top = svc.ladder[-1]
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:top]]
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    gm.fused_first_layer_quant.launches = 0
+    sync(device)
+    with profile(activities=activities) as prof:
+        svc._flush(payloads, top)
+    reads = read_events(prof)
+    # on the CPU every tensor is a host tensor: only a card's read waits
+    before_copy = reads['before_copy'] if device.type == 'cuda' else []
+    if before_copy or b1() != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: the profiled flush read the device before its values copy '
+                           f'({reads}) or launched B1 {b1()} times')
+    cost = {}
+    for b in sorted({1, min(16, top), top}):
+        def concat_pad(b: int = b) -> Any:
+            return serve_service._pad_to_bucket(
+                serve_service._concat_games([r.staging for r in reqs[:b]]),
+                np.concatenate([r.gs for r in reqs[:b]]), b)
+
+        host, gs = concat_pad()
+        batch, overrides = serve_service._upload(host, gs, device)
+        flush_s = synced_median(lambda b=b: svc._flush(payloads[:b], b), device)
+        pad_s = synced_median(concat_pad, device)
+        upload_s = synced_median(lambda: serve_service._upload(host, gs, device), device)
+        bare_s = synced_median(lambda: model.rate_batch(batch, dense_overrides=overrides), device)
+        copy_s = synced_median(lambda: model.rate_batch(batch, dense_overrides=overrides).cpu(), device)
+        # what the parts timed alone leave of the flush: the guards'
+        # drain, the slicing, the breaker and the service's metrics
+        cost[str(b)] = {'flush_s': flush_s, 'concat_pad_s': pad_s, 'upload_s': upload_s,
+                        'rate_batch_s': bare_s, 'rate_batch_and_copy_s': copy_s,
+                        'rest_s': flush_s - pad_s - upload_s - copy_s,
+                        'actions': int(host.total_actions)}
+    print(f'{label}: (b) one flush of {top} requests under the profiler: {json.dumps(reads)}; '
+          f'flush against a bare rate_batch of the same padded batch (synced medians): '
+          f'{json.dumps(cost)}; phase 4 rate_batch of {GAMES} games: {phase4_median_s}')
+    svc.close()
+
+    # -- (c) hot swap and rollback through the registry
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    registry = ModelRegistry(os.path.join(SERVE_DIR, 'registry'), device=device)
+    registry.publish('vaep', '1', model)
+    registry.publish('vaep', '2', make_model(device, sizes.hidden, head_seed=200))
+    registry.activate('vaep', '1')
+    versions = {v: registry.load('vaep', v) for v in ('1', '2')}
+    svc = RatingService(registry=registry, **shape)
+    svc.warmup()
+    swap_shapes = svc.compiled_shapes
+    n_swap = sizes.swap_clients * sizes.swap_requests
+    sreqs = [serve_request(rng, int(rng.integers(sizes.low, A + 1)), A) for _ in range(n_swap)]
+    sresults: List[Any] = [None] * n_swap
+    submitted = [0.0] * n_swap
+    started, swapped = threading.Event(), threading.Event()
+    done_lock = threading.Lock()
+    done = [0]
+    # a quarter of each client's requests go in before the swap starts, the
+    # last quarter only after it returns
+    quarter = max(1, sizes.swap_requests // 4)
+
+    def swap_client(c: int) -> None:
+        try:
+            for k in range(sizes.swap_requests):
+                if k == sizes.swap_requests - quarter:
+                    swapped.wait(timeout=300)  # the last requests go in after the swap
+                i = c * sizes.swap_requests + k
+                submitted[i] = time.monotonic()
+                sresults[i] = submit_request(svc, sreqs[i]).result(timeout=300)
+                with done_lock:
+                    done[0] += 1
+                    if done[0] >= sizes.swap_clients * quarter:
+                        started.set()
+        except BaseException as e:  # reported below
+            errors.append(e)
+            started.set()
+
+    before = serve_counts()
+    gm.fused_first_layer_quant.launches = 0
+    threads = [threading.Thread(target=swap_client, args=(c,)) for c in range(sizes.swap_clients)]
+    for t in threads:
+        t.start()
+    started.wait(timeout=300)
+    t0 = time.perf_counter()
+    try:
+        svc.swap_model('vaep', '2')
+    finally:
+        swapped.set()
+    swap_s = time.perf_counter() - t0
+    swap_done = time.monotonic()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f'{label}: a swap client failed: {errors[0]!r}')
+    t0 = time.perf_counter()
+    svc.rollback_model()
+    rollback_s = time.perf_counter() - t0
+    back = [submit_request(svc, r).result(timeout=300) for r in sreqs[: sizes.swap_clients]]
+    launches['swap'] = b1()
+    counts = delta(serve_counts(), before)
+    by_version = {'1': 0, '2': 0}
+    after_swap = 0
+    for req, got, t_sub in zip(sreqs, sresults, submitted):
+        gaps = {v: float(np.abs(got - request_references(m, req, device)[0]).max())
+                for v, m in versions.items()}
+        match = [v for v, g in gaps.items() if g <= SERVE_ATOL]
+        other = [v for v, g in gaps.items() if g > SERVE_APART]
+        if len(match) != 1 or len(other) != 1:
+            raise RuntimeError(f'{label}: a request is not wholly one version: {gaps}')
+        by_version[match[0]] += 1
+        if t_sub > swap_done:
+            after_swap += 1
+            if match[0] != '2':
+                raise RuntimeError(f'{label}: a request submitted after the swap was rated by v1')
+    for req, got in zip(sreqs, back):
+        if float(np.abs(got - request_references(versions['1'], req, device)[0]).max()) > SERVE_ATOL:
+            raise RuntimeError(f'{label}: after rollback a request was not rated by v1')
+    if registry.active()[:2] != ('vaep', '1') or svc.compiled_shapes != swap_shapes or after_swap == 0:
+        raise RuntimeError(f'{label}: after rollback {registry.active()[:2]}, shapes '
+                           f'{svc.compiled_shapes} (warm {swap_shapes}), {after_swap} after the swap')
+    swap = {'requests': n_swap, 'by_version': by_version, 'submitted_after_swap': after_swap,
+            'swap_wall_s': swap_s, 'rollback_wall_s': rollback_s,
+            'model_swaps': counts['swaps'], 'model_swaps_rollback': counts['rollbacks'],
+            'compiled_shapes': svc.compiled_shapes, 'b1_launches': launches['swap']}
+    print(f'{label}: (c) hot swap and rollback {json.dumps(swap)}')
+    svc.close()
+
+    # -- (d) breaker drill: injected serve.dispatch faults on calls 1 and 2
+    clock = {'t': 0.0}
+    breaker = CircuitBreaker(failure_threshold=2, recovery_time_s=SERVE_RECOVERY_S,
+                             clock=lambda: clock['t'])
+    svc = RatingService(model, breaker=breaker, **shape)
+    svc.warmup()
+    dreq = sreqs[0]
+    dref = request_references(model, dreq, device)[0]
+    before = serve_counts()
+    gm.fused_first_layer_quant.launches = 0
+    drill = []
+    with FaultPlan(seed=16, specs=[FaultSpec('serve.dispatch', error=RuntimeError, on_calls=(1, 2))]):
+        for step in range(4):
+            if step == 3:
+                clock['t'] += 2 * SERVE_RECOVERY_S
+            got = submit_request(svc, dreq).result(timeout=300)
+            gap = float(np.abs(got - dref).max())
+            drill.append({'state': breaker.state, 'health': svc.health()['status'], 'b1': b1(),
+                          'max_abs_err': gap})
+            if gap > SERVE_ATOL:
+                raise RuntimeError(f'{label}: breaker drill step {step} is {gap} from its reference')
+    launches['breaker drill'] = b1()
+    counts = delta(serve_counts(), before)
+    want = [('closed', 'ok', 0), ('open', 'degraded', 0), ('open', 'degraded', 0),
+            ('closed', 'ok', kernel_launches(1, device))]
+    if [(d['state'], d['health'], d['b1']) for d in drill] != want or counts['fallback_flushes'] != 3:
+        raise RuntimeError(f'{label}: breaker drill {drill}, fallback flushes {counts["fallback_flushes"]}')
+    print(f'{label}: (d) breaker drill {json.dumps({"steps": drill, "fallback_flushes": counts["fallback_flushes"], "trips": breaker.trips})}')
+
+    # -- (e) kernel-fault drill: B1 cannot run; never degraded
+    breaker_before = breaker.to_dict()
+    before = serve_counts()
+    gm.fused_first_layer_quant.launches = 0
+
+    def no_b1(*args: Any, **kwargs: Any) -> Any:
+        if device.type == 'cuda':
+            raise OSError('libgather_matmul.so: cannot open shared object file (kernel-fault drill)')
+        raise cuda_build.KernelError('gather_matmul cannot be loaded (kernel-fault drill)')
+
+    # on the card the wrapper's library load fails as dlopen would, and the
+    # wrapper must raise that as a KernelError; on the CPU, where the wrapper
+    # runs its plain version and loads nothing, the wrapper itself raises
+    patched = (cuda_build, 'load_library') if device.type == 'cuda' else (fused_ops, 'fused_first_layer_quant')
+    real = getattr(*patched)
+    setattr(*patched, no_b1)
+    try:
+        fut = submit_request(svc, dreq)
+        try:
+            fut.result(timeout=300)
+            raised = None
+        except cuda_build.KernelError as e:
+            raised = str(e)
+    finally:
+        setattr(*patched, real)
+    counts_fault = delta(serve_counts(), before)
+    if raised is None or breaker.to_dict() != breaker_before or counts_fault['fallback_flushes'] != 0:
+        raise RuntimeError(f'{label}: kernel-fault drill: raised {raised}, breaker '
+                           f'{breaker.to_dict()} (was {breaker_before}), fallback {counts_fault}')
+    got = submit_request(svc, dreq).result(timeout=300)
+    launches['kernel-fault drill'] = b1()
+    gap = float(np.abs(got - dref).max())
+    if launches['kernel-fault drill'] != kernel_launches(1, device) or gap > SERVE_ATOL:
+        raise RuntimeError(f"{label}: after the kernel-fault drill B1 launched "
+                           f"{launches['kernel-fault drill']} times, values {gap} off")
+    print(f'{label}: (e) kernel-fault drill {json.dumps({"future_raised": raised, "breaker": breaker.to_dict()["state"], "consecutive_failures": breaker.to_dict()["consecutive_failures"], "fallback_flushes": counts_fault["fallback_flushes"], "health": svc.health()["status"], "b1_after_restore": launches["kernel-fault drill"], "max_abs_err": gap})}')
+    svc.close()
+
+    # -- (f) close(drain=True) resolves what is queued
+    svc = RatingService(model, **{**shape, 'max_wait_ms': 600_000.0})
+    gm.fused_first_layer_quant.launches = 0
+    queued = [submit_request(svc, r) for r in sreqs[: sizes.drain_requests]]
+    depth = svc._batcher.queue_depth
+    svc.close(drain=True)
+    launches['close'] = b1()
+    gaps = [float(np.abs(f.result(timeout=300) - request_references(model, r, device)[0]).max())
+            for f, r in zip(queued, sreqs)]
+    try:
+        submit_request(svc, sreqs[0])
+        late = None
+    except RuntimeError as e:
+        late = str(e)
+    if depth != sizes.drain_requests or max(gaps) > SERVE_ATOL or late is None or \
+            launches['close'] != kernel_launches(1, device):
+        raise RuntimeError(f"{label}: close(drain=True): depth {depth}, gaps {gaps}, late {late}, "
+                           f"B1 {launches['close']}")
+    print(f'{label}: (f) close(drain=True) {json.dumps({"queued": depth, "resolved": len(gaps), "max_abs_err": max(gaps), "submit_after_close": late, "b1": launches["close"]})}')
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    print(f'{label}: B1 launches {json.dumps(launches)}; phase 16 in {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
         # one of phase 14 (b)'s ranks, spawned by scale_two_ranks
@@ -3485,6 +4006,15 @@ def main() -> int:
     with TIMELINE.phase('import', start_unix=TIMELINE.begin()):
         pass
     t_start = time.perf_counter()
+    walls: Dict[str, float] = {}
+    last = [t_start]
+
+    def lap(name: str) -> None:
+        """Close the wall of the phase ``name`` (seconds since the last lap)."""
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
+
     device = torch.device('cuda', 0)
     card = card_identity()
     print(card)
@@ -3505,6 +4035,7 @@ def main() -> int:
     }
     for rec in checks.values():
         print(f'kernel gather_matmul vs plain ({card}): {json.dumps(rec)}')
+    lap('build and kernel checks')
 
     # -- phase 4, the VAEP serving path: the entry points' default device
     # (the card), as a user calls them
@@ -3519,6 +4050,7 @@ def main() -> int:
     phase4_values = model.rate_batch(batch).cpu()
     del batch
     torch.cuda.empty_cache()
+    lap('phase 4 serving')
 
     # -- the xT path ---------------------------------------------------------
     xt_batch = synthetic_batch(XT_GAMES, ACTIONS, seed=2)
@@ -3570,6 +4102,7 @@ def main() -> int:
     fit16 = card_fits['ExpectedThreat 16x12']
     del xt_batch, card_fits, warm, cpu_fits
     torch.cuda.empty_cache()
+    lap('xT path')
 
     # -- phase 6, the training path ----------------------------------------------
     train_b1 = check_training_first_layer(device)
@@ -3581,6 +4114,7 @@ def main() -> int:
     rate_and_fault_fits(pbatch, parity, 'training path')
     del parity, pbatch
     torch.cuda.empty_cache()
+    lap('phase 6 training')
 
     # -- phase 7, Atomic-VAEP ------------------------------------------------------
     abatch = atomic_batch(GAMES, ACTIONS, seed=0)
@@ -3601,6 +4135,7 @@ def main() -> int:
     parity_fits(atomic_batch(PARITY_GAMES, ACTIONS, seed=5), PARITY_PARAMS, 'atomic training path',
                 1, model_cls=AtomicVAEP)
     torch.cuda.empty_cache()
+    lap('phase 7 atomic')
 
     # -- phase 8, the GRU sequence head ------------------------------------------------
     sbatch = synthetic_batch(GAMES, ACTIONS, seed=3)
@@ -3624,41 +4159,54 @@ def main() -> int:
     check_against_reference(aseq['model'], aseq['batch'], aseq['model'].rate_batch(aseq['batch']),
                             'atomic seq path: trained model')
     torch.cuda.empty_cache()
+    lap('phase 8 seq')
 
     # -- phase 9, the season feed: the xT draw from its packed cache -----------------
     feed = feed_phase(model, xt_cpu, fit16, device, card)
     del xt_cpu
     torch.cuda.empty_cache()
+    lap('phase 9 feed')
 
     # -- phase 10, counterfactuals ------------------------------------------------------
     scenario = scenario_phase(model, device, card)
     torch.cuda.empty_cache()
+    lap('phase 10 scenarios')
 
     # -- phase 11, telemetry on the card ------------------------------------------------
     t0 = time.perf_counter()
     telemetry = telemetry_phase(model, device, card)
     print(f'telemetry: phase 11 in {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
+    lap('phase 11 telemetry')
 
     # -- phase 12, the rating dispatch and the gate's statistics -----------------------
     t0 = time.perf_counter()
     rating = rating_phase(device, card)
     print(f'rating paths: phase 12 in {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
+    lap('phase 12 rating paths')
 
     # -- phase 13, the continuous-learning loop -----------------------------------------
     learn = learn_phase(device, card)
     torch.cuda.empty_cache()
+    lap('phase 13 learning loop')
 
     # -- phase 14, the scale-out layer ------------------------------------------------
     scale_launches = scale_phase(device, card)
     torch.cuda.empty_cache()
+    lap('phase 14 scale-out')
 
     # -- phase 15, the cross-process telemetry plane ----------------------------------
     fleet_launches = fleet_phase(model, phase4_values, device, card,
                                  phase4_median_s=serving['median_s'])
+    torch.cuda.empty_cache()
+    lap('phase 15 fleet')
+
+    # -- phase 16, in-process serving -----------------------------------------------
+    serve_launches = serve_phase(model, device, card, phase4_median_s=serving['median_s'])
     del model
     torch.cuda.empty_cache()
+    lap('phase 16 serving')
 
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
@@ -3678,6 +4226,7 @@ def main() -> int:
         'learning loop (phase 13, 3 iterations)': learn['launches']['gather_matmul'],
         **scale_paths(scale_launches, 'gather_matmul'),
         **{f'phase15 {rid}': n for rid, n in fleet_launches.items()},
+        **{f'phase16 {part}': n for part, n in serve_launches.items()},
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -3756,6 +4305,8 @@ def main() -> int:
         ],
         'ptxas': cuda_build.ptxas_report('segment_sum'),
     }]
+    lap('kernels line')
+    print(f'chip_smoke: phase walls (s) {json.dumps(walls)}')
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({

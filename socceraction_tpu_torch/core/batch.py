@@ -373,10 +373,10 @@ def window_ladder(max_actions: int) -> Tuple[int, ...]:
 def pad_batch_games(batch: Any, n_games: int) -> Any:
     """Pad a batch's game axis to ``n_games`` with masked padding games.
 
-    Works on either batch class and returns the batch's own class.
-    Padding games carry all-False masks, ``n_actions == 0`` and
-    ``row_index == -1``; their computed values are garbage by contract and
-    must be sliced away by the caller.
+    Works on either batch class, with tensor or host (numpy) fields, and
+    returns the batch's own class. Padding games carry all-False masks,
+    ``n_actions == 0`` and ``row_index == -1``; their computed values are
+    garbage by contract and must be sliced away by the caller.
     """
     G = batch.n_games
     if n_games == G:
@@ -384,8 +384,10 @@ def pad_batch_games(batch: Any, n_games: int) -> Any:
     if n_games < G:
         raise ValueError(f'cannot pad {G} games down to {n_games}')
 
-    def pad(name: str, a: torch.Tensor) -> torch.Tensor:
+    def pad(name: str, a: Any) -> Any:
         fill = -1 if name == 'row_index' else 0
+        if isinstance(a, np.ndarray):
+            return np.pad(a, [(0, n_games - G)] + [(0, 0)] * (a.ndim - 1), constant_values=fill)
         tail = a.new_full((n_games - G, *a.shape[1:]), fill)
         return torch.cat([a, tail])
 
@@ -408,7 +410,7 @@ def pack_row_values(values: Any, batch: Any, *, fill: Any = 0) -> np.ndarray:
     The layout is read from ``batch.row_index``.
     """
     vals = np.asarray(values)
-    ri = batch.row_index.cpu().numpy()
+    ri = _host(batch.row_index)
     valid = ri >= 0
     if vals.shape[:1] != (int(valid.sum()),):
         raise ValueError(
@@ -420,16 +422,25 @@ def pack_row_values(values: Any, batch: Any, *, fill: Any = 0) -> np.ndarray:
     return out
 
 
-def unpack_values(values: torch.Tensor, batch: Any) -> np.ndarray:
+def _host(a: Any) -> np.ndarray:
+    """``a`` as a host numpy array: a tensor is brought to the host, a
+    numpy array is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def unpack_values(values: Any, batch: Any) -> np.ndarray:
     """Per-action output in the packed frame's row order, as numpy.
 
     Padding rows are dropped and valid rows scattered back to the
     positional order of the DataFrame that was packed. ``values`` has
-    shape ``(G, A)`` or ``(G, A, F)``.
+    shape ``(G, A)`` or ``(G, A, F)``; it and the batch's fields may be
+    tensors or host (numpy) arrays.
     """
-    arr = values.detach().cpu().numpy()
-    mask = batch.mask.cpu().numpy()
-    rows = batch.row_index.cpu().numpy()[mask]
+    arr = _host(values)
+    mask = _host(batch.mask)
+    rows = _host(batch.row_index)[mask]
     picked = arr[mask]
     out = np.empty_like(picked)
     out[rows] = picked

@@ -1,11 +1,13 @@
 """The continuous-learning orchestrator: stream → train → shadow → swap.
 
-Port of the JAX package's ``socceraction_tpu/learn/loop.py`` with
-``service=None``: promotions and rollbacks activate through the
-:class:`~socceraction_tpu_torch.serve.registry.ModelRegistry` (the
-in-process rating service is ROADMAP A3, and passing one raises). The
-journal, the registry's layout and every report are that package's, so a
-journal or a registry written by either package is read by the other.
+Port of the JAX package's ``socceraction_tpu/learn/loop.py``. Promotions
+and rollbacks activate through the in-process
+:class:`~socceraction_tpu_torch.serve.service.RatingService` when one is
+attached (its ladder warmed before the swap goes live), and through the
+:class:`~socceraction_tpu_torch.serve.registry.ModelRegistry` otherwise.
+The journal, the registry's layout and every report are that package's,
+so a journal or a registry written by either package is read by the
+other.
 
 :class:`ContinuousLearner` closes the loop between the ported subsystems.
 One :meth:`~ContinuousLearner.run_once` iteration:
@@ -177,11 +179,13 @@ class ContinuousLearner:
         activates promoted versions. The learner trains, replays and
         packs on the device the registry loads onto (``registry.device``;
         the card for a registry that names none).
-    service : None
-        The in-process rating service is not ported (ROADMAP A3):
-        anything but ``None`` raises.
+    service : RatingService, optional
+        A live serving front end. When given, promotions go through its
+        pre-warmed atomic :meth:`swap_model`, :meth:`rollback` through its
+        :meth:`rollback_model`, and the gate reads its numeric health.
     capture : TrafficCapture, optional
-        Traffic source for the shadow replay and the drift watch.
+        Traffic source for the shadow replay and the drift watch; defaults
+        to ``service.capture``.
     config : LearnConfig, optional
     prime_watcher : bool
         ``True`` (default when the registry already has an active model
@@ -203,14 +207,12 @@ class ContinuousLearner:
         config: Optional[LearnConfig] = None,
         prime_watcher: Optional[bool] = None,
     ) -> None:
-        if service is not None:
-            raise NotImplementedError(
-                'ContinuousLearner(service=...): the rating service is not ported yet '
-                '(ROADMAP A3); the learner activates through the registry'
-            )
         self.store = store
         self.registry = registry
-        self.capture = capture
+        self.service = service
+        self.capture = capture if capture is not None else (
+            getattr(service, 'capture', None) if service is not None else None
+        )
         self.config = config if config is not None else LearnConfig()
         self.device = resolve_device(getattr(registry, 'device', None))
         if prime_watcher is None:
@@ -348,7 +350,10 @@ class ContinuousLearner:
             self._journal_append(
                 'published', version=version, tag=tag, recovered=True
             )
-        self.registry.activate(name, version)
+        if self.service is not None:
+            self.service.swap_model(name, version)
+        else:
+            self.registry.activate(name, version)
         self._journal_append(
             'activated', version=version, tag=tag, recovered=True
         )
@@ -451,6 +456,21 @@ class ContinuousLearner:
         return pack_replay_batch(
             frames, max_actions=self.config.max_actions, device=self.device
         )
+
+    def _parity_stats(self) -> Optional[Dict[str, Any]]:
+        """The serving layer's numeric-health stats for the gate.
+
+        The fail-closed ``GateConfig(max_parity_err=)`` input. The JAX
+        loop reads the service's parity probe here too; the port's service
+        has none yet (ROADMAP A4), so this is only the service's drained
+        nonfinite-event count (``serve_nonfinite_events``). None when no
+        service is attached or it saw no detections — with the band set,
+        that absence itself blocks promotion.
+        """
+        nonfinite = int(getattr(self.service, 'nonfinite_events', 0) or 0)
+        if not nonfinite:
+            return None
+        return {'evaluated': False, 'probes': 0, 'serve_nonfinite_events': nonfinite}
 
     @staticmethod
     def _train_health_reasons(candidate: Any) -> List[str]:
@@ -802,15 +822,13 @@ class ContinuousLearner:
                     return report
 
                 with timed_stage('gate'), span('learn/gate'):
-                    # the parity probe is the rating service's (ROADMAP
-                    # A3): with no service, a max_parity_err band fails
-                    # closed, as the JAX loop's does without one
+                    parity_stats = self._parity_stats()
                     passed, reasons = evaluate_gate(
                         act_res.summaries if act_res else None,
                         cand_res.summaries,
                         gate_cfg,
                         drift=drift_res,
-                        parity=None,
+                        parity=parity_stats,
                     )
             except Exception as e:
                 self._journal_append('verdict', verdict='error', tag=tag)
@@ -848,7 +866,7 @@ class ContinuousLearner:
                     'source': replay_source,
                 },
                 drift=drift_res.to_dict() if drift_res else {},
-                parity={},
+                parity=parity_stats or {},
                 archs=_head_archs(candidate),
             )
 
@@ -876,7 +894,10 @@ class ContinuousLearner:
                         self._journal_append(
                             'published', version=version, tag=tag
                         )
-                        self.registry.activate(cfg.model_name, version)
+                        if self.service is not None:
+                            self.service.swap_model(cfg.model_name, version)
+                        else:
+                            self.registry.activate(cfg.model_name, version)
                         self._journal_append(
                             'activated', version=version, tag=tag
                         )
@@ -962,10 +983,15 @@ class ContinuousLearner:
     def rollback(self) -> Tuple[str, str]:
         """Restore the previously active version (explicit escape hatch).
 
-        One atomic swap on the registry, counted under
+        Through the service when one is attached (ladder pre-warmed
+        before the swap goes live), directly on the registry otherwise.
+        Either way the swap is atomic and counted under
         ``serve/model_swaps{reason="rollback"}``.
         """
-        name, version = self.registry.rollback()
+        if self.service is not None:
+            name, version = self.service.rollback_model()
+        else:
+            name, version = self.registry.rollback()
         counter('learn/rollbacks', unit='count').inc(1)
         RECORDER.record('rollback', name=name, version=version)
         return name, version

@@ -13,10 +13,20 @@ Every load is reported to the dispatch observatory
 ``nvcc`` build counts into ``dispatch/kernel_builds`` and
 ``dispatch/build_seconds``), and :func:`load_libraries` is the
 ``kernel_build`` phase of the cold-start timeline.
+
+A kernel that cannot run raises :class:`KernelError`: no toolkit, a failed
+build, a library that does not load, a launch whose CUDA call returned an
+error, or (:class:`KernelRefused`) operands it refuses. The wrappers run
+their whole CUDA side under :func:`kernel_boundary`, so any other exception
+raised there (an ``OSError`` from ``nvcc`` or ``dlopen``, a missing symbol,
+a CUDA error from PyTorch) reaches the caller as a ``KernelError`` too.
+Callers that degrade on other failures (the serving breaker) never degrade
+on these.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,13 +37,14 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, Iterator, List, Sequence
 
 from ..obs.coldstart import TIMELINE
 from ..obs.dispatch import record_kernel_build
 
 __all__ = [
-    'BUILD_DIR', 'build_log', 'build_seconds', 'load_libraries', 'load_library', 'ptxas_report',
+    'BUILD_DIR', 'KernelError', 'KernelRefused', 'build_log', 'build_seconds', 'kernel_boundary',
+    'load_libraries', 'load_library', 'ptxas_report',
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -56,11 +67,36 @@ _paths: Dict[str, Path] = {}
 build_seconds: Dict[str, float] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel cannot run: no CUDA toolkit to build it, its
+    build failed, its library does not load, or its launch failed."""
+
+
+class KernelRefused(KernelError, ValueError):
+    """A kernel refuses its operands: a device it has no kernel for,
+    operands that are not contiguous, or widths for which a block of B1
+    would need more shared memory than the card gives one. A
+    ``ValueError`` too: the operands, not the card, are at fault."""
+
+
+@contextlib.contextmanager
+def kernel_boundary(name: str) -> Iterator[None]:
+    """Run the CUDA side of kernel ``name``'s wrapper: a ``KernelError``
+    passes as it is, any other exception is raised again as a
+    ``KernelError`` (chained to it)."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:
+        raise KernelError(f'{name} cannot run: {type(e).__name__}: {e}') from e
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError('no CUDA toolkit found (set CUDA_HOME); cannot build kernels')
+        raise KernelError('no CUDA toolkit found (set CUDA_HOME); cannot build kernels')
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
@@ -69,11 +105,12 @@ def load_library(name: str) -> ctypes.CDLL:
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``<lib>.log``. A failed build
-    raises with the compiler's output.
+    raises with the compiler's output; a compiler that does not start or a
+    library that does not load raises too, each as a :class:`KernelError`.
     """
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock:
+    with name_lock, kernel_boundary(name):
         lib = _loaded.get(name)
         if lib is not None:
             return lib
@@ -94,7 +131,7 @@ def load_library(name: str) -> ctypes.CDLL:
                     capture_output=True, text=True,
                 )
                 if proc.returncode != 0:
-                    raise RuntimeError(
+                    raise KernelError(
                         f'nvcc failed to build {src} (exit {proc.returncode}):\n'
                         f'{proc.stdout}{proc.stderr}'
                     )

@@ -135,50 +135,83 @@ def fused_first_layer_quant(
     ``(H,)`` and ``x_dense`` ``(N, D)`` are f32, ``ids`` ``(N, k)`` int32.
     CPU operands run the plain version; CUDA operands (contiguous) launch
     the kernel on the current stream and add one to
-    ``fused_first_layer_quant.launches``.
+    ``fused_first_layer_quant.launches``. Anything that stops the launch
+    raises :class:`~socceraction_tpu_torch.ops.cuda_build.KernelError`.
     """
     _check(tables, w_dense, bias, ids, x_dense)
-    device = tables.device
-    if device.type == 'cpu':
+    if tables.device.type == 'cpu':
         return fused_first_layer_reference(tables, w_dense, bias, ids, x_dense)
+    from .cuda_build import kernel_boundary
+
+    with kernel_boundary('gather_matmul'):
+        return _forward_cuda(tables, w_dense, bias, ids, x_dense)
+
+
+def _forward_cuda(
+    tables: torch.Tensor,
+    w_dense: torch.Tensor,
+    bias: torch.Tensor,
+    ids: torch.Tensor,
+    x_dense: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`fused_first_layer_quant` on the card: build, check and launch."""
+    from .cuda_build import KernelRefused, load_library
+
+    device = tables.device
     if device.type != 'cuda':
-        raise ValueError(f'no kernel for device {device}')
+        raise KernelRefused(f'no kernel for device {device}')
     operands = (tables, w_dense, bias, ids, x_dense)
     if not all(t.is_contiguous() for t in operands):
-        raise ValueError('fused_first_layer_quant needs contiguous operands')
-    from .cuda_build import load_library
-
+        raise KernelRefused('fused_first_layer_quant needs contiguous operands')
     lib = load_library('gather_matmul')
     k, r, h = tables.shape
     n, d = x_dense.shape
-    smem_fn = lib.gather_matmul_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 3
-    smem_fn.restype = ctypes.c_size_t
-    smem = smem_fn(k, h, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f'a launch for D = {d} dense columns and k = {k} tables needs {smem} bytes '
-            f'of shared memory per block, over the {_MAX_SMEM} a block can use'
-        )
+    _check_smem(lib, k, h, d)
     out = torch.empty((n, h), dtype=torch.float32, device=device)
     if n == 0 or h == 0:
         return out
     fn = getattr(lib, _TABLE_DTYPES[tables.dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    plan = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            *(t.data_ptr() for t in operands), out.data_ptr(),
-            n, k, r, h, d, stream, ctypes.byref(plan),
-        )
-    if rc != 0:
-        raise RuntimeError(f'gather_matmul kernel launch failed: cudaError_t {rc}')
+        plan = _launch(fn, operands, out, (n, k, r, h, d), stream)
     fused_first_layer_quant.launches += 1
-    name = plan_name(plan.value)
+    name = plan_name(plan)
     fused_first_layer_quant.plans[name] = fused_first_layer_quant.plans.get(name, 0) + 1
     return out
+
+
+def _check_smem(lib: Any, k: int, h: int, d: int) -> None:
+    """Raise :class:`~socceraction_tpu_torch.ops.cuda_build.KernelRefused`
+    when a block of the library's B1 would need more shared memory for
+    these widths than a Hopper block can use."""
+    smem_fn = lib.gather_matmul_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 3
+    smem_fn.restype = ctypes.c_size_t
+    smem = smem_fn(k, h, d)
+    if smem > _MAX_SMEM:
+        from .cuda_build import KernelRefused
+
+        raise KernelRefused(
+            f'a launch for D = {d} dense columns and k = {k} tables needs {smem} bytes '
+            f'of shared memory per block, over the {_MAX_SMEM} a block can use'
+        )
+
+
+def _launch(
+    fn: Any, operands: Tuple[torch.Tensor, ...], out: torch.Tensor,
+    dims: Tuple[int, ...], stream: int,
+) -> int:
+    """One launch of B1 through the library's entry ``fn``; returns the
+    plan the kernel reported. A ``cudaError_t`` raises :class:`KernelError`."""
+    from .cuda_build import KernelError
+
+    plan = ctypes.c_int(0)
+    rc = fn(*(t.data_ptr() for t in operands), out.data_ptr(), *dims, stream, ctypes.byref(plan))
+    if rc != 0:
+        raise KernelError(f'gather_matmul kernel launch failed: cudaError_t {rc}')
+    return plan.value
 
 
 def plan_name(plan: int) -> str:

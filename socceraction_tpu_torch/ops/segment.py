@@ -89,16 +89,28 @@ def segment_sum(
     tensors launch kernel B2 on the current stream and add one to
     ``segment_sum.launches``. Values are taken in f32 and ids in int32
     (int64 ids outside the range are clamped to ``-1`` first, so they stay
-    out of range after the narrowing).
+    out of range after the narrowing). Anything that stops the launch
+    raises :class:`~socceraction_tpu_torch.ops.cuda_build.KernelError`.
     """
     vals, ids = _flat(values, segment_ids)
     device = vals.device
     if device.type == 'cpu':
         return segment_sum_reference(vals, ids, num_segments)
+    from .cuda_build import kernel_boundary
+
+    with kernel_boundary('segment_sum'):
+        return _segment_sum_cuda(vals, ids, num_segments)
+
+
+def _segment_sum_cuda(vals: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum` on the card: plan and launch."""
+    from .cuda_build import KernelRefused
+
+    device = vals.device
     if device.type != 'cuda':
-        raise ValueError(f'no kernel for device {device}')
+        raise KernelRefused(f'no kernel for device {device}')
     if not 0 <= num_segments <= _INT32_MAX:
-        raise ValueError(f'num_segments={num_segments} is outside [0, 2**31)')
+        raise KernelRefused(f'num_segments={num_segments} is outside [0, 2**31)')
     if ids.dtype != torch.int32:
         ids = torch.where((ids < 0) | (ids >= num_segments), -1, ids).to(torch.int32)
     vals = vals.to(torch.float32).contiguous()
@@ -108,12 +120,7 @@ def segment_sum(
     with torch.cuda.device(device):
         grid, regime, _ = _plan(device.index, n, num_segments)
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel()(
-            vals.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, num_segments, grid, regime, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f'segment_sum kernel launch failed: cudaError_t {rc}')
+        _launch(_kernel(), vals, ids, out, num_segments, grid, regime, stream)
     if n and num_segments:  # an empty stream is only the memset
         segment_sum.launches += 1
     return out
@@ -121,6 +128,22 @@ def segment_sum(
 
 #: Kernel launches made through :func:`segment_sum` (CUDA only).
 segment_sum.launches = 0
+
+
+def _launch(
+    fn: Any, vals: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
+    num_segments: int, grid: int, regime: int, stream: int,
+) -> None:
+    """One launch of B2 through the library's entry ``fn``. A
+    ``cudaError_t`` raises :class:`~socceraction_tpu_torch.ops.cuda_build.KernelError`."""
+    from .cuda_build import KernelError
+
+    rc = fn(
+        vals.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        vals.numel(), num_segments, grid, regime, stream,
+    )
+    if rc != 0:
+        raise KernelError(f'segment_sum kernel launch failed: cudaError_t {rc}')
 
 _KERNEL: List[Any] = []
 #: The kernel's regimes, by the number its launch plan gives.
@@ -155,7 +178,9 @@ def _plan(device_index: int, n: int, num_segments: int) -> Tuple[int, int, int]:
     with torch.cuda.device(device_index):
         rc = fn(n, num_segments, ctypes.byref(grid), ctypes.byref(regime), ctypes.byref(per_sm))
     if rc != 0:
-        raise RuntimeError(f'segment_sum launch plan failed: cudaError_t {rc}')
+        from .cuda_build import KernelError
+
+        raise KernelError(f'segment_sum launch plan failed: cudaError_t {rc}')
     return grid.value, regime.value, per_sm.value
 
 

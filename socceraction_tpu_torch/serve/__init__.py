@@ -1,14 +1,42 @@
-"""The serving layer's host side: the model registry and the traffic ring.
+"""Online serving: micro-batched, shape-bucketed live rating.
 
-Ports of the JAX package's ``socceraction_tpu/serve/registry.py``
-(:class:`ModelRegistry`: versioned checkpoints, warm device residency,
-atomic activation and rollback, the candidate lifecycle) and
-``serve/capture.py`` (:class:`TrafficCapture`). The in-process rating
-service, its batcher and sessions come later (ROADMAP A3). Importing this
-package needs neither pandas nor msgpack.
+Ports of the JAX package's ``socceraction_tpu/serve`` modules:
+
+- :mod:`.batcher` — the thread-safe micro-batching queue
+  (:class:`MicroBatcher`): deadline-bounded coalescing, power-of-two
+  shape buckets, bounded-queue admission control (:class:`Overloaded`).
+- :mod:`.session` — :class:`MatchSession`, live per-match streaming:
+  O(new actions) incremental rating with the whole-match ``goalscore``
+  carry injected as a dense override.
+- :mod:`.service` — :class:`RatingService`, the in-process front end
+  (``rate() -> Future``, ``open_session``, ``swap_model``,
+  ``rollback_model``, ``health``, ``warmup``) over kernel B1, with a
+  circuit breaker that degrades failing flushes but never a kernel that
+  cannot run.
+- :mod:`.registry` — :class:`ModelRegistry`: versioned checkpoints, warm
+  device residency, atomic activation and rollback, the candidate
+  lifecycle.
+- :mod:`.capture` — :class:`TrafficCapture`, the ring of served traffic.
+
+The scenario verb, SLO admission, the capture hook and the parity probe's
+sampling (ROADMAP A4), the warm tier and the frontend (A5) and the
+replica lanes (A6) come later. Importing this package needs neither
+pandas nor msgpack.
 """
 
+from ..obs.context import DeadlineExceeded
+from .batcher import MicroBatcher, Overloaded
 from .capture import TrafficCapture
 from .registry import ModelRegistry
+from .service import RatingService
+from .session import MatchSession
 
-__all__ = ['ModelRegistry', 'TrafficCapture']
+__all__ = [
+    'DeadlineExceeded',
+    'MatchSession',
+    'MicroBatcher',
+    'ModelRegistry',
+    'Overloaded',
+    'RatingService',
+    'TrafficCapture',
+]

@@ -1,0 +1,1112 @@
+"""The online rating service: micro-batched, shape-bucketed, hot-swappable.
+
+Port of the rating core of the JAX package's
+``socceraction_tpu/serve/service.py``. :class:`RatingService` is the
+in-process front end that turns the batch-oriented valuation core
+(``VAEP.rate_batch`` and kernel B1 behind it) into a multiplexed,
+latency-bounded server:
+
+- ``rate(actions) -> Future`` — rate one match's SPADL actions; packing
+  happens on the calling thread, the dispatch is coalesced with every
+  other concurrent request by the micro-batcher
+  (:mod:`socceraction_tpu_torch.serve.batcher`) into power-of-two shape
+  buckets, so steady traffic runs a pinned set of shapes;
+- ``open_session(match_id, ...)`` — a per-match streaming
+  :class:`~socceraction_tpu_torch.serve.session.MatchSession` that rates
+  a live game in O(new actions) per tick through the same batcher;
+- ``swap_model(name, version)`` / ``rollback_model()`` — atomic hot-swap
+  via the :class:`~socceraction_tpu_torch.serve.registry.ModelRegistry`:
+  each flush reads the active model once, so no request is ever rated by
+  a half-swapped model;
+- overload raises :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`
+  at ``rate()`` time (bounded queue — load is shed, not buffered forever);
+- a circuit breaker on the fused dispatch
+  (:class:`~socceraction_tpu_torch.resil.breaker.CircuitBreaker`) serves
+  failing flushes through the materialized reference, except when the
+  failure is the kernel's own: a
+  :class:`~socceraction_tpu_torch.ops.cuda_build.KernelError` (B1 cannot
+  build, load, launch or take its operands) or a CUDA error fails the
+  flush's requests and never
+  moves the breaker, so a broken kernel is never hidden behind the plain
+  path.
+
+The service runs on the device of the model it serves: each flush copies
+its padded host batch there, rates it, and makes one copy of the values
+back; before that copy it reads only host counts. Every stage reports
+under the ``serve`` telemetry area, with the JAX package's names.
+
+Not ported yet, and raising with their ``ROADMAP.md`` item when asked
+for: ``slo=``, ``capture=``, ``parity=``, ``rate_scenarios`` and a
+``max_perturbations`` above the default (A4); ``aot_dir=`` and
+``load_aot`` (A5); ``n_replicas > 1`` and ``telemetry()`` (A6). pandas is
+imported only inside the verbs that take or return frames.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.batch import (
+    ActionBatch,
+    bucket_window,
+    pack_actions,
+    pad_batch_games,
+    unpack_values,
+    window_ladder,
+)
+from ..obs import REGISTRY, counter, gauge, span
+from ..obs.context import RequestContext, new_request_context, record_segment
+from ..obs.numerics import drain_guards
+from ..obs.perf import perf_snapshot, record_dispatch
+from ..obs.recorder import default_debug_dir, dump_debug_bundle
+from ..obs.residency import owned_bytes
+from ..ops.cuda_build import KernelError
+from ..ops.gather_matmul import fused_first_layer_quant
+from ..resil.breaker import CircuitBreaker
+from ..resil.faults import fault_point
+from .batcher import MicroBatcher, Overloaded
+from .session import (
+    WINDOW_LOCAL_KERNELS,
+    MatchSession,
+    goalscore_block,
+    pack_window,
+    score_prefix,
+)
+
+if TYPE_CHECKING:  # pandas is imported inside the verbs that take frames
+    import pandas as pd
+
+__all__ = ['RatingService']
+
+RATING_COLUMNS = ['offensive_value', 'defensive_value', 'vaep_value']
+
+#: The JAX service's default top of the scenario ladder; a larger one asks
+#: for the scenario verb (ROADMAP A4).
+_MAX_PERTURBATIONS = 4096
+
+#: Failures that are the kernel's own: anything that stops B1 (its wrapper
+#: raises every such error as a ``KernelError``, its refusals as
+#: ``KernelRefused``), or a CUDA error surfacing at the values' copy.
+#: Never degraded by the breaker.
+_KERNEL_ERRORS: Tuple[type, ...] = (KernelError,) + tuple(
+    e for e in (getattr(torch, 'AcceleratorError', None),) if e is not None
+)
+
+
+class _Payload:
+    """One packed request: a staging batch plus its result recipe."""
+
+    __slots__ = ('staging', 'gs', 'keep', 'index', 'ctx')
+
+    def __init__(
+        self,
+        staging: Any,
+        gs: Optional[np.ndarray],
+        keep: Optional[Tuple[int, int]] = None,
+        index: Any = None,
+        ctx: Any = None,
+    ) -> None:
+        self.staging = staging  # host ActionBatch, (1, A) numpy fields
+        self.gs = gs  # (1, A, 3) f32 goalscore block
+        self.keep = keep  # None (whole frame) | (context, m) window slice
+        self.index = index  # pandas index for frame requests
+        self.ctx = ctx  # RequestContext (trace identity + segments)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f'{what} is not ported yet (ROADMAP {item})')
+
+
+class RatingService:
+    """In-process online rating server over a fitted VAEP model.
+
+    Parameters
+    ----------
+    model : VAEP, optional
+        A fitted standard-SPADL :class:`~socceraction_tpu_torch.vaep.base.VAEP`.
+        Give either ``model`` or ``registry``. The service rates on the
+        model's device.
+    registry : ModelRegistry, optional
+        A :class:`~socceraction_tpu_torch.serve.registry.ModelRegistry`
+        whose active model serves traffic; enables :meth:`swap_model`.
+    max_actions : int
+        Fixed action-axis capacity of every device batch. A request or
+        window longer than this is rejected at call time.
+    max_batch_size : int
+        Requests per flush cap == top of the bucket ladder.
+    max_wait_ms : float
+        Deadline bound: a lone request is dispatched at most this long
+        after arrival.
+    max_queue : int
+        Admission bound; past it ``rate()`` raises
+        :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`.
+    slo_p99_ms : float
+        The p99 end-to-end latency budget :meth:`health` compares the
+        measured ``serve/request_seconds`` p99 against (observability
+        only).
+    slo, capture, parity
+        Not ported (ROADMAP A4): anything but ``None`` raises.
+    request_deadline_ms : float, optional
+        Default per-request deadline. A request still queued when its
+        deadline passes is failed with
+        :class:`~socceraction_tpu_torch.obs.context.DeadlineExceeded` —
+        never dispatched. ``rate(deadline_ms=...)`` overrides per call.
+    breaker : CircuitBreaker, optional
+        The circuit breaker on the fused dispatch. ``breaker_failures``
+        consecutive flush-level dispatch failures trip it open; flushes
+        then route through the materialized reference
+        (``rate_batch_reference``, on the same device) instead of failing
+        callers, :meth:`health` reports ``'degraded'``, and after
+        ``breaker_recovery_s`` one half-open probe flush tries the fused
+        path again. A kernel that cannot run (``KernelError``, which
+        ``KernelRefused`` is too, or a CUDA error) is not such a failure: it fails the flush's requests and
+        leaves the breaker as it was. Pass an explicit instance to share
+        or tune one, or ``breaker_failures=0`` to disable degradation.
+    n_replicas : int
+        Only 1: the replica lanes are ROADMAP A6.
+    max_perturbations : int
+        The scenario verb's ladder top; only the default (ROADMAP A4).
+    aot_dir : str, optional
+        Not ported (ROADMAP A5): anything but ``None`` raises.
+    debug_dir : str, optional
+        Where automatic flight-recorder bundles land (flusher-thread death,
+        ``Overloaded`` bursts past ``overload_dump_threshold`` within
+        ``overload_dump_window_s``, hot-swap failure, a breaker trip, a
+        non-finite dispatch). Default:
+        :func:`~socceraction_tpu_torch.obs.recorder.default_debug_dir`.
+        Dumps are rate-limited to one per reason per ``dump_interval_s``.
+    """
+
+    def __init__(
+        self,
+        model: Any = None,
+        registry: Any = None,
+        *,
+        max_actions: int = 1664,
+        max_batch_size: int = 64,
+        max_wait_ms: float = 2.0,
+        max_queue: int = 256,
+        slo_p99_ms: float = 250.0,
+        slo: Any = None,
+        request_deadline_ms: Optional[float] = None,
+        capture: Any = None,
+        parity: Any = None,
+        breaker: Optional[CircuitBreaker] = None,
+        breaker_failures: int = 3,
+        breaker_recovery_s: float = 5.0,
+        n_replicas: int = 1,
+        max_perturbations: int = _MAX_PERTURBATIONS,
+        aot_dir: Optional[str] = None,
+        debug_dir: Optional[str] = None,
+        overload_dump_threshold: int = 64,
+        overload_dump_window_s: float = 10.0,
+        dump_interval_s: float = 60.0,
+    ) -> None:
+        if (model is None) == (registry is None):
+            raise ValueError('give exactly one of model= or registry=')
+        for name, value, item in (
+            ('slo', slo, 'A4'), ('capture', capture, 'A4'), ('parity', parity, 'A4'),
+            ('aot_dir', aot_dir, 'A5'),
+        ):
+            if value is not None:
+                raise _not_ported(f'RatingService({name}=...)', item)
+        if int(n_replicas) < 1:
+            raise ValueError('n_replicas must be >= 1')
+        if int(n_replicas) > 1:
+            raise _not_ported('RatingService(n_replicas > 1)', 'A6')
+        if int(max_perturbations) < 1:
+            raise ValueError('max_perturbations must be >= 1')
+        if int(max_perturbations) > _MAX_PERTURBATIONS:
+            raise _not_ported('RatingService(max_perturbations=...), the scenario verb', 'A4')
+        self._registry = registry
+        self._model = None
+        if model is not None:
+            self._validate_model(model)
+            self._model = model
+            first = model
+        else:
+            first = registry.active()[2]
+            self._validate_model(first)
+        # whether requests must carry the host goalscore block: invariant
+        # across swaps (swap_model rejects feature-layout changes), so
+        # models without the kernel never pay the per-request prefix work
+        self._gs_enabled = 'goalscore' in first.xfns
+        self.max_actions = int(max_actions)
+        self.slo_p99_ms = float(slo_p99_ms)
+        self.capture = None
+        self.parity = None
+        #: nonfinite guard events drained by THIS service's flushes (the
+        #: pending-guard ring is process-global: whichever flush drains
+        #: first absorbs an event, which errs fail-closed on purpose)
+        self._nonfinite_events = 0
+        self.debug_dir = debug_dir or default_debug_dir()
+        self.overload_dump_threshold = int(overload_dump_threshold)
+        self.overload_dump_window_s = float(overload_dump_window_s)
+        self.dump_interval_s = float(dump_interval_s)
+        self.last_dump_path: Optional[str] = None
+        self._dump_lock = threading.Lock()
+        self._last_dump_t: Dict[str, float] = {}
+        self._overloads: 'deque[float]' = deque()
+        self._started_t = time.monotonic()
+        self.request_deadline_ms = request_deadline_ms
+        self._model_activated_t = time.monotonic()
+        if breaker is not None:
+            self._breakers: List[Optional[CircuitBreaker]] = [breaker]
+        elif int(breaker_failures) > 0:
+            self._breakers = [
+                CircuitBreaker(
+                    failure_threshold=int(breaker_failures),
+                    recovery_time_s=float(breaker_recovery_s),
+                    name='serve.dispatch',
+                )
+            ]
+        else:
+            self._breakers = [None]
+        self._batcher = MicroBatcher(
+            self._flush,
+            max_batch_size=max_batch_size,
+            max_wait_ms=max_wait_ms,
+            max_queue=max_queue,
+            on_crash=self._on_flusher_crash,
+        )
+        self._shape_lock = threading.Lock()
+        self._seen_shapes: set = set()
+        #: the compile-cache tier's status from the last warmup: the port
+        #: has no compile cache (ROADMAP A5), so its directory is None
+        self._cache_state: Optional[Dict[str, Any]] = None
+
+    # -- model plumbing ----------------------------------------------------
+
+    @staticmethod
+    def _validate_model(model: Any) -> None:
+        if not getattr(model, '_models', None):
+            raise ValueError('the serving model must be fitted')
+        if getattr(model, '_fused_registry', None) != 'standard':
+            raise ValueError(
+                'RatingService serves standard-SPADL VAEP models '
+                '(atomic serving is not wired up yet)'
+            )
+
+    def _active(self) -> Tuple[str, str, Any]:
+        """One consistent ``(name, version, model)`` read (swap atomicity)."""
+        if self._model is not None:
+            return ('default', '0', self._model)
+        return self._registry.active()
+
+    @property
+    def model(self) -> Any:
+        """The model currently serving traffic."""
+        return self._active()[2]
+
+    @property
+    def nb_prev_actions(self) -> int:
+        """Game-state depth ``k`` of the serving model."""
+        return int(self.model.nb_prev_actions)
+
+    def _model_quantize(self) -> str:
+        """Table-storage mode of the serving model ('none' when unknown)."""
+        try:
+            return str(getattr(self.model, 'quantize', 'none'))
+        except ValueError:
+            return 'none'
+
+    def _model_kernel(self) -> Dict[str, Any]:
+        """What a flush dispatches through: the serving model's rating path
+        and B1's launches in this process by the instantiation the kernel
+        reported (``fused_first_layer_quant.plans``; none on the CPU, where
+        the wrapper runs its plain version). The JAX service reports its
+        first-layer lowering here, which has no counterpart: B1 has one
+        CUDA route."""
+        try:
+            path = self.model._rating_path()
+        except ValueError:
+            # a malformed path override must not take down the health
+            # endpoint the operator needs to diagnose it
+            path = 'invalid'
+        return {'path': path, 'plans': dict(fused_first_layer_quant.plans)}
+
+    @property
+    def _breaker(self) -> Optional[CircuitBreaker]:
+        return self._breakers[0]
+
+    def _prepare_swap_target(self, name: str, version: str) -> Any:
+        """Load, validate, layout-guard and ladder-warm a swap target.
+
+        The shared half of :meth:`swap_model` and :meth:`rollback_model`:
+        the target must be serve-compatible (fitted, standard SPADL) and
+        keep the active model's feature layout — sessions in flight pin
+        their window shape to ``nb_prev_actions`` and the bucket ladder
+        pins the served shapes, so a layout change requires a new service,
+        not a swap. The ladder is dispatched through the target on its
+        device *before* it goes live (on the caller's thread), so the
+        first post-swap request pays no first-use cost and a target that
+        cannot rate fails this call, not a flush.
+        """
+        old = self.model
+        new = self._registry.load(name, version)
+        self._validate_model(new)
+        if new.nb_prev_actions != old.nb_prev_actions or tuple(new.xfns) != tuple(old.xfns):
+            raise ValueError(
+                'swap target changes the feature layout '
+                '(nb_prev_actions/xfns); start a new RatingService for it'
+            )
+        A = self.max_actions
+        rungs: Tuple[Optional[int], ...] = (
+            window_ladder(A) if getattr(new, 'time_rungs', False) else (None,)
+        )
+        for b in self._batcher.ladder:
+            for tl in rungs:
+                self._device_rate(_empty_host_batch(1, A), _empty_gs(1, A), new, b, time_len=tl)
+        return new
+
+    def swap_model(self, name: str, version: Optional[str] = None) -> Tuple[str, str]:
+        """Atomically swap serving to ``name``/``version`` (default newest).
+
+        The new version is validated, layout-guarded and ladder-warmed
+        before activation (:meth:`_prepare_swap_target`). That ordering
+        is the corrupt-checkpoint fallback: a damaged artifact fails *this
+        call* on the caller's thread — the previously active model keeps
+        serving and the flusher never sees the broken candidate.
+        """
+        if self._registry is None:
+            raise RuntimeError('swap_model needs a registry-backed service')
+        try:
+            # pin 'newest' NOW: the version validated and pre-warmed below
+            # must be the exact version activated
+            version = self._registry.resolve_version(name, version)
+            self._prepare_swap_target(name, version)
+            out = self._registry.activate(name, version)
+            self._model_activated_t = time.monotonic()
+            return out
+        except Exception as e:
+            self._maybe_dump(
+                'swap_failure',
+                {
+                    'type': 'swap_failure',
+                    'target': f'{name}/{version or "newest"}',
+                    'error': f'{type(e).__name__}: {e}',
+                },
+            )
+            raise
+
+    def rollback_model(self) -> Tuple[str, str]:
+        """Atomically roll serving back to the previously active version.
+
+        The registry's :meth:`~socceraction_tpu_torch.serve.registry.ModelRegistry.rollback`
+        restores the version that was serving before the last swap (still
+        resident in the load cache) after this service re-warms the
+        bucket ladder for it. Counted under
+        ``serve/model_swaps{reason="rollback"}``; a failure dumps the
+        flight recorder like a failed forward swap.
+        """
+        if self._registry is None:
+            raise RuntimeError('rollback_model needs a registry-backed service')
+        prev = self._registry.previous()
+        if prev is None:
+            raise RuntimeError('no previous version to roll back to')
+        name, version = prev
+        try:
+            self._prepare_swap_target(name, version)
+            # pin the exact version just validated/warmed: a promotion
+            # racing this call changes "previous"
+            out = self._registry.rollback(expected=(name, version))
+            self._model_activated_t = time.monotonic()
+            return out
+        except Exception as e:
+            self._maybe_dump(
+                'swap_failure',
+                {
+                    'type': 'rollback_failure',
+                    'target': f'{name}/{version}',
+                    'error': f'{type(e).__name__}: {e}',
+                },
+            )
+            raise
+
+    # -- request entry points ----------------------------------------------
+
+    def rate(
+        self,
+        actions: 'pd.DataFrame',
+        *,
+        home_team_id: Any = None,
+        deadline_ms: Optional[float] = None,
+        context: Optional[RequestContext] = None,
+    ) -> Future:
+        """Rate one match's SPADL actions; returns a Future of a DataFrame.
+
+        ``actions`` is a single game's frame; ``home_team_id`` defaults to
+        the frame's ``home_team_id`` column when present. Packing runs on
+        the calling thread; the device dispatch is coalesced with
+        concurrent requests. The future resolves to a DataFrame with
+        ``offensive_value`` / ``defensive_value`` / ``vaep_value``
+        aligned to ``actions``' index.
+
+        Every call mints a :class:`~socceraction_tpu_torch.obs.context.RequestContext`
+        exposed on the future as ``future.context`` (and its id as
+        ``future.request_id``); ``context`` accepts a pre-built one (the
+        process-hop form, whose deadline then holds). ``deadline_ms``
+        (default: the service's ``request_deadline_ms``) bounds the total
+        wait. Raises
+        :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`
+        synchronously when the admission queue is full.
+        """
+        if len(actions) == 0:
+            raise ValueError('cannot rate an empty actions frame')
+        if 'game_id' in actions.columns and actions['game_id'].nunique() > 1:
+            raise ValueError(
+                'one request rates one match; split multi-game frames '
+                '(or use VAEP.rate_batch for offline batches)'
+            )
+        if home_team_id is None:
+            if 'home_team_id' not in actions.columns:
+                raise ValueError('home_team_id is required')
+            home_team_id = actions['home_team_id'].iloc[0]
+        if len(actions) > self.max_actions:
+            raise ValueError(
+                f'{len(actions)} actions exceed the service window '
+                f'(max_actions={self.max_actions})'
+            )
+        frame = actions
+        if 'game_id' not in frame.columns:
+            frame = frame.assign(game_id=0)
+        staging, _ids = pack_actions(
+            frame, home_team_id=home_team_id, max_actions=self.max_actions,
+            as_numpy=True,
+        )
+        gs = self._frame_goalscore(frame, home_team_id) if self._gs_enabled else None
+        if context is not None:
+            ctx = context
+        else:
+            ctx = new_request_context(
+                'rate',
+                deadline_ms=(
+                    deadline_ms if deadline_ms is not None else self.request_deadline_ms
+                ),
+            )
+        payload = _Payload(staging, gs, keep=None, index=actions.index, ctx=ctx)
+        return self._submit(payload, 'rate', ctx)
+
+    def rate_sync(
+        self, actions: 'pd.DataFrame', *, home_team_id: Any = None,
+        timeout: Optional[float] = None,
+        deadline_ms: Optional[float] = None,
+    ) -> 'pd.DataFrame':
+        """Blocking convenience wrapper around :meth:`rate`."""
+        return self.rate(
+            actions, home_team_id=home_team_id, deadline_ms=deadline_ms
+        ).result(timeout)
+
+    def rate_scenarios(self, *args: Any, **kwargs: Any) -> Future:
+        """The counterfactual verb: not ported yet (ROADMAP A4)."""
+        raise _not_ported('RatingService.rate_scenarios', 'A4')
+
+    def rate_scenarios_sync(self, *args: Any, **kwargs: Any) -> np.ndarray:
+        """The counterfactual verb: not ported yet (ROADMAP A4)."""
+        raise _not_ported('RatingService.rate_scenarios_sync', 'A4')
+
+    def open_session(self, match_id: Any, *, home_team_id: Any) -> MatchSession:
+        """Start a live-match streaming session (see :class:`MatchSession`)."""
+        names = set(self.model.xfns)
+        nonlocal_names = names - WINDOW_LOCAL_KERNELS - {'goalscore'}
+        if nonlocal_names:
+            raise ValueError(
+                f'feature kernels {sorted(nonlocal_names)} are not '
+                'window-local; streaming sessions cannot rate suffixes '
+                'under this model'
+            )
+        counter('serve/sessions_opened', unit='count').inc(1)
+        return MatchSession(self, match_id, home_team_id)
+
+    def _submit_window(
+        self, window: 'pd.DataFrame', context: int, m: int,
+        *, match_id: Any, home_team_id: Any,
+    ) -> Future:
+        """Session entry: pack a context+suffix window and enqueue it."""
+        staging, gs = pack_window(window, match_id, home_team_id, self.max_actions)
+        ctx = new_request_context('session', deadline_ms=self.request_deadline_ms)
+        payload = _Payload(staging, gs, keep=(context, m), ctx=ctx)
+        return self._submit(payload, 'session', ctx)
+
+    def _submit(
+        self, payload: _Payload, kind: str, ctx: Optional[RequestContext] = None,
+    ) -> Future:
+        """Enqueue via the batcher, counting ``Overloaded`` bursts.
+
+        Where :meth:`rate` and session ticks arrive once they have packed
+        their frames: ``payload`` holds a host staging batch of numpy
+        fields and its goalscore block.
+        """
+        try:
+            return self._batcher.submit(payload, kind=kind, ctx=ctx)
+        except Overloaded:
+            self._note_overload()
+            raise
+
+    def _frame_goalscore(self, frame: 'pd.DataFrame', home_team_id: Any) -> np.ndarray:
+        """Whole-frame goalscore block ``(1, A, 3)`` computed on host.
+
+        Every request carries this block (not just session windows) so
+        all flushes dispatch the same function per bucket. Values come
+        from the session module's ``score_prefix`` (the single host mirror
+        of the device kernel): small integer counts, exactly what the
+        kernel computes.
+        """
+        is_home = frame['team_id'].to_numpy() == home_team_id
+        team, opp, _a, _b = score_prefix(
+            frame['type_id'].to_numpy(dtype=np.int64),
+            frame['result_id'].to_numpy(dtype=np.int64),
+            is_home == bool(is_home[0]),
+        )
+        return goalscore_block(team, opp, self.max_actions)
+
+    # -- the flush (runs on the batcher's flusher thread) ------------------
+
+    def _device_rate(
+        self,
+        host_batch: ActionBatch,
+        gs: Optional[np.ndarray],
+        model: Any,
+        bucket: int,
+        lane: int = 0,
+        time_len: Optional[int] = None,
+    ) -> np.ndarray:
+        """Pad to the bucket, rate on the model's device, copy to host.
+
+        The padded host batch is copied to the model's device (from pinned
+        memory on a card, without waiting), rated by ``rate_batch`` on
+        that device's current stream, and its values come back in one
+        copy. Nothing before that copy reads the device.
+
+        ``time_len`` is the window-length rung for time-rung models
+        (``model.time_rungs``): the action axis is sliced to the rung
+        after bucket padding, dispatched at the reduced shape, and the
+        values are zero-padded back to the caller's capacity. Safe because
+        every kernel is backward-looking over masked tails and the rung
+        never truncates a valid row. The sliced ``max_actions`` lands in
+        the shape key, so each rung is its own pinned shape.
+        """
+        host_batch, gs = _pad_to_bucket(host_batch, gs, bucket)
+        orig_A = host_batch.max_actions
+        if time_len is not None and time_len < orig_A:
+            host_batch, gs = _slice_window(host_batch, gs, time_len)
+            counter('seq/window_slices', unit='count').inc(1, window=str(time_len))
+        key = (bucket, host_batch.max_actions, lane)
+        with self._shape_lock:
+            new_shape = key not in self._seen_shapes
+            if new_shape:
+                self._seen_shapes.add(key)
+                n_shapes = len(self._seen_shapes)
+        if new_shape:
+            counter('serve/shape_traces', unit='count').inc(1, bucket=str(bucket))
+            gauge('serve/compiled_shapes', unit='shapes').set(n_shapes)
+        fault_point('serve.dispatch', bucket=bucket)
+        device = model.device
+        with _on_device(device):
+            batch, overrides = _upload(host_batch, gs if self._gs_enabled else None, device)
+            values = model.rate_batch(batch, dense_overrides=overrides, bucket=False)
+            with torch.profiler.record_function('serve/values_copy'):
+                host = values.cpu().numpy()
+        return _pad_values_time(host, orig_A)
+
+    def _reference_rate(
+        self,
+        host_batch: ActionBatch,
+        gs: Optional[np.ndarray],
+        model: Any,
+    ) -> np.ndarray:
+        """The degraded path: the materialized reference rating, on the
+        model's device. Same values contract as the fused dispatch; slower
+        per flush; correct, which is what degradation is for."""
+        device = model.device
+        with _on_device(device):
+            batch, overrides = _upload(host_batch, gs if self._gs_enabled else None, device)
+            values = model.rate_batch_reference(batch, dense_overrides=overrides)
+            return values.cpu().numpy()
+
+    def _rate_with_breaker(
+        self,
+        host_batch: ActionBatch,
+        gs: Optional[np.ndarray],
+        model: Any,
+        bucket: int,
+        lane: int = 0,
+        time_len: Optional[int] = None,
+    ) -> Tuple[np.ndarray, str]:
+        """One flush's rating through the breaker; ``(values, path)``.
+
+        ``path`` is ``'fused'`` (healthy or successful half-open probe)
+        or ``'fallback'`` (breaker open, or this flush's fused dispatch
+        failed). A fused failure is recorded on the breaker and the SAME
+        flush is served through the reference — callers see degraded
+        latency, never a spurious error — and ``failure_threshold``
+        consecutive failures trip the breaker so later flushes skip the
+        doomed dispatch. A reference failure propagates (the batcher fails
+        the flush's futures).
+
+        A kernel that cannot run (:class:`KernelError`, a CUDA error) is
+        re-raised at once: it is not recorded on the breaker, counts no
+        fallback flush and never reaches the reference, so the batcher
+        fails the flush's requests with it. A half-open probe that ends so
+        gives its slot back, unjudged.
+        """
+        breaker = self._breakers[lane]
+        if breaker is None:
+            return (
+                self._device_rate(host_batch, gs, model, bucket, lane, time_len=time_len),
+                'fused',
+            )
+        verdict = breaker.allow()
+        if verdict == 'open':
+            counter('serve/fallback_flushes', unit='count').inc(1)
+            return self._reference_rate(host_batch, gs, model), 'fallback'
+        try:
+            values = self._device_rate(host_batch, gs, model, bucket, lane, time_len=time_len)
+        except _KERNEL_ERRORS:
+            if verdict == 'probe':
+                breaker._abandon_probe()
+            raise
+        except Exception as e:
+            tripped = breaker.record_failure(e)
+            if tripped:
+                self._maybe_dump(
+                    'breaker_open',
+                    {
+                        'type': 'breaker_open',
+                        'error': f'{type(e).__name__}: {e}',
+                        'breaker': breaker.to_dict(),
+                    },
+                )
+            counter('serve/fallback_flushes', unit='count').inc(1)
+            return self._reference_rate(host_batch, gs, model), 'fallback'
+        breaker.record_success()
+        return values, 'fused'
+
+    def _flush(self, payloads: List[_Payload], bucket: int, *, lane: int = 0) -> List[Any]:
+        """The batcher's runner: one coalesced, bucket-padded dispatch (the
+        JAX service's ``_flush_rate``; its ``_flush`` also routes scenario
+        payloads, ROADMAP A4)."""
+        _name, _version, model = self._active()  # ONE read per flush
+        t0 = time.perf_counter()
+        stagings = [p.staging for p in payloads]
+        if len(stagings) == 1:
+            host_batch = stagings[0]
+            gs = payloads[0].gs
+        else:
+            host_batch = _concat_games(stagings)
+            gs = (
+                np.concatenate([p.gs for p in payloads], axis=0)
+                if self._gs_enabled
+                else None
+            )
+        # pad here (not inside the dispatch) so the host-side concat+pad
+        # overhead is charged to the 'pad' segment, never to 'dispatch'
+        host_batch, gs = _pad_to_bucket(host_batch, gs, bucket)
+        # time-rung models (seq heads) also snap the WINDOW length to a
+        # power-of-two rung, read from the host lengths
+        time_len = (
+            bucket_window(int(np.asarray(host_batch.n_actions).max()), self.max_actions)
+            if getattr(model, 'time_rungs', False)
+            else None
+        )
+        t_pad = time.perf_counter()
+        values, path = self._rate_with_breaker(
+            host_batch, gs, model, bucket, lane, time_len=time_len
+        )
+        t_dispatch = time.perf_counter()
+        if path == 'fused':
+            # the flush's dispatch wall ends after the values' copy, so it
+            # is synchronized; fallback flushes run another function
+            record_dispatch('pair_probs', t_dispatch - t_pad, bucket=bucket)
+        # the values are on the host now, so the dispatch's guard events
+        # have completed: draining converts without waiting on the device
+        self._drain_numeric_guards()
+
+        results: List[Any] = []
+        for i, p in enumerate(payloads):
+            if p.keep is None:
+                import pandas as pd
+
+                rows = unpack_values(values[i : i + 1], p.staging)
+                results.append(pd.DataFrame(rows, columns=RATING_COLUMNS, index=p.index))
+            else:
+                context, m = p.keep
+                results.append(values[i, context : context + m, :].copy())
+        t_slice = time.perf_counter()
+
+        # the flush-shared half of the per-request wall decomposition
+        # (queue_wait is the batcher's)
+        exemplar = next((p.ctx.request_id for p in payloads if p.ctx is not None), None)
+        pad_s = t_pad - t0
+        dispatch_s = t_dispatch - t_pad
+        slice_s = t_slice - t_dispatch
+        record_segment('pad', pad_s, exemplar)
+        record_segment('dispatch', dispatch_s, exemplar)
+        record_segment('slice', slice_s, exemplar)
+        for p in payloads:
+            if p.ctx is not None:
+                p.ctx.segments.update(pad=pad_s, dispatch=dispatch_s, slice=slice_s)
+        return results
+
+    # -- numeric health -----------------------------------------------------
+
+    def _drain_numeric_guards(self) -> None:
+        """Drain pending in-dispatch guards; act on nonzero detections.
+
+        Runs on the flusher thread, after the flush's values copy. A
+        detection is already counted by the drain itself; the service adds
+        the rate-limited debug bundle and the :meth:`health` degradation
+        for **nonfinite** events only (overflow stays a metric-level
+        warning).
+        """
+        try:
+            events = drain_guards()
+        except Exception:  # guard telemetry must never fail a flush
+            return
+        bad = [e for e in events if e.kind == 'nonfinite']
+        if not bad:
+            return
+        with self._dump_lock:
+            self._nonfinite_events += len(bad)
+        self._maybe_dump(
+            'nonfinite',
+            {'type': 'nonfinite_dispatch', 'events': [e.to_dict() for e in bad]},
+        )
+
+    # -- flight recorder + health ------------------------------------------
+
+    def _queue_state(self) -> Dict[str, Any]:
+        """The batcher's current state, for triggers and ``health()``."""
+        b = self._batcher
+        crashed = b.crashed
+        return {
+            'queue_depth': b.queue_depth,
+            'max_queue': b.max_queue,
+            'flusher_alive': b.flusher_alive,
+            'flusher_error': f'{type(crashed).__name__}: {crashed}' if crashed else None,
+            'last_flush_age_s': b.last_flush_age_s,
+        }
+
+    def _maybe_dump(self, reason: str, trigger: Dict[str, Any]) -> Optional[str]:
+        """Write a debug bundle, rate-limited per reason; never raises.
+
+        Every trigger increments ``serve/debug_dumps{reason=...}`` even
+        when the bundle itself is rate-limited away.
+        """
+        counter('serve/debug_dumps', unit='count').inc(1, reason=reason)
+        now = time.monotonic()
+        with self._dump_lock:
+            last = self._last_dump_t.get(reason)
+            if last is not None and now - last < self.dump_interval_s:
+                return None
+            self._last_dump_t[reason] = now
+        try:
+            path = dump_debug_bundle(
+                self.debug_dir,
+                reason=reason,
+                trigger={**trigger, 'queue_state': self._queue_state()},
+            )
+        except Exception:  # a failing dump must never mask the trigger
+            return None
+        self.last_dump_path = path
+        return path
+
+    def _on_flusher_crash(self, exc: BaseException) -> None:
+        """Batcher crash hook: the service is dead — dump the recorder."""
+        self._maybe_dump(
+            'flusher_crash',
+            {'type': 'flusher_crash', 'error': f'{type(exc).__name__}: {exc}'},
+        )
+
+    def _note_overload(self) -> None:
+        """Track ``Overloaded`` raises; a burst past the threshold dumps."""
+        now = time.monotonic()
+        with self._dump_lock:
+            self._overloads.append(now)
+            cutoff = now - self.overload_dump_window_s
+            while self._overloads and self._overloads[0] < cutoff:
+                self._overloads.popleft()
+            burst = len(self._overloads)
+        if burst >= self.overload_dump_threshold:
+            self._maybe_dump(
+                'overload',
+                {
+                    'type': 'overload_burst',
+                    'rejections_in_window': burst,
+                    'window_s': self.overload_dump_window_s,
+                },
+            )
+
+    def _aot_block(self) -> Dict[str, Any]:
+        """The ``health()['aot']`` entry: the JAX service's block with no
+        shipped executables (the port's warm tier is ROADMAP A5)."""
+        block: Dict[str, Any] = {'available': False}
+        if self._cache_state is not None:
+            block['compile_cache'] = dict(self._cache_state)
+        return block
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness/pressure dict for external pollers (one cheap call).
+
+        Reads only host state and the typed metric snapshot — no device
+        work, safe on any thread at any rate. The JAX service's keys:
+        ``status`` (``'ok'`` | ``'degraded'`` | ``'flusher-dead'``), the
+        queue state, the ``numerics`` block (``status`` degrades when this
+        service's flushes detected non-finite values), the ``breaker``
+        block (a non-closed breaker reads ``'degraded'``: flushes are
+        being served through the reference), ``flusher_restarts``, the
+        active model (``kernel`` names the rating path and B1's launches
+        by instantiation), compiled-shape budget vs. ladder, the ``aot``
+        block, the ``capacity`` block (live roofline entries and the
+        residency ledger's ``owned_bytes``), the measured request p99 vs.
+        the ``slo_p99_ms`` budget, rejection and debug-dump totals,
+        ``last_dump`` and ``uptime_s``.
+        """
+        snap = REGISTRY.snapshot()
+        # worst p99 across traffic kinds (rate AND session)
+        lat = snap.get('serve/request_seconds')
+        p99s = [
+            s.quantiles['p99']
+            for s in (lat.series if lat is not None else ())
+            if s.count and s.quantiles and s.labels.get('kind') != 'warmup'
+        ]
+        p99_ms = max(p99s) * 1e3 if p99s else None
+        name, version, _model = self._active()
+        state = self._queue_state()
+        slo_block: Dict[str, Any] = {
+            'request_p99_ms': p99_ms,
+            'budget_p99_ms': self.slo_p99_ms,
+            'ok': None if p99_ms is None else bool(p99_ms <= self.slo_p99_ms),
+        }
+        with self._dump_lock:
+            nonfinite_events = self._nonfinite_events
+        numerics_ok = nonfinite_events == 0
+        breaker_block = self._breaker.to_dict() if self._breaker is not None else None
+        breaker_ok = breaker_block is None or breaker_block['state'] == 'closed'
+        owned = owned_bytes()
+        if not state['flusher_alive']:
+            status = 'flusher-dead'
+        elif not numerics_ok or not breaker_ok:
+            status = 'degraded'
+        else:
+            status = 'ok'
+        dumps = snap.get('serve/debug_dumps')
+        return {
+            'status': status,
+            **state,
+            'numerics': {
+                'ok': numerics_ok,
+                'nonfinite_events': nonfinite_events,
+                'parity': None,
+            },
+            'breaker': breaker_block,
+            'flusher_restarts': self._batcher.flusher_restarts,
+            'model': {
+                'name': name,
+                'version': version,
+                'quantize': self._model_quantize(),
+                'kernel': self._model_kernel(),
+            },
+            'ladder': list(self.ladder),
+            'compiled_shapes': self.compiled_shapes,
+            'aot': self._aot_block(),
+            'capacity': {
+                'perf': perf_snapshot(),
+                'owned_bytes': owned,
+                'owned_total_bytes': sum(owned.values()),
+            },
+            'slo': slo_block,
+            'rejected_total': int(snap.value('serve/rejected_total')),
+            'debug_dumps': int(sum(s.total for s in dumps.series) if dumps is not None else 0),
+            'last_dump': self.last_dump_path,
+            'uptime_s': time.monotonic() - self._started_t,
+        }
+
+    def telemetry(self, replica: Optional[str] = None) -> Any:
+        """The replica's exposition bundle: not ported yet (ROADMAP A6)."""
+        raise _not_ported('RatingService.telemetry', 'A6')
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def load_aot(self) -> Optional[Dict[str, Any]]:
+        """Shipped serving executables: not ported yet (ROADMAP A5)."""
+        raise _not_ported('RatingService.load_aot', 'A5')
+
+    def warmup(
+        self,
+        buckets: Optional[Tuple[int, ...]] = None,
+        *,
+        scenario_buckets: Optional[Tuple[int, ...]] = None,
+    ) -> Tuple[int, ...]:
+        """Dispatch every rung of the bucket ladder once; returns the buckets.
+
+        Each rung goes through :meth:`_device_rate` on the model's device,
+        not through the breaker, so a B1 that cannot build or launch (or
+        refuses the model's widths) raises out of this call before any
+        traffic arrives. Seq models warm every window rung too. After
+        warmup the shape counters stay flat under any traffic.
+        """
+        if scenario_buckets:
+            raise _not_ported('RatingService.warmup(scenario_buckets=...)', 'A4')
+        buckets = tuple(buckets) if buckets is not None else self._batcher.ladder
+        _name, _version, model = self._active()
+        self._cache_state = {'dir': None}
+        A = self.max_actions
+        rungs: Tuple[Optional[int], ...] = (
+            window_ladder(A) if getattr(model, 'time_rungs', False) else (None,)
+        )
+        with span('serve/warmup', buckets=list(buckets)):
+            for b in buckets:
+                for tl in rungs:
+                    self._device_rate(
+                        _empty_host_batch(1, A), _empty_gs(1, A), model, b, time_len=tl,
+                    )
+        return buckets
+
+    def close(self, *, drain: bool = True) -> None:
+        """Flush (or fail) queued requests and stop the flusher thread."""
+        self._batcher.close(drain=drain)
+
+    def __enter__(self) -> 'RatingService':
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def ladder(self) -> Tuple[int, ...]:
+        """The bucket ladder (the shape budget) of this service."""
+        return self._batcher.ladder
+
+    @property
+    def compiled_shapes(self) -> int:
+        """Distinct ``(bucket, max_actions)`` shapes dispatched so far (the
+        JAX service's compiled programs: here, shapes first launched)."""
+        with self._shape_lock:
+            return len(self._seen_shapes)
+
+    @property
+    def breaker(self) -> Optional[CircuitBreaker]:
+        """The fused-dispatch circuit breaker (None when disabled)."""
+        return self._breakers[0]
+
+    @property
+    def breakers(self) -> Tuple[Optional[CircuitBreaker], ...]:
+        """Every lane's circuit breaker (one: the service has one lane)."""
+        return tuple(self._breakers)
+
+    @property
+    def nonfinite_events(self) -> int:
+        """Nonfinite in-dispatch guard events drained by this service."""
+        with self._dump_lock:
+            return self._nonfinite_events
+
+
+def _on_device(device: torch.device) -> Any:
+    """The card's device context for a dispatch from any thread (a no-op
+    for the CPU)."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _upload(
+    host_batch: ActionBatch, gs: Optional[np.ndarray], device: torch.device
+) -> Tuple[ActionBatch, Optional[Dict[str, torch.Tensor]]]:
+    """A host staging batch (and its goalscore block) on ``device``.
+
+    On a card each field is copied from pinned memory without waiting, on
+    the current stream; the batch keeps the host's action count, so
+    nothing here reads the device.
+    """
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == 'cuda':
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    batch = type(host_batch)(**{n: put(a) for n, a in host_batch.fields().items()})
+    batch = batch.with_total(host_batch.total_actions)
+    return batch, ({'goalscore': put(gs)} if gs is not None else None)
+
+
+def _concat_games(stagings: List[ActionBatch]) -> ActionBatch:
+    """Host staging batches stacked along the game axis, field by field."""
+    names = list(stagings[0].fields())
+    return type(stagings[0])(
+        **{n: np.concatenate([getattr(s, n) for s in stagings], axis=0) for n in names}
+    )
+
+
+def _pad_to_bucket(
+    host_batch: ActionBatch, gs: Optional[np.ndarray], bucket: int
+) -> Tuple[ActionBatch, Optional[np.ndarray]]:
+    """Pad a staging batch (and its goalscore block) up to the bucket.
+
+    The ONE home of the padding rule, shared by the flush (which pads
+    early so the cost lands in the 'pad' segment) and ``_device_rate``
+    (whose call no-ops on pre-padded batches but still covers warmup's
+    direct 1-game dispatches).
+    """
+    if host_batch.n_games != bucket:
+        host_batch = pad_batch_games(host_batch, bucket)
+        if gs is not None:
+            gs = np.pad(gs, [(0, bucket - gs.shape[0]), (0, 0), (0, 0)])
+    return host_batch, gs
+
+
+def _slice_window(
+    host_batch: ActionBatch, gs: Optional[np.ndarray], time_len: int
+) -> Tuple[ActionBatch, Optional[np.ndarray]]:
+    """Slice the action axis of a staging batch to its window rung.
+
+    Per-action ``(G, A)`` fields (and the ``(G, A, 3)`` goalscore block)
+    drop their masked tail beyond ``time_len``; per-game ``(G,)`` fields
+    pass through. Only valid for ``time_len >= n_actions.max()``.
+    """
+    sliced = dataclasses.replace(
+        host_batch,
+        **{n: a[:, :time_len] for n, a in host_batch.fields().items() if a.ndim >= 2},
+    )
+    if gs is not None:
+        gs = gs[:, :time_len]
+    return sliced, gs
+
+
+def _pad_values_time(values: np.ndarray, max_actions: int) -> np.ndarray:
+    """Zero-pad a ``(G, a, 3)`` values block back to full action capacity."""
+    if values.shape[1] < max_actions:
+        values = np.pad(values, [(0, 0), (0, max_actions - values.shape[1]), (0, 0)])
+    return values
+
+
+def _empty_host_batch(n_games: int, max_actions: int) -> ActionBatch:
+    """An all-padding staging batch (warms every rung)."""
+    G, A = n_games, max_actions
+    i32 = np.zeros((G, A), dtype=np.int32)
+    f32 = np.zeros((G, A), dtype=np.float32)
+    return ActionBatch(
+        type_id=i32, result_id=i32, bodypart_id=i32, period_id=i32,
+        is_home=np.zeros((G, A), dtype=bool),
+        time_seconds=f32, start_x=f32, start_y=f32, end_x=f32, end_y=f32,
+        mask=np.zeros((G, A), dtype=bool),
+        n_actions=np.zeros((G,), dtype=np.int32),
+        game_id=np.arange(G, dtype=np.int32),
+        row_index=np.full((G, A), -1, dtype=np.int32),
+    )
+
+
+def _empty_gs(n_games: int, max_actions: int) -> np.ndarray:
+    return np.zeros((n_games, max_actions, 3), dtype=np.float32)

@@ -113,6 +113,40 @@ def test_unpack_values_matches(spadl_actions, trailing):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize('target', [3, 4, 8])
+def test_pad_batch_games_pads_host_staging_batches(spadl_actions, target):
+    """A host staging batch (numpy fields, ``as_numpy=True``) pads to the
+    same numpy fields as the JAX package's, keeping its host count: the
+    rating service pads every flush so, before anything reaches a device
+    (a repair: the port padded tensors only)."""
+    frame = _two_interleaved_games(spadl_actions)
+    homes = {1: 782, 2: 768}
+    jb, _ = jbatch.pack_actions(frame, homes, max_actions=len(spadl_actions), as_numpy=True)
+    tb, _ = tbatch.pack_actions(frame, homes, max_actions=len(spadl_actions), as_numpy=True)
+    jp, tp = jbatch.pad_batch_games(jb, target), tbatch.pad_batch_games(tb, target)
+    for name in FIELDS:
+        got, want = getattr(tp, name), getattr(jp, name)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert tp.total_actions == tb.total_actions == len(frame)
+
+
+@pytest.mark.parametrize('trailing', [(), (3,)])
+def test_unpack_values_reads_host_arrays(spadl_actions, trailing):
+    """numpy values against a host staging batch, as the rating service
+    unpacks a flush (a repair: the port took tensors only)."""
+    frame = _two_interleaved_games(spadl_actions)
+    homes = {1: 782, 2: 768}
+    jb, _ = jbatch.pack_actions(frame, homes, as_numpy=True)
+    tb, _ = tbatch.pack_actions(frame, homes, as_numpy=True)
+    vals = np.random.default_rng(4).normal(
+        size=(tb.n_games, tb.max_actions, *trailing)
+    ).astype(np.float32)
+    want = jbatch.unpack_values(vals, jb)
+    np.testing.assert_array_equal(tbatch.unpack_values(vals, tb), want)
+    np.testing.assert_array_equal(tbatch.unpack_values(torch.from_numpy(vals), tb), want)
+
+
 def test_batch_to_keeps_fields():
     tb = synthetic_batch(2, 128, seed=4, device='cpu')
     moved = tb.to('cpu')

@@ -9,8 +9,9 @@
   machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
   feed, counterfactual, telemetry, rating-path and learning-loop phases
   also run so, at a tiny size on the CPU, with a checkpoint published and
-  loaded back through the model registry; so do its scale-out phase and
-  its telemetry-plane phase, each in a process of its own.
+  loaded back through the model registry; so do its scale-out phase, its
+  telemetry-plane phase and its serving phase, each in a process of its
+  own.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -79,7 +80,8 @@ def test_the_scan_sees_the_port():
         'serve/__init__.py', 'serve/capture.py', 'serve/registry.py', 'convert.py',
         'parallel/__init__.py', 'parallel/collectives.py', 'parallel/mesh.py', 'parallel/xt.py',
         'parallel/vaep.py', 'parallel/sequence.py', 'parallel/serve.py', 'utils/env.py',
-        'obs/wire.py', 'obs/endpoint.py', 'obs/fleet.py',
+        'obs/wire.py', 'obs/endpoint.py', 'obs/fleet.py', 'resil/breaker.py', 'serve/batcher.py',
+        'serve/session.py', 'serve/service.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -252,6 +254,40 @@ def test_chip_smoke_fleet_phase_runs_with_blocked_packages(tmp_path):
     assert 'stale [\'replica-1\'], status degraded' in proc.stdout
     # the phase cleans up after itself
     assert not (tmp_path / 'build' / 'fleet').exists()
+
+
+#: The smoke's serving phase at a tiny size on the CPU: the rating service,
+#: its batcher, sessions module and breaker import and run with pandas,
+#: JAX and msgpack blocked (requests are built from arrays).
+_SERVE_BLOCKER = _BLOCK + """
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+import socceraction_tpu_torch.serve.service, socceraction_tpu_torch.serve.batcher
+import socceraction_tpu_torch.serve.session, socceraction_tpu_torch.resil.breaker
+sizes = chip_smoke.ServeSizes(max_actions=256, max_batch_size=4, clients=2, requests=3, low=100,
+                              swap_clients=2, swap_requests=3, drain_requests=3, hidden=(8,))
+model = chip_smoke.make_model('cpu', (8,))
+launches = chip_smoke.serve_phase(model, torch.device('cpu'), sizes=sizes)
+assert set(launches.values()) == {0}, launches
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print('isolated')
+"""
+
+
+def test_chip_smoke_serve_phase_runs_with_blocked_packages(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, '-c', _SERVE_BLOCKER, str(ROOT)],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'isolated' in proc.stdout
+    for part in ('(a) warmup', '(b) traffic', '(c) hot swap and rollback', '(d) breaker drill',
+                 '(e) kernel-fault drill', '(f) close(drain=True)'):
+        assert part in proc.stdout
+    # the phase cleans up after itself
+    assert not (tmp_path / 'build' / 'serve').exists()
 
 
 def test_fleet_replica_fails_without_a_gpu(tmp_path):

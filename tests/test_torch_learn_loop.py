@@ -64,7 +64,7 @@ from socceraction_tpu_torch.obs import REGISTRY, drain_guards
 from socceraction_tpu_torch.pipeline.packed import ensure_packed
 from socceraction_tpu_torch.pipeline.store import SeasonStore
 from socceraction_tpu_torch.resil import FaultPlan, FaultSpec, IterationJournal
-from socceraction_tpu_torch.serve import ModelRegistry, TrafficCapture
+from socceraction_tpu_torch.serve import ModelRegistry, RatingService, TrafficCapture
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
 
 HOME = 100
@@ -651,8 +651,10 @@ def test_journal_and_registry_carry_on_across_the_packages(tmp_path, v1_checkpoi
 
 def test_learner_refuses_what_is_not_ported(tmp_path, v1_checkpoint):
     registry = ModelRegistry(str(tmp_path / 'registry'), device='cpu')
-    with pytest.raises(NotImplementedError, match='A3'):
-        ContinuousLearner(None, registry, service=object())
+    # the learner takes a rating service now; one built with what the JAX
+    # loop reads through it (its capture ring) raises naming the item
+    with pytest.raises(NotImplementedError, match='A4'):
+        RatingService(registry=registry, capture=TrafficCapture())
     with pytest.raises(NotImplementedError, match='A5'):
         LearnConfig(aot={'ladder': (1,), 'max_actions': 64})
 
