@@ -241,8 +241,13 @@ from socceraction_tpu_torch.pipeline.packed import (
 )
 from socceraction_tpu_torch.scenario import (
     ScenarioGrid,
+    action_type_sweep,
+    bucket_perturbations,
+    custom_grid,
     decision_surface,
     end_location_grid,
+    expand_scenarios,
+    pad_perturbations,
     rate_scenarios_batch,
     rate_scenarios_looped,
     rate_scenarios_reference,
@@ -264,7 +269,7 @@ from socceraction_tpu_torch.learn import (
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.resil import CircuitBreaker, FaultPlan, FaultSpec
-from socceraction_tpu_torch.serve import ModelRegistry, RatingService
+from socceraction_tpu_torch.serve import ModelRegistry, RatingService, SLOShed
 from socceraction_tpu_torch.serve import service as serve_service
 from socceraction_tpu_torch.serve.session import goalscore_block, score_prefix
 from socceraction_tpu_torch.vaep.base import VAEP, load_model, split_rows
@@ -3503,6 +3508,10 @@ SERVE_RECOVERY_S = 10.0
 #: ``rate_batch_reference``), and the gap that tells two versions apart.
 SERVE_ATOL = 1e-5
 SERVE_APART = 1e-3
+#: The parity probe's band under the service's flushes (f32; PR 8's band).
+SERVE_PROBE_BAND = 2.4e-7
+#: The fleet's code of each breaker state (``resil/breaker_state``).
+BREAKER_CODES = {'closed': 0.0, 'half_open': 1.0, 'open': 2.0}
 
 
 class ServeSizes(NamedTuple):
@@ -3521,6 +3530,14 @@ class ServeSizes(NamedTuple):
     swap_requests: int = 16
     drain_requests: int = 5
     hidden: Tuple[int, ...] = HIDDEN
+    #: the end-location grid (P = 96: bucket 128, 212,992 rows at 1664),
+    #: the sweep's types (all 23) and the custom grid's perturbations
+    grid: Tuple[int, int] = (12, 8)
+    sweep_types: int = 23
+    custom_p: int = 16
+    probe_clients: int = 4
+    probe_requests: int = 16
+    telemetry_requests: int = 4
 
 
 class ServeRequest(NamedTuple):
@@ -3556,13 +3573,90 @@ def serve_request(rng: np.random.Generator, n: int, max_actions: int) -> ServeRe
     return ServeRequest(ActionBatch(**fields), goalscore_block(team, opp, max_actions), n)
 
 
-def submit_request(svc: RatingService, req: ServeRequest) -> Any:
+def submit_request(svc: RatingService, req: ServeRequest, admit: bool = False) -> Any:
     """``req`` into the service where ``rate`` arrives once it has packed
     its frame (``_submit``): admission, the batcher, coalescing, padding,
-    the breaker, B1, the guards and the slicing are the service's own."""
+    the breaker, B1, the guards and the slicing are the service's own.
+    ``admit`` first asks SLO admission, as ``rate`` does before packing."""
+    if admit:
+        svc._check_admission('rate')
     ctx = new_request_context('rate')
     return svc._submit(serve_service._Payload(req.staging, req.gs, keep=(0, req.n), ctx=ctx),
                        'rate', ctx)
+
+
+def submit_scenario(svc: RatingService, req: ServeRequest, grid: ScenarioGrid) -> Any:
+    """``grid`` over ``req``'s game where ``rate_scenarios`` arrives once it
+    has packed its frame: SLO admission, the grid's checks against the
+    window and the model, then ``_submit`` of a scenario payload."""
+    svc._check_admission('scenario')
+    svc._validate_grid(grid)
+    ctx = new_request_context('scenario')
+    return svc._submit(serve_service._ScenarioPayload(req.staging, req.gs, grid, None, ctx),
+                       'scenario', ctx)
+
+
+def run_clients(
+    svc: RatingService, reqs: List[ServeRequest], clients: int, admit: bool = False,
+) -> List[Any]:
+    """``reqs`` from ``clients`` closed-loop client threads (each its own
+    contiguous share); returns the results in request order."""
+    per = len(reqs) // clients
+    results: List[Any] = [None] * len(reqs)
+    errors: List[BaseException] = []
+
+    def client(c: int) -> None:
+        try:
+            for i in range(c * per, (c + 1) * per):
+                results[i] = submit_request(svc, reqs[i], admit).result(timeout=300)
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f'a client failed: {errors[0]!r}')
+    return results
+
+
+def metric_total(name: str) -> float:
+    """The total of every series of one metric in the process registry."""
+    inst = REGISTRY.snapshot().get(name)
+    return float(sum(s.total for s in inst.series)) if inst is not None else 0.0
+
+
+def scenario_counts() -> Dict[str, float]:
+    return {'dispatches': metric_total('scenario/dispatches'),
+            'fallbacks': metric_total('scenario/fallbacks'),
+            'fallback_flushes': REGISTRY.snapshot().value('serve/fallback_flushes')}
+
+
+def fold_first_layer(model: VAEP, batch: Any, overrides: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """B1 on the operands a scenario fold's ``rate_batch`` gives it, against
+    its plain version (atol 1e-4, rtol 1e-5, as phase 3), timed, with its
+    bound."""
+    with captured(fused_ops, 'fused_first_layer_quant') as calls:
+        model.rate_batch(batch, dense_overrides=overrides, bucket=False)
+    ops = calls[0][0]
+    got = gm.fused_first_layer_quant(*ops)
+    want = gm.fused_first_layer_reference(*ops)
+    sync(got.device)
+    max_abs = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    tables, _, _, ids, x = ops
+    record = {
+        'shape': {'n': ids.shape[0], 'k': ids.shape[1], 'r': tables.shape[1], 'h': tables.shape[2],
+                  'd': x.shape[1], 'dtype': str(tables.dtype).replace('torch.', '')},
+        'max_abs_err': max_abs,
+        'ms': graph_ms(lambda: gm.fused_first_layer_quant(*ops), reps=10),
+        'plain_ms': time_ms(lambda: gm.fused_first_layer_reference(*ops), reps=5),
+        **first_layer_bound(ops),
+    }
+    del got, want, calls
+    return record
 
 
 def request_references(model: VAEP, req: ServeRequest, device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
@@ -3648,9 +3742,10 @@ def read_events(prof: Any) -> Dict[str, Any]:
 def serve_phase(
     model: VAEP, device: torch.device, card: str = 'CPU', sizes: ServeSizes = ServeSizes(),
     phase4_median_s: Optional[float] = None,
-) -> Dict[str, int]:
+) -> Tuple[Dict[str, int], Dict[str, Any]]:
     """Phase 16: ``RatingService`` over ``model`` at the JAX service's
-    default shape, through B1. Returns B1's launches by part.
+    default shape, through B1. Returns B1's launches by part and the
+    scenario fold's timing (with B1 at the fold's shape on a card).
 
     The phase does not call ``rate(df)`` (the card's machine has no
     pandas): each request's one-game host staging batch is built from
@@ -3666,7 +3761,16 @@ def serve_phase(
     submit, then rolled back; (d) a breaker drill on an injected clock
     with ``serve.dispatch`` faults; (e) B1's library load made to fail,
     which reaches the request as a ``KernelError``; (f)
-    ``close(drain=True)``.
+    ``close(drain=True)``; (g) ``warmup(scenario_buckets=)`` and three
+    scenario requests over one game (an end-location grid, an action-type
+    sweep, a custom dense-override grid), entering where
+    ``rate_scenarios`` arrives once it has packed its frame
+    (:func:`submit_scenario`), each held to the looped materialized
+    reference and to a loop of ``rate_batch`` calls, then one take that
+    mixes a scenario payload with rate payloads; (h) a ``ParityProbe`` on
+    every flush; (i) SLO admission, a loose and an impossible objective;
+    (j) a ``serve.dispatch`` fault and a B1 that cannot load under
+    scenario flushes; (k) ``telemetry()`` scraped by a fleet aggregator.
     """
     label = f'serve ({device}, {card})'
     A = sizes.max_actions
@@ -3982,9 +4086,239 @@ def serve_phase(
         raise RuntimeError(f"{label}: close(drain=True): depth {depth}, gaps {gaps}, late {late}, "
                            f"B1 {launches['close']}")
     print(f'{label}: (f) close(drain=True) {json.dumps({"queued": depth, "resolved": len(gaps), "max_abs_err": max(gaps), "submit_after_close": late, "b1": launches["close"]})}')
+
+    # -- (g) scenarios: the verb's folded flushes through B1
+    t_part = time.perf_counter()
+    part_walls: Dict[str, float] = {}
+    nx, ny = sizes.grid
+    scen_bucket = bucket_perturbations(nx * ny)
+    game = serve_request(rng, A, A)
+    width = model._dense_override_widths()['time_delta']
+    grids = {
+        'end_location_grid': end_location_grid(nx, ny),
+        'action_type_sweep': action_type_sweep(range(sizes.sweep_types)),
+        'custom_grid': custom_grid(dense_overrides={'time_delta': np.random.default_rng(160).normal(
+            0, 5, size=(sizes.custom_p, 1, A, width)).astype(np.float32)}),
+    }
+    svc = RatingService(model, **shape)
+    gm.fused_first_layer_quant.launches = 0
+    svc.warmup(scenario_buckets=(scen_bucket,))
+    launches['scenario warmup'] = b1()
+    warm_shapes = len(set(svc.ladder) | {scen_bucket})
+    if launches['scenario warmup'] != kernel_launches(warm_shapes, device) or \
+            svc.compiled_shapes != warm_shapes:
+        raise RuntimeError(f"{label}: scenario warm-up launched B1 {launches['scenario warmup']} "
+                           f'times over {svc.compiled_shapes} shapes')
+    before, scen_before = serve_counts(), scenario_counts()
+    gm.fused_first_layer_quant.launches = 0
+    outs = {name: submit_scenario(svc, game, g).result(timeout=300) for name, g in grids.items()}
+    launches['scenarios'] = b1()
+    scen = delta(scenario_counts(), scen_before)
+    counts = delta(serve_counts(), before)
+    if launches['scenarios'] != kernel_launches(scen['dispatches'], device) or \
+            scen['dispatches'] != len(grids) or scen['fallbacks'] or counts['fallback_flushes'] or \
+            svc.compiled_shapes != warm_shapes:
+        raise RuntimeError(f"{label}: {launches['scenarios']} B1 launches for scenario flushes "
+                           f'{scen}, fallback {counts}, shapes {svc.compiled_shapes}')
+    # references outside the counted run: the looped materialized oracle
+    # and the loop of one rate_batch a perturbation, on the card
+    gbatch, goverrides = serve_service._upload(game.staging, game.gs, device)
+    refs: Dict[str, np.ndarray] = {}
+    scenarios: Dict[str, Any] = {}
+    for name, g in grids.items():
+        got = outs[name]
+        ref = rate_scenarios_reference(model, gbatch, g, dense_overrides=goverrides)
+        loop = rate_scenarios_looped(model, gbatch, g, dense_overrides=goverrides, bucket=False)
+        refs[name] = ref[:, 0, : game.n].cpu().numpy()
+        loop = loop[:, 0, : game.n].cpu().numpy()
+        P = g.n_perturbations
+        if got.shape != (P, game.n, 3) or not np.isfinite(got).all():
+            raise RuntimeError(f'{label}: {name} came back {got.shape}')
+        scenarios[name] = {'perturbations': P, 'bucket': bucket_perturbations(P),
+                           'rows': bucket_perturbations(P) * A,
+                           'max_abs_err_vs_reference': float(np.abs(got - refs[name]).max()),
+                           'max_abs_err_vs_rate_batch_loop': float(np.abs(got - loop).max())}
+        if max(scenarios[name]['max_abs_err_vs_reference'],
+               scenarios[name]['max_abs_err_vs_rate_batch_loop']) > SERVE_ATOL:
+            raise RuntimeError(f'{label}: {name} {scenarios[name]} (limit {SERVE_ATOL})')
+    del gbatch, goverrides
+    # the folded flush against a bare rate_batch of its padded batch
+    fold = grids['end_location_grid']
+    payload = serve_service._ScenarioPayload(game.staging, game.gs, fold)
+    flush_s = synced_median(lambda: svc._flush([payload], 1), device)
+    expanded, _ = expand_scenarios(game.staging, pad_perturbations(fold, scen_bucket))
+    ebatch, eoverrides = serve_service._upload(expanded, np.tile(game.gs, (scen_bucket, 1, 1)), device)
+    bare_s = synced_median(lambda: model.rate_batch(ebatch, dense_overrides=eoverrides, bucket=False),
+                           device)
+    fold_b1 = fold_first_layer(model, ebatch, eoverrides) if device.type == 'cuda' else None
+    del ebatch, eoverrides, expanded
+    svc.close()
+    timing = {'perturbations': fold.n_perturbations, 'bucket': scen_bucket, 'actions': game.n,
+              'flush_s': flush_s, 'values_per_s': fold.n_perturbations * game.n / flush_s,
+              'bare_rate_batch_s': bare_s, 'b1_at_fold_shape': fold_b1}
+    # one take of 3 rate payloads and a scenario payload: two dispatches
+    mix = RatingService(model, **{**shape, 'max_wait_ms': 600_000.0})
+    takes = count_takes(mix)
+    gm.fused_first_layer_quant.launches = 0
+    futs = [submit_request(mix, reqs[0]), submit_request(mix, reqs[1]),
+            submit_scenario(mix, game, grids['action_type_sweep']), submit_request(mix, reqs[2])]
+    mix.close(drain=True)
+    mixed = [f.result(timeout=300) for f in futs]
+    launches['mixed take'] = b1()
+    mix_gaps = [float(np.abs(mixed[i] - request_references(model, reqs[j], device)[0]).max())
+                for i, j in ((0, 0), (1, 1), (3, 2))]
+    mix_gaps.append(float(np.abs(mixed[2] - refs['action_type_sweep']).max()))
+    if takes != [(4, 4)] or launches['mixed take'] != kernel_launches(2, device) or \
+            max(mix_gaps) > SERVE_ATOL or mixed[2].shape != (sizes.sweep_types, game.n, 3):
+        raise RuntimeError(f"{label}: the mixed take {takes} launched B1 {launches['mixed take']} "
+                           f'times, gaps {mix_gaps}')
+    part_walls['g'] = time.perf_counter() - t_part
+    print(f'{label}: (g) scenarios {json.dumps({"warmup_b1": launches["scenario warmup"], "compiled_shapes": warm_shapes, "b1": launches["scenarios"], "scenario_flushes": scen, "requests": scenarios, "fold_flush": timing, "mixed_take": {"takes": takes, "b1": launches["mixed take"], "max_abs_err": max(mix_gaps)}})}')
+
+    # -- (h) the parity probe under the flushes
+    t_part = time.perf_counter()
+    n_probe = sizes.probe_clients * sizes.probe_requests
+    probe = ParityProbe(sample_rate=1.0, max_abs_err=SERVE_PROBE_BAND, queue_size=n_probe + 1)
+    svc = RatingService(model, parity=probe, **shape)
+    svc.warmup()
+    takes = count_takes(svc)
+    gm.fused_first_layer_quant.launches = 0
+    probed = run_clients(svc, reqs[:n_probe], sizes.probe_clients)
+    sync(device)
+    launches['parity probe'] = b1()
+    if not probe.flush(timeout=300):
+        raise RuntimeError(f'{label}: the probe did not finish')
+    stats = probe.stats()
+    n_flushes = len(takes)
+    probe_gap = max(float(np.abs(got - request_references(model, r, device)[0]).max())
+                    for r, got in zip(reqs, probed))
+    if stats['probes'] != n_flushes or stats['exceedances'] or stats['errors'] or \
+            not stats['max_abs_err'] <= SERVE_PROBE_BAND or probe_gap > SERVE_ATOL or \
+            launches['parity probe'] != kernel_launches(n_flushes, device):
+        raise RuntimeError(f"{label}: probe {stats} over {n_flushes} flushes, B1 "
+                           f"{launches['parity probe']}, requests {probe_gap} off")
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:top]]
+    sync(device)
+    with profile(activities=activities) as prof:
+        svc._flush(payloads, top)
+    probe_reads = read_events(prof)
+    if (probe_reads['before_copy'] if device.type == 'cuda' else []) or not probe.flush(timeout=300) \
+            or probe.stats()['probes'] != n_flushes + 1 or probe.stats()['exceedances']:
+        raise RuntimeError(f'{label}: the probed flush read the device before its values copy '
+                           f'({probe_reads}) or its probe {probe.stats()}')
+    health = svc.health()
+    svc.close()
+    part_walls['h'] = time.perf_counter() - t_part
+    print(f'{label}: (h) parity probe {json.dumps({"requests": n_probe, "flushes": n_flushes, "b1": launches["parity probe"], "probes": stats["probes"], "exceedances": stats["exceedances"], "max_abs_err": stats["max_abs_err"], "max_ulp_err": stats["max_ulp_err"], "band": SERVE_PROBE_BAND, "requests_max_abs_err": probe_gap, "profiled_flush": probe_reads, "health": health["status"], "closed_with_the_service": probe.should_sample() is False})}')
+
+    # -- (i) SLO admission: a loose objective sheds nothing, an impossible
+    # one sheds by burn rate (tests/test_slo.py's forced burn)
+    t_part = time.perf_counter()
+    shed_before = metric_total('slo/shed_total')
+    svc = RatingService(model, slo=SLOConfig.simple(latency_ms=1000.0), **shape)
+    svc.warmup()
+    gm.fused_first_layer_quant.launches = 0
+    run_clients(svc, reqs[:n_probe], sizes.probe_clients, admit=True)
+    launches['slo'] = b1()
+    loose = svc.health()['slo']
+    loose_shed = metric_total('slo/shed_total') - shed_before
+    svc.close()
+    if loose_shed or loose['shedding']:
+        raise RuntimeError(f'{label}: a loose objective shed {loose_shed}: {loose}')
+    svc = RatingService(model, slo=SLOConfig.simple(
+        latency_ms=1e-6, latency_target=0.9, fast_window_s=0.5, slow_window_s=1.0,
+        min_events=4, shed_burn_rate=1.0, eval_interval_s=0.0), **shape)
+    shed_at, reason = None, None
+    for i, r in enumerate(reqs[:16]):
+        try:
+            submit_request(svc, r, admit=True).result(timeout=300)
+        except SLOShed as e:
+            shed_at, reason = i, e.reason
+            break
+    tight = svc.health()['slo']
+    tight_shed = metric_total('slo/shed_total') - shed_before
+    svc.close()
+    if shed_at is None or reason['objective'] != 'latency' or not reason['burn_rate_fast'] > 1.0 \
+            or not reason['burn_rate_slow'] > 1.0 or tight_shed < 1 or not tight['shedding']:
+        raise RuntimeError(f'{label}: the impossible objective: shed at {shed_at}, {reason}, '
+                           f'{tight_shed} counted, health {tight}')
+    part_walls['i'] = time.perf_counter() - t_part
+    print(f'{label}: (i) SLO {json.dumps({"loose": {"requests": n_probe, "shed": loose_shed, "shedding": loose["shedding"], "request_p99_ms": loose["request_p99_ms"], "b1": launches["slo"]}, "impossible": {"shed_at_request": shed_at, "reason": reason, "shed_total": tight_shed, "shedding": tight["shedding"]}})}')
+
+    # -- (j) the scenario breaker, and a kernel that cannot run
+    t_part = time.perf_counter()
+    sweep = grids['action_type_sweep']
+    svc = RatingService(model, **shape)
+    before = scenario_counts()
+    gm.fused_first_layer_quant.launches = 0
+    with FaultPlan(seed=16, specs=[FaultSpec('serve.dispatch', error=RuntimeError, nth=1)]):
+        degraded = submit_scenario(svc, game, sweep).result(timeout=300)
+    launches['scenario breaker drill'] = b1()
+    drill = delta(scenario_counts(), before)
+    degraded_gap = float(np.abs(degraded - refs['action_type_sweep']).max())
+    breaker_after = svc.breaker.to_dict()
+    if drill != {'dispatches': 0, 'fallbacks': 1, 'fallback_flushes': 1} or degraded_gap > SERVE_ATOL \
+            or launches['scenario breaker drill'] != 0 or breaker_after['consecutive_failures'] != 1:
+        raise RuntimeError(f'{label}: scenario breaker drill {drill}, {degraded_gap} off, B1 '
+                           f"{launches['scenario breaker drill']}, breaker {breaker_after}")
+    before = scenario_counts()
+    gm.fused_first_layer_quant.launches = 0
+    real = getattr(*patched)
+    setattr(*patched, no_b1)
+    try:
+        fut = submit_scenario(svc, game, sweep)
+        try:
+            fut.result(timeout=300)
+            scen_raised = None
+        except cuda_build.KernelError as e:
+            scen_raised = str(e)
+    finally:
+        setattr(*patched, real)
+    fault = delta(scenario_counts(), before)
+    unmoved = svc.breaker.to_dict() == breaker_after
+    if scen_raised is None or not unmoved or fault['fallbacks'] or fault['fallback_flushes']:
+        raise RuntimeError(f'{label}: scenario kernel-fault drill: raised {scen_raised}, breaker '
+                           f'{svc.breaker.to_dict()} (was {breaker_after}), {fault}')
+    again = submit_scenario(svc, game, sweep).result(timeout=300)
+    launches['scenario kernel-fault drill'] = b1()
+    again_gap = float(np.abs(again - refs['action_type_sweep']).max())
+    if launches['scenario kernel-fault drill'] != kernel_launches(1, device) or again_gap > SERVE_ATOL:
+        raise RuntimeError(f"{label}: after the scenario kernel-fault drill B1 launched "
+                           f"{launches['scenario kernel-fault drill']} times, values {again_gap} off")
+    svc.close()
+    part_walls['j'] = time.perf_counter() - t_part
+    print(f'{label}: (j) scenario breaker and kernel-fault drills {json.dumps({"fault_at_dispatch": {"counts": drill, "max_abs_err_vs_reference": degraded_gap, "b1": launches["scenario breaker drill"], "breaker": breaker_after["state"], "consecutive_failures": breaker_after["consecutive_failures"]}, "b1_cannot_load": {"future_raised": scen_raised, "counts": fault, "breaker_unmoved": unmoved, "b1_after_restore": launches["scenario kernel-fault drill"], "max_abs_err": again_gap}})}')
+
+    # -- (k) telemetry(): the service's rows on the fleet's scrape surface
+    t_part = time.perf_counter()
+    svc = RatingService(model, **shape)
+    gm.fused_first_layer_quant.launches = 0
+    for r in reqs[: sizes.telemetry_requests]:
+        submit_request(svc, r).result(timeout=300)
+    launches['telemetry'] = b1()
+    sock = os.path.join(SERVE_DIR, 'serve-0.sock')
+    with serve_telemetry(telemetry=svc.telemetry(replica='serve-0'), unix_path=sock):
+        health = svc.health()
+        scraped = scrape_health(sock, timeout=5.0)
+        aggregator = FleetAggregator({'serve-0': sock}, registry=MetricRegistry())
+        outcome = aggregator.scrape()
+        rows = {r['signal']: r for r in aggregator.aggregate().divergence}
+    svc.close()
+    want_rows = {'request_p99_s': health['slo']['request_p99_ms'] / 1e3,
+                 'breaker_state': BREAKER_CODES[health['breaker']['state']]}
+    got_rows = {k: rows[k]['value'] for k in want_rows if k in rows}
+    if outcome != {'serve-0': True} or set(got_rows) != set(want_rows) or \
+            any(abs(got_rows[k] - v) > 1e-12 * max(1.0, abs(v)) for k, v in want_rows.items()) or \
+            scraped['breaker'] != health['breaker'] or \
+            launches['telemetry'] != kernel_launches(sizes.telemetry_requests, device):
+        raise RuntimeError(f'{label}: telemetry scrape {outcome}, rows {got_rows} against health '
+                           f"{want_rows}, B1 {launches['telemetry']}")
+    part_walls['k'] = time.perf_counter() - t_part
+    print(f'{label}: (k) telemetry {json.dumps({"scrape": outcome, "rows": {k: rows[k] for k in want_rows}, "health": want_rows, "status": scraped["status"]})}')
+    print(f'{label}: (g) to (k) walls (s) {json.dumps(part_walls)}')
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     print(f'{label}: B1 launches {json.dumps(launches)}; phase 16 in {time.perf_counter() - t_phase:.1f} s')
-    return launches
+    return launches, timing
 
 
 def main() -> int:
@@ -4203,7 +4537,8 @@ def main() -> int:
     lap('phase 15 fleet')
 
     # -- phase 16, in-process serving -----------------------------------------------
-    serve_launches = serve_phase(model, device, card, phase4_median_s=serving['median_s'])
+    serve_launches, serve_fold = serve_phase(model, device, card,
+                                             phase4_median_s=serving['median_s'])
     del model
     torch.cuda.empty_cache()
     lap('phase 16 serving')
@@ -4273,6 +4608,8 @@ def main() -> int:
             for label, rec in (('standard', serving), ('atomic', atomic_serving))
         },
         'phase12_shape': rating['kernels']['gather_matmul'],
+        # a scenario request's fold (P = 96 in bucket 128) through the service
+        'scenario_fold_shape': serve_fold['b1_at_fold_shape'],
         'loop_training_shape': learn['kernel'],
         'training_shapes': [
             {k: rec[k] for k in (

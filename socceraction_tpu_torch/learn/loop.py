@@ -460,17 +460,21 @@ class ContinuousLearner:
     def _parity_stats(self) -> Optional[Dict[str, Any]]:
         """The serving layer's numeric-health stats for the gate.
 
-        The fail-closed ``GateConfig(max_parity_err=)`` input. The JAX
-        loop reads the service's parity probe here too; the port's service
-        has none yet (ROADMAP A4), so this is only the service's drained
-        nonfinite-event count (``serve_nonfinite_events``). None when no
-        service is attached or it saw no detections — with the band set,
-        that absence itself blocks promotion.
+        The fail-closed ``GateConfig(max_parity_err=)`` input: the
+        service's parity probe's stats plus its drained nonfinite-event
+        count (``serve_nonfinite_events``: a NaN that reached served values
+        makes the captured window untrustworthy whatever the paths' parity).
+        None when no service (or no probe and no detections) is attached —
+        with the band set, that absence itself blocks promotion.
         """
+        probe = getattr(self.service, 'parity', None)
+        stats = probe.stats() if probe is not None else None
         nonfinite = int(getattr(self.service, 'nonfinite_events', 0) or 0)
-        if not nonfinite:
-            return None
-        return {'evaluated': False, 'probes': 0, 'serve_nonfinite_events': nonfinite}
+        if stats is None and nonfinite:
+            stats = {'evaluated': False, 'probes': 0}
+        if stats is not None:
+            stats['serve_nonfinite_events'] = nonfinite
+        return stats
 
     @staticmethod
     def _train_health_reasons(candidate: Any) -> List[str]:

@@ -16,7 +16,9 @@ the f32 contract (1e-5), not bitwise.
 Unlike the JAX package, the fold runs on the batch's device: fields are
 repeated along the game axis and rewritten there, and caller overrides
 are tiled there, so a batch on the card never crosses PCIe. Values come
-back as a tensor on the model's device.
+back as a tensor on the model's device. A host staging batch (numpy
+fields, as the rating service packs a request) folds on the host, into
+numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.batch import bucket_games, bucket_ladder
@@ -74,8 +77,11 @@ def expand_scenarios(
     cast to the field's dtype); every other field, ``mask``/``n_actions``
     bookkeeping included, is repeated verbatim, so padding stays padding
     in every copy. Updates to fields the batch does not have (an atomic
-    batch has no ``result_id``) are ignored.
+    batch has no ``result_id``) are ignored. A host staging batch (numpy
+    fields) expands on the host into numpy fields and blocks.
     """
+    if isinstance(batch.type_id, np.ndarray):
+        return _expand_host(batch, grid, dense_overrides)
     P = grid.n_perturbations
     G, A = batch.n_games, batch.max_actions
     dev = batch.device
@@ -100,18 +106,58 @@ def expand_scenarios(
     expanded = type(batch)(**fields).with_total(None if known is None else P * known)
 
     overrides: Dict[str, torch.Tensor] = {}
+    for name, block in _grid_blocks(grid, G, A).items():
+        overrides[name] = torch.as_tensor(block, device=dev)
+    for name, block in dict(dense_overrides or {}).items():
+        if name in overrides:
+            raise _conflict(name)
+        overrides[name] = torch.as_tensor(block, device=dev).repeat(P, 1, 1)
+    return expanded, overrides
+
+
+def _grid_blocks(grid: ScenarioGrid, G: int, A: int) -> Dict[str, np.ndarray]:
+    """The grid's dense blocks checked against ``(G, A)`` and reshaped to
+    ``(P·G, A, width)``."""
+    P = grid.n_perturbations
+    out = {}
     for name, block in grid.dense_overrides.items():
         if block.shape[1] != G or block.shape[2] != A:
             raise ValueError(
                 f'dense override {name!r} has shape {block.shape}, '
                 f'batch needs (P, G, A, width) with (G, A) = ({G}, {A})'
             )
-        overrides[name] = torch.as_tensor(block, device=dev).reshape(P * G, A, block.shape[3])
+        out[name] = np.ascontiguousarray(block.reshape(P * G, A, block.shape[3]))
+    return out
+
+
+def _expand_host(
+    batch: Any, grid: ScenarioGrid, dense_overrides: Optional[Mapping[str, Any]]
+) -> Tuple[Any, Dict[str, np.ndarray]]:
+    """:func:`expand_scenarios` of a host staging batch, in numpy."""
+    P = grid.n_perturbations
+    G, A = batch.n_games, batch.max_actions
+    fields: Dict[str, np.ndarray] = {}
+    for name, a in batch.fields().items():
+        upd = grid.field_updates.get(name)
+        if upd is not None and a.ndim == 2:
+            if upd.ndim == 1:
+                full = np.broadcast_to(upd[:, None, None], (P, G, A))
+            elif upd.shape != (P, G, A):
+                raise ValueError(
+                    f'field update {name!r} has shape {upd.shape}, '
+                    f'batch needs (P, G, A) = ({P}, {G}, {A})'
+                )
+            else:
+                full = upd
+            fields[name] = np.ascontiguousarray(full.reshape(P * G, A)).astype(a.dtype, copy=False)
+        else:
+            fields[name] = np.tile(a, (P,) + (1,) * (a.ndim - 1))
+    overrides = _grid_blocks(grid, G, A)
     for name, block in dict(dense_overrides or {}).items():
         if name in overrides:
             raise _conflict(name)
-        overrides[name] = torch.as_tensor(block, device=dev).repeat(P, 1, 1)
-    return expanded, overrides
+        overrides[name] = np.tile(np.asarray(block), (P, 1, 1))
+    return type(batch)(**fields), overrides
 
 
 def _perturbed_batch(batch: Any, grid: ScenarioGrid, p: int) -> Any:

@@ -9,18 +9,18 @@ Ports of the JAX package's ``socceraction_tpu/serve`` modules:
   O(new actions) incremental rating with the whole-match ``goalscore``
   carry injected as a dense override.
 - :mod:`.service` — :class:`RatingService`, the in-process front end
-  (``rate() -> Future``, ``open_session``, ``swap_model``,
-  ``rollback_model``, ``health``, ``warmup``) over kernel B1, with a
-  circuit breaker that degrades failing flushes but never a kernel that
-  cannot run.
+  (``rate() -> Future``, ``rate_scenarios``, ``open_session``,
+  ``swap_model``, ``rollback_model``, ``health``, ``telemetry``,
+  ``warmup``) over kernel B1, with SLO admission (:class:`SLOShed`), a
+  traffic capture hook, a sampled parity probe and a circuit breaker that
+  degrades failing flushes but never a kernel that cannot run.
 - :mod:`.registry` — :class:`ModelRegistry`: versioned checkpoints, warm
   device residency, atomic activation and rollback, the candidate
   lifecycle.
 - :mod:`.capture` — :class:`TrafficCapture`, the ring of served traffic.
 
-The scenario verb, SLO admission, the capture hook and the parity probe's
-sampling (ROADMAP A4), the warm tier and the frontend (A5) and the
-replica lanes (A6) come later. Importing this package needs neither
+The warm tier and the frontend (ROADMAP A5) and the replica lanes (A6)
+come later. Importing this package needs neither
 pandas nor msgpack.
 """
 
@@ -28,7 +28,7 @@ from ..obs.context import DeadlineExceeded
 from .batcher import MicroBatcher, Overloaded
 from .capture import TrafficCapture
 from .registry import ModelRegistry
-from .service import RatingService
+from .service import RatingService, SLOShed
 from .session import MatchSession
 
 __all__ = [
@@ -38,5 +38,6 @@ __all__ = [
     'ModelRegistry',
     'Overloaded',
     'RatingService',
+    'SLOShed',
     'TrafficCapture',
 ]

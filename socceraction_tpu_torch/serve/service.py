@@ -20,6 +20,13 @@ latency-bounded server:
   a half-swapped model;
 - overload raises :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`
   at ``rate()`` time (bounded queue — load is shed, not buffered forever);
+- ``rate_scenarios(actions, grid) -> Future`` — value every perturbation
+  of a :class:`~socceraction_tpu_torch.scenario.grid.ScenarioGrid` over
+  one match in ONE dispatch: the perturbation axis is folded into the game
+  axis at its own power-of-two bucket, so a ``b``-perturbation flush is
+  the shape of a ``b``-game rate flush (one B1 launch);
+- SLO admission (``slo=``): past the burn threshold over both windows,
+  submissions raise :class:`SLOShed` (an ``Overloaded``);
 - a circuit breaker on the fused dispatch
   (:class:`~socceraction_tpu_torch.resil.breaker.CircuitBreaker`) serves
   failing flushes through the materialized reference, except when the
@@ -28,18 +35,23 @@ latency-bounded server:
   build, load, launch or take its operands) or a CUDA error fails the
   flush's requests and never
   moves the breaker, so a broken kernel is never hidden behind the plain
-  path.
+  path. Rate and scenario flushes alike;
+- a sampled parity probe (``parity=``) re-rates fused rate flushes
+  through the reference off the flusher thread, on its own CUDA stream;
+- a capture ring (``capture=``) records served traffic for the learning
+  loop, and :meth:`RatingService.telemetry` exposes the service to the
+  fleet's scrape surface.
 
 The service runs on the device of the model it serves: each flush copies
 its padded host batch there, rates it, and makes one copy of the values
-back; before that copy it reads only host counts. Every stage reports
-under the ``serve`` telemetry area, with the JAX package's names.
+back; before that copy it reads only host counts. A sampled flush hands
+the probe its card batch, goalscore block and values before that copy.
+Every stage reports under the ``serve`` (and ``scenario``, ``slo``)
+telemetry areas, with the JAX package's names.
 
 Not ported yet, and raising with their ``ROADMAP.md`` item when asked
-for: ``slo=``, ``capture=``, ``parity=``, ``rate_scenarios`` and a
-``max_perturbations`` above the default (A4); ``aot_dir=`` and
-``load_aot`` (A5); ``n_replicas > 1`` and ``telemetry()`` (A6). pandas is
-imported only inside the verbs that take or return frames.
+for: ``aot_dir=`` and ``load_aot`` (A5); ``n_replicas > 1`` (A6). pandas
+is imported only inside the verbs that take or return frames.
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,16 +75,25 @@ from ..core.batch import (
     unpack_values,
     window_ladder,
 )
-from ..obs import REGISTRY, counter, gauge, span
+from ..obs import REGISTRY, counter, gauge, histogram, span
 from ..obs.context import RequestContext, new_request_context, record_segment
 from ..obs.numerics import drain_guards
+from ..obs.parity import ParityProbe
 from ..obs.perf import perf_snapshot, record_dispatch
 from ..obs.recorder import default_debug_dir, dump_debug_bundle
 from ..obs.residency import owned_bytes
+from ..obs.slo import SLOConfig, SLOEngine
 from ..ops.cuda_build import KernelError
 from ..ops.gather_matmul import fused_first_layer_quant
 from ..resil.breaker import CircuitBreaker
 from ..resil.faults import fault_point
+from ..scenario.engine import (
+    bucket_perturbations,
+    expand_scenarios,
+    perturbation_ladder,
+    rate_scenarios_reference,
+)
+from ..scenario.grid import ScenarioGrid, pad_perturbations
 from .batcher import MicroBatcher, Overloaded
 from .session import (
     WINDOW_LOCAL_KERNELS,
@@ -85,13 +106,33 @@ from .session import (
 if TYPE_CHECKING:  # pandas is imported inside the verbs that take frames
     import pandas as pd
 
-__all__ = ['RatingService']
+__all__ = ['RatingService', 'SLOShed']
+
+
+class SLOShed(Overloaded):
+    """Raised at submission when SLO burn-rate admission control sheds.
+
+    An :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`, so
+    callers that handle queue overload keep working, but the cause
+    differs: the service is burning its error budget past the threshold
+    over both windows. ``reason`` is the machine-readable payload:
+    objective, per-window burn rates, threshold, windows and remaining
+    budget.
+    """
+
+    def __init__(self, reason: Dict[str, Any]) -> None:
+        self.reason = dict(reason)
+        super().__init__(
+            'shedding by SLO burn rate: objective '
+            f'{reason.get("objective")!r} burning at '
+            f'{reason.get("burn_rate_fast")}x (fast) / '
+            f'{reason.get("burn_rate_slow")}x (slow) of budget, '
+            f'threshold {reason.get("threshold")}x '
+            f'(budget remaining: {reason.get("budget_remaining")})'
+        )
+
 
 RATING_COLUMNS = ['offensive_value', 'defensive_value', 'vaep_value']
-
-#: The JAX service's default top of the scenario ladder; a larger one asks
-#: for the scenario verb (ROADMAP A4).
-_MAX_PERTURBATIONS = 4096
 
 #: Failures that are the kernel's own: anything that stops B1 (its wrapper
 #: raises every such error as a ``KernelError``, its refusals as
@@ -119,6 +160,32 @@ class _Payload:
         self.gs = gs  # (1, A, 3) f32 goalscore block
         self.keep = keep  # None (whole frame) | (context, m) window slice
         self.index = index  # pandas index for frame requests
+        self.ctx = ctx  # RequestContext (trace identity + segments)
+
+
+class _ScenarioPayload:
+    """One packed counterfactual request: a staging batch plus its grid.
+
+    Rides the batcher's queue like :class:`_Payload` (admission, deadline
+    expiry and SLO scoring apply unchanged) but dispatches as its own
+    flush: the grid's perturbation axis folds into the game axis at its
+    own power-of-two bucket.
+    """
+
+    __slots__ = ('staging', 'gs', 'grid', 'index', 'ctx')
+
+    def __init__(
+        self,
+        staging: Any,
+        gs: Optional[np.ndarray],
+        grid: ScenarioGrid,
+        index: Any = None,
+        ctx: Any = None,
+    ) -> None:
+        self.staging = staging  # host ActionBatch, (1, A) numpy fields
+        self.gs = gs  # (1, A, 3) f32 goalscore block
+        self.grid = grid  # ScenarioGrid, P perturbations
+        self.index = index  # pandas index of the request frame
         self.ctx = ctx  # RequestContext (trace identity + segments)
 
 
@@ -152,14 +219,35 @@ class RatingService:
     slo_p99_ms : float
         The p99 end-to-end latency budget :meth:`health` compares the
         measured ``serve/request_seconds`` p99 against (observability
-        only).
-    slo, capture, parity
-        Not ported (ROADMAP A4): anything but ``None`` raises.
+        only; ``slo=`` is the form that sheds).
+    slo : SLOConfig, optional
+        Service-level objectives
+        (:class:`~socceraction_tpu_torch.obs.slo.SLOConfig`). An
+        :class:`~socceraction_tpu_torch.obs.slo.SLOEngine` scores every
+        terminal request (warm-up excluded), :meth:`health` reports each
+        objective's budget, a breach dumps a rate-limited debug bundle,
+        and ``rate``, ``rate_scenarios`` and session ticks raise
+        :class:`SLOShed` while an objective burns past the threshold over
+        both windows. ``None``: shedding by queue depth only.
     request_deadline_ms : float, optional
         Default per-request deadline. A request still queued when its
         deadline passes is failed with
         :class:`~socceraction_tpu_torch.obs.context.DeadlineExceeded` —
         never dispatched. ``rate(deadline_ms=...)`` overrides per call.
+    capture : TrafficCapture, optional
+        A :class:`~socceraction_tpu_torch.serve.capture.TrafficCapture`
+        ring recording served traffic (``rate`` requests whose futures
+        succeeded, copied on the caller's thread, and committed session
+        ticks) for the learning loop's shadow replay.
+    parity : ParityProbe, optional
+        A :class:`~socceraction_tpu_torch.obs.parity.ParityProbe`: a
+        sampled fraction of fused rate flushes is re-rated through
+        ``rate_batch_reference`` off the flusher thread. On a card the
+        sample is handed over inside the dispatch, before the values'
+        copy: the flush's card batch, goalscore block and values, read on
+        the probe's own stream. An exceedance dumps a debug bundle and
+        degrades :meth:`health`; the probe's stats feed the learning
+        gate's ``max_parity_err``. Closed with the service.
     breaker : CircuitBreaker, optional
         The circuit breaker on the fused dispatch. ``breaker_failures``
         consecutive flush-level dispatch failures trip it open; flushes
@@ -174,7 +262,10 @@ class RatingService:
     n_replicas : int
         Only 1: the replica lanes are ROADMAP A6.
     max_perturbations : int
-        The scenario verb's ladder top; only the default (ROADMAP A4).
+        Top of the scenario verb's perturbation ladder
+        (:attr:`scenario_ladder`, ``(1, 2, 4, ..., max_perturbations)``
+        rounded up to a power of two); a grid with more perturbations is
+        rejected at call time.
     aot_dir : str, optional
         Not ported (ROADMAP A5): anything but ``None`` raises.
     debug_dir : str, optional
@@ -196,15 +287,15 @@ class RatingService:
         max_wait_ms: float = 2.0,
         max_queue: int = 256,
         slo_p99_ms: float = 250.0,
-        slo: Any = None,
+        slo: Optional[SLOConfig] = None,
         request_deadline_ms: Optional[float] = None,
         capture: Any = None,
-        parity: Any = None,
+        parity: Optional[ParityProbe] = None,
         breaker: Optional[CircuitBreaker] = None,
         breaker_failures: int = 3,
         breaker_recovery_s: float = 5.0,
         n_replicas: int = 1,
-        max_perturbations: int = _MAX_PERTURBATIONS,
+        max_perturbations: int = 4096,
         aot_dir: Optional[str] = None,
         debug_dir: Optional[str] = None,
         overload_dump_threshold: int = 64,
@@ -213,20 +304,15 @@ class RatingService:
     ) -> None:
         if (model is None) == (registry is None):
             raise ValueError('give exactly one of model= or registry=')
-        for name, value, item in (
-            ('slo', slo, 'A4'), ('capture', capture, 'A4'), ('parity', parity, 'A4'),
-            ('aot_dir', aot_dir, 'A5'),
-        ):
-            if value is not None:
-                raise _not_ported(f'RatingService({name}=...)', item)
+        if aot_dir is not None:
+            raise _not_ported('RatingService(aot_dir=...)', 'A5')
         if int(n_replicas) < 1:
             raise ValueError('n_replicas must be >= 1')
         if int(n_replicas) > 1:
             raise _not_ported('RatingService(n_replicas > 1)', 'A6')
-        if int(max_perturbations) < 1:
+        self.max_perturbations = int(max_perturbations)
+        if self.max_perturbations < 1:
             raise ValueError('max_perturbations must be >= 1')
-        if int(max_perturbations) > _MAX_PERTURBATIONS:
-            raise _not_ported('RatingService(max_perturbations=...), the scenario verb', 'A4')
         self._registry = registry
         self._model = None
         if model is not None:
@@ -242,8 +328,10 @@ class RatingService:
         self._gs_enabled = 'goalscore' in first.xfns
         self.max_actions = int(max_actions)
         self.slo_p99_ms = float(slo_p99_ms)
-        self.capture = None
-        self.parity = None
+        self.capture = capture
+        self.parity: Optional[ParityProbe] = parity
+        if parity is not None and parity.on_exceed is None:
+            parity.on_exceed = self._on_parity_exceed
         #: nonfinite guard events drained by THIS service's flushes (the
         #: pending-guard ring is process-global: whichever flush drains
         #: first absorbs an event, which errs fail-closed on purpose)
@@ -259,6 +347,15 @@ class RatingService:
         self._started_t = time.monotonic()
         self.request_deadline_ms = request_deadline_ms
         self._model_activated_t = time.monotonic()
+        self._slo: Optional[SLOEngine] = (
+            SLOEngine(
+                slo,
+                model_age_s=lambda: time.monotonic() - self._model_activated_t,
+                on_breach=self._on_slo_breach,
+            )
+            if slo is not None
+            else None
+        )
         if breaker is not None:
             self._breakers: List[Optional[CircuitBreaker]] = [breaker]
         elif int(breaker_failures) > 0:
@@ -277,9 +374,11 @@ class RatingService:
             max_wait_ms=max_wait_ms,
             max_queue=max_queue,
             on_crash=self._on_flusher_crash,
+            on_request_done=self._on_request_done,
         )
         self._shape_lock = threading.Lock()
         self._seen_shapes: set = set()
+        self._seen_scenario_buckets: set = set()
         #: the compile-cache tier's status from the last warmup: the port
         #: has no compile cache (ROADMAP A5), so its directory is None
         self._cache_state: Optional[Dict[str, Any]] = None
@@ -458,10 +557,12 @@ class RatingService:
         (default: the service's ``request_deadline_ms``) bounds the total
         wait. Raises
         :class:`~socceraction_tpu_torch.serve.batcher.Overloaded`
-        synchronously when the admission queue is full.
+        synchronously when the admission queue is full, and
+        :class:`SLOShed` (before any packing) while an SLO burns.
         """
         if len(actions) == 0:
             raise ValueError('cannot rate an empty actions frame')
+        self._check_admission('rate')
         if 'game_id' in actions.columns and actions['game_id'].nunique() > 1:
             raise ValueError(
                 'one request rates one match; split multi-game frames '
@@ -494,7 +595,23 @@ class RatingService:
                 ),
             )
         payload = _Payload(staging, gs, keep=None, index=actions.index, ctx=ctx)
-        return self._submit(payload, 'rate', ctx)
+        future = self._submit(payload, 'rate', ctx)
+        # capture only what was served: shed, expired or failed requests
+        # never produced ratings. The frame is copied HERE, on the caller's
+        # thread; the done callback runs on the flusher thread
+        if self.capture is not None:
+            capture = self.capture
+            captured = actions.copy()
+
+            def _record(fut: Future, _a: Any = captured, _h: Any = home_team_id) -> None:
+                try:
+                    if not fut.cancelled() and fut.exception() is None:
+                        capture.record_frame(_a, _h, copy=False)
+                except Exception:  # capture must never hurt the caller
+                    pass
+
+            future.add_done_callback(_record)
+        return future
 
     def rate_sync(
         self, actions: 'pd.DataFrame', *, home_team_id: Any = None,
@@ -506,13 +623,109 @@ class RatingService:
             actions, home_team_id=home_team_id, deadline_ms=deadline_ms
         ).result(timeout)
 
-    def rate_scenarios(self, *args: Any, **kwargs: Any) -> Future:
-        """The counterfactual verb: not ported yet (ROADMAP A4)."""
-        raise _not_ported('RatingService.rate_scenarios', 'A4')
+    def rate_scenarios(
+        self,
+        actions: 'pd.DataFrame',
+        grid: ScenarioGrid,
+        *,
+        home_team_id: Any = None,
+        deadline_ms: Optional[float] = None,
+        context: Optional[RequestContext] = None,
+    ) -> Future:
+        """Value every perturbation of one match in ONE fused dispatch.
 
-    def rate_scenarios_sync(self, *args: Any, **kwargs: Any) -> np.ndarray:
-        """The counterfactual verb: not ported yet (ROADMAP A4)."""
-        raise _not_ported('RatingService.rate_scenarios_sync', 'A4')
+        ``actions`` is a single game's SPADL frame (as for :meth:`rate`),
+        ``grid`` a :class:`~socceraction_tpu_torch.scenario.grid.ScenarioGrid`
+        of ``P`` alternatives. The future resolves to a
+        ``(P, len(actions), 3)`` array: row ``p`` is what :meth:`rate`
+        returns for the frame with perturbation ``p`` applied, carrying
+        the factual goalscore block. ``P`` snaps to its power-of-two bucket
+        (edge-padded grid, result sliced back), and the folded dispatch is
+        the shape of a ``P_bucket``-game rate flush: one B1 launch.
+        Admission, deadlines, SLO scoring (kind ``'scenario'``), the
+        breaker (fallback: the looped materialized reference, never for a
+        kernel that cannot run) and the flight recorder apply as for
+        :meth:`rate`; metrics land under the ``scenario`` area. Malformed
+        grids fail here, on the caller's thread.
+        """
+        if len(actions) == 0:
+            raise ValueError('cannot rate scenarios for an empty actions frame')
+        self._check_admission('scenario')
+        if not isinstance(grid, ScenarioGrid):
+            raise TypeError(
+                'rate_scenarios needs a ScenarioGrid (build one with '
+                'end_location_grid / action_type_sweep / custom_grid)'
+            )
+        P = grid.n_perturbations
+        if P > self.max_perturbations:
+            raise ValueError(
+                f'{P} perturbations exceed the scenario ladder '
+                f'(max_perturbations={self.max_perturbations})'
+            )
+        if 'game_id' in actions.columns and actions['game_id'].nunique() > 1:
+            raise ValueError(
+                'one request rates one match; split multi-game frames '
+                '(or use rate_scenarios_batch for offline grids)'
+            )
+        if home_team_id is None:
+            if 'home_team_id' not in actions.columns:
+                raise ValueError('home_team_id is required')
+            home_team_id = actions['home_team_id'].iloc[0]
+        if len(actions) > self.max_actions:
+            raise ValueError(
+                f'{len(actions)} actions exceed the service window '
+                f'(max_actions={self.max_actions})'
+            )
+        frame = actions
+        if 'game_id' not in frame.columns:
+            frame = frame.assign(game_id=0)
+        staging, _ids = pack_actions(
+            frame, home_team_id=home_team_id, max_actions=self.max_actions,
+            as_numpy=True,
+        )
+        self._validate_grid(grid)
+        gs = self._frame_goalscore(frame, home_team_id) if self._gs_enabled else None
+        if context is not None:
+            ctx = context
+        else:
+            ctx = new_request_context(
+                'scenario',
+                deadline_ms=(
+                    deadline_ms if deadline_ms is not None else self.request_deadline_ms
+                ),
+            )
+        counter('scenario/requests', unit='count').inc(1, verb='serve')
+        payload = _ScenarioPayload(staging, gs, grid, actions.index, ctx)
+        return self._submit(payload, 'scenario', ctx)
+
+    def rate_scenarios_sync(
+        self,
+        actions: 'pd.DataFrame',
+        grid: ScenarioGrid,
+        *,
+        home_team_id: Any = None,
+        timeout: Optional[float] = None,
+        deadline_ms: Optional[float] = None,
+    ) -> np.ndarray:
+        """Blocking convenience wrapper around :meth:`rate_scenarios`."""
+        return self.rate_scenarios(
+            actions, grid, home_team_id=home_team_id, deadline_ms=deadline_ms
+        ).result(timeout)
+
+    def _validate_grid(self, grid: ScenarioGrid) -> None:
+        """Fail a grid that does not fit this service's window or the
+        model's dense blocks, with the model's named errors."""
+        P = grid.n_perturbations
+        for name, upd in grid.field_updates.items():
+            if upd.ndim == 3 and upd.shape[1:] != (1, self.max_actions):
+                raise ValueError(
+                    f'field update {name!r} has shape {upd.shape}; per-action '
+                    f'updates must be (P, 1, max_actions) = '
+                    f'({P}, 1, {self.max_actions}) for this service'
+                )
+        model = self.model
+        for name, block in grid.dense_overrides.items():
+            model._check_dense_override(name, block.shape[1:], 1, self.max_actions)
 
     def open_session(self, match_id: Any, *, home_team_id: Any) -> MatchSession:
         """Start a live-match streaming session (see :class:`MatchSession`)."""
@@ -532,19 +745,50 @@ class RatingService:
         *, match_id: Any, home_team_id: Any,
     ) -> Future:
         """Session entry: pack a context+suffix window and enqueue it."""
+        self._check_admission('session')
         staging, gs = pack_window(window, match_id, home_team_id, self.max_actions)
         ctx = new_request_context('session', deadline_ms=self.request_deadline_ms)
         payload = _Payload(staging, gs, keep=(context, m), ctx=ctx)
         return self._submit(payload, 'session', ctx)
 
+    def _check_admission(self, kind: str) -> None:
+        """SLO burn-rate admission control; raises :class:`SLOShed`.
+
+        A no-op without ``slo=``. The verdict is the engine's cached
+        evaluation; a shed counts under ``slo/shed_total{objective}`` and,
+        like a queue overload, toward the overload-burst dump.
+        """
+        if self._slo is None:
+            return
+        shed, reason = self._slo.should_shed(kind)
+        if shed:
+            counter('slo/shed_total', unit='requests').inc(1, objective=reason['objective'])
+            self._note_overload()
+            raise SLOShed(reason)
+
+    def _on_request_done(
+        self, ctx: Optional[RequestContext], kind: str, wall_s: float, status: str,
+    ) -> None:
+        """Batcher terminal-state hook: score the request against the SLOs."""
+        if self._slo is not None and kind != 'warmup':
+            self._slo.observe_request(kind, wall_s, status)
+
+    def _on_slo_breach(self, objective: str, entry: Dict[str, Any]) -> None:
+        """SLO engine breach hook: dump the flight recorder (rate-limited)."""
+        self._maybe_dump(
+            'slo_breach',
+            {'type': 'slo_breach', 'objective': objective, 'evaluation': entry},
+        )
+
     def _submit(
-        self, payload: _Payload, kind: str, ctx: Optional[RequestContext] = None,
+        self, payload: Any, kind: str, ctx: Optional[RequestContext] = None,
     ) -> Future:
         """Enqueue via the batcher, counting ``Overloaded`` bursts.
 
-        Where :meth:`rate` and session ticks arrive once they have packed
-        their frames: ``payload`` holds a host staging batch of numpy
-        fields and its goalscore block.
+        Where :meth:`rate`, :meth:`rate_scenarios` and session ticks arrive
+        once they have checked admission and packed their frames:
+        ``payload`` (a :class:`_Payload` or :class:`_ScenarioPayload`)
+        holds a host staging batch of numpy fields and its goalscore block.
         """
         try:
             return self._batcher.submit(payload, kind=kind, ctx=ctx)
@@ -578,7 +822,10 @@ class RatingService:
         model: Any,
         bucket: int,
         lane: int = 0,
+        extra_overrides: Optional[Dict[str, np.ndarray]] = None,
         time_len: Optional[int] = None,
+        probe: bool = False,
+        exemplar: Optional[str] = None,
     ) -> np.ndarray:
         """Pad to the bucket, rate on the model's device, copy to host.
 
@@ -587,6 +834,10 @@ class RatingService:
         that device's current stream, and its values come back in one
         copy. Nothing before that copy reads the device.
 
+        ``extra_overrides`` carries a scenario grid's dense blocks (already
+        expanded to ``(bucket, A, width)``), uploaded beside the goalscore
+        block the same way.
+
         ``time_len`` is the window-length rung for time-rung models
         (``model.time_rungs``): the action axis is sliced to the rung
         after bucket padding, dispatched at the reduced shape, and the
@@ -594,11 +845,18 @@ class RatingService:
         every kernel is backward-looking over masked tails and the rung
         never truncates a valid row. The sliced ``max_actions`` lands in
         the shape key, so each rung is its own pinned shape.
+
+        ``probe`` marks a rate flush the parity probe may sample (with its
+        first request id as ``exemplar``): a sampled flush hands the probe
+        the batch, goalscore block and values on the model's device, before
+        the values' copy.
         """
         host_batch, gs = _pad_to_bucket(host_batch, gs, bucket)
         orig_A = host_batch.max_actions
         if time_len is not None and time_len < orig_A:
             host_batch, gs = _slice_window(host_batch, gs, time_len)
+            if extra_overrides:
+                extra_overrides = {k: v[:, :time_len] for k, v in extra_overrides.items()}
             counter('seq/window_slices', unit='count').inc(1, window=str(time_len))
         key = (bucket, host_batch.max_actions, lane)
         with self._shape_lock:
@@ -612,8 +870,14 @@ class RatingService:
         fault_point('serve.dispatch', bucket=bucket)
         device = model.device
         with _on_device(device):
-            batch, overrides = _upload(host_batch, gs if self._gs_enabled else None, device)
+            batch, overrides = _upload(
+                host_batch, gs if self._gs_enabled else None, device, extra_overrides
+            )
             values = model.rate_batch(batch, dense_overrides=overrides, bucket=False)
+            if probe and self.parity is not None and self.parity.should_sample():
+                self.parity.submit_flush(
+                    model, batch, (overrides or {}).get('goalscore'), values, exemplar=exemplar
+                )
             with torch.profiler.record_function('serve/values_copy'):
                 host = values.cpu().numpy()
         return _pad_values_time(host, orig_A)
@@ -633,24 +897,18 @@ class RatingService:
             values = model.rate_batch_reference(batch, dense_overrides=overrides)
             return values.cpu().numpy()
 
-    def _rate_with_breaker(
-        self,
-        host_batch: ActionBatch,
-        gs: Optional[np.ndarray],
-        model: Any,
-        bucket: int,
-        lane: int = 0,
-        time_len: Optional[int] = None,
+    def _with_breaker(
+        self, lane: int, fused: Callable[[], np.ndarray], fallback: Callable[[], np.ndarray],
     ) -> Tuple[np.ndarray, str]:
-        """One flush's rating through the breaker; ``(values, path)``.
+        """One flush's dispatch through its lane's breaker; ``(values, path)``.
 
         ``path`` is ``'fused'`` (healthy or successful half-open probe)
         or ``'fallback'`` (breaker open, or this flush's fused dispatch
         failed). A fused failure is recorded on the breaker and the SAME
-        flush is served through the reference — callers see degraded
-        latency, never a spurious error — and ``failure_threshold``
+        flush is served through ``fallback`` (the reference): callers see
+        degraded latency, never a spurious error, and ``failure_threshold``
         consecutive failures trip the breaker so later flushes skip the
-        doomed dispatch. A reference failure propagates (the batcher fails
+        doomed dispatch. A fallback failure propagates (the batcher fails
         the flush's futures).
 
         A kernel that cannot run (:class:`KernelError`, a CUDA error) is
@@ -661,16 +919,13 @@ class RatingService:
         """
         breaker = self._breakers[lane]
         if breaker is None:
-            return (
-                self._device_rate(host_batch, gs, model, bucket, lane, time_len=time_len),
-                'fused',
-            )
+            return fused(), 'fused'
         verdict = breaker.allow()
         if verdict == 'open':
             counter('serve/fallback_flushes', unit='count').inc(1)
-            return self._reference_rate(host_batch, gs, model), 'fallback'
+            return fallback(), 'fallback'
         try:
-            values = self._device_rate(host_batch, gs, model, bucket, lane, time_len=time_len)
+            values = fused()
         except _KERNEL_ERRORS:
             if verdict == 'probe':
                 breaker._abandon_probe()
@@ -687,14 +942,160 @@ class RatingService:
                     },
                 )
             counter('serve/fallback_flushes', unit='count').inc(1)
-            return self._reference_rate(host_batch, gs, model), 'fallback'
+            return fallback(), 'fallback'
         breaker.record_success()
         return values, 'fused'
 
-    def _flush(self, payloads: List[_Payload], bucket: int, *, lane: int = 0) -> List[Any]:
-        """The batcher's runner: one coalesced, bucket-padded dispatch (the
-        JAX service's ``_flush_rate``; its ``_flush`` also routes scenario
-        payloads, ROADMAP A4)."""
+    def _rate_with_breaker(
+        self,
+        host_batch: ActionBatch,
+        gs: Optional[np.ndarray],
+        model: Any,
+        bucket: int,
+        lane: int = 0,
+        time_len: Optional[int] = None,
+        exemplar: Optional[str] = None,
+    ) -> Tuple[np.ndarray, str]:
+        """A rate flush through the breaker (:meth:`_with_breaker`); the
+        fallback is the materialized reference of the same batch. Only a
+        fused dispatch is offered to the parity probe: probing the
+        reference would compare it with itself."""
+        return self._with_breaker(
+            lane,
+            lambda: self._device_rate(
+                host_batch, gs, model, bucket, lane, time_len=time_len, probe=True,
+                exemplar=exemplar,
+            ),
+            lambda: self._reference_rate(host_batch, gs, model),
+        )
+
+    def _rate_scenarios_with_breaker(
+        self,
+        p: _ScenarioPayload,
+        expanded: ActionBatch,
+        gs_full: Optional[np.ndarray],
+        extra: Optional[Dict[str, np.ndarray]],
+        model: Any,
+        p_bucket: int,
+        lane: int,
+    ) -> Tuple[np.ndarray, str]:
+        """A scenario flush through the same breaker (:meth:`_with_breaker`):
+        ``'fused'`` is the one folded dispatch, ``'fallback'`` the looped
+        materialized reference over the unpadded grid (``P`` dispatches that
+        launch B1 none), on the model's device. A kernel that cannot run
+        fails the request, as for rate flushes."""
+
+        def fallback() -> np.ndarray:
+            gs = (
+                p.gs
+                if self._gs_enabled and 'goalscore' not in p.grid.dense_overrides
+                else None
+            )
+            device = model.device
+            with _on_device(device):
+                batch, overrides = _upload(p.staging, gs, device)
+                ref = rate_scenarios_reference(model, batch, p.grid, dense_overrides=overrides)
+                ref = ref.cpu().numpy()
+            return ref.reshape(ref.shape[0], *ref.shape[2:])
+
+        return self._with_breaker(
+            lane,
+            lambda: self._device_rate(
+                expanded, gs_full, model, p_bucket, lane, extra_overrides=extra
+            ),
+            fallback,
+        )
+
+    def _flush(self, payloads: List[Any], bucket: int, *, lane: int = 0) -> List[Any]:
+        """The batcher's runner: route a take to its dispatch shape(s).
+
+        Rate and session payloads coalesce into one bucket-padded dispatch
+        (:meth:`_flush_rate`; a take with no scenario payload runs only
+        that). Each scenario payload folds its perturbation axis into the
+        game axis at its own bucket and dispatches as its own flush
+        (:meth:`_flush_scenario`); a mixed take is partitioned and its
+        results come back in payload order.
+        """
+        if not any(isinstance(p, _ScenarioPayload) for p in payloads):
+            return self._flush_rate(payloads, bucket, lane=lane)
+        plain = [p for p in payloads if not isinstance(p, _ScenarioPayload)]
+        results: Dict[int, Any] = {}
+        if plain:
+            plain_bucket = self._batcher.bucket_for(len(plain))
+            for p, r in zip(plain, self._flush_rate(plain, plain_bucket, lane=lane)):
+                results[id(p)] = r
+        for p in payloads:
+            if isinstance(p, _ScenarioPayload):
+                results[id(p)] = self._flush_scenario(p, lane=lane)
+        return [results[id(p)] for p in payloads]
+
+    def _flush_scenario(self, p: _ScenarioPayload, *, lane: int = 0) -> np.ndarray:
+        """One scenario request -> ``(P, n_rows, 3)`` in ONE fused dispatch.
+
+        The perturbation count snaps to its power-of-two bucket
+        (edge-padded grid, sliced back), the grid expands the request's
+        host staging batch to ``(P_bucket, A)`` on the host, and the
+        dispatch goes through the breaker like a rate flush: a field-update
+        grid at bucket ``b`` is the shape of a ``b``-game rate flush, so
+        scenario rungs share the serving ladder's warm-up.
+        """
+        _name, _version, model = self._active()  # ONE read per flush
+        t0 = time.perf_counter()
+        P = p.grid.n_perturbations
+        p_bucket = bucket_perturbations(P)
+        expanded, extra = expand_scenarios(p.staging, pad_perturbations(p.grid, p_bucket))
+        if 'goalscore' in extra:
+            # a grid that perturbs goalscore overrides the factual block
+            gs_full: Optional[np.ndarray] = extra.pop('goalscore')
+        elif self._gs_enabled and p.gs is not None:
+            gs_full = np.tile(p.gs, (p_bucket, 1, 1))
+        else:
+            gs_full = None
+        bucket_label = str(p_bucket)
+        with self._shape_lock:
+            new_bucket = p_bucket not in self._seen_scenario_buckets
+            if new_bucket:
+                self._seen_scenario_buckets.add(p_bucket)
+        if new_bucket:
+            counter('scenario/shape_traces', unit='count').inc(1, n_perturbations_bucket=bucket_label)
+        t_pad = time.perf_counter()
+        values, path = self._rate_scenarios_with_breaker(
+            p, expanded, gs_full, extra or None, model, p_bucket, lane
+        )
+        t_dispatch = time.perf_counter()
+        dispatch_s = t_dispatch - t_pad
+        if path == 'fused':
+            # the folded dispatch is a pair dispatch at the perturbation
+            # bucket: it feeds the live roofline like any fused flush
+            record_dispatch('pair_probs', dispatch_s, bucket=p_bucket)
+            counter('scenario/dispatches', unit='count').inc(1, n_perturbations_bucket=bucket_label)
+        else:
+            counter('scenario/fallbacks', unit='count').inc(1)
+        self._drain_numeric_guards()
+        rows = np.stack([unpack_values(values[q : q + 1], p.staging) for q in range(P)])
+        t_slice = time.perf_counter()
+        histogram('scenario/dispatch_seconds', unit='s').observe(
+            dispatch_s, n_perturbations_bucket=bucket_label
+        )
+        n_values = P * rows.shape[1]
+        counter('scenario/values', unit='values').inc(n_values)
+        if dispatch_s > 0:
+            gauge('scenario/values_per_sec', unit='values/s').set(
+                n_values / dispatch_s, n_perturbations_bucket=bucket_label
+            )
+        exemplar = p.ctx.request_id if p.ctx is not None else None
+        pad_s = t_pad - t0
+        slice_s = t_slice - t_dispatch
+        record_segment('pad', pad_s, exemplar)
+        record_segment('dispatch', dispatch_s, exemplar)
+        record_segment('slice', slice_s, exemplar)
+        if p.ctx is not None:
+            p.ctx.segments.update(pad=pad_s, dispatch=dispatch_s, slice=slice_s)
+        return rows
+
+    def _flush_rate(self, payloads: List[_Payload], bucket: int, *, lane: int = 0) -> List[Any]:
+        """Rate and session payloads in one coalesced, bucket-padded
+        dispatch."""
         _name, _version, model = self._active()  # ONE read per flush
         t0 = time.perf_counter()
         stagings = [p.staging for p in payloads]
@@ -718,9 +1119,10 @@ class RatingService:
             if getattr(model, 'time_rungs', False)
             else None
         )
+        exemplar = next((p.ctx.request_id for p in payloads if p.ctx is not None), None)
         t_pad = time.perf_counter()
         values, path = self._rate_with_breaker(
-            host_batch, gs, model, bucket, lane, time_len=time_len
+            host_batch, gs, model, bucket, lane, time_len=time_len, exemplar=exemplar
         )
         t_dispatch = time.perf_counter()
         if path == 'fused':
@@ -745,7 +1147,6 @@ class RatingService:
 
         # the flush-shared half of the per-request wall decomposition
         # (queue_wait is the batcher's)
-        exemplar = next((p.ctx.request_id for p in payloads if p.ctx is not None), None)
         pad_s = t_pad - t0
         dispatch_s = t_dispatch - t_pad
         slice_s = t_slice - t_dispatch
@@ -781,6 +1182,10 @@ class RatingService:
             'nonfinite',
             {'type': 'nonfinite_dispatch', 'events': [e.to_dict() for e in bad]},
         )
+
+    def _on_parity_exceed(self, observation: Dict[str, Any]) -> None:
+        """Parity-probe band breach: dump the flight recorder (rate-limited)."""
+        self._maybe_dump('parity', {'type': 'parity_exceeded', 'observation': observation})
 
     # -- flight recorder + health ------------------------------------------
 
@@ -860,15 +1265,19 @@ class RatingService:
         Reads only host state and the typed metric snapshot — no device
         work, safe on any thread at any rate. The JAX service's keys:
         ``status`` (``'ok'`` | ``'degraded'`` | ``'flusher-dead'``), the
-        queue state, the ``numerics`` block (``status`` degrades when this
-        service's flushes detected non-finite values), the ``breaker``
+        queue state, the ``numerics`` block (in-dispatch guard detections
+        and the parity probe's stats; ``status`` degrades when this
+        service's flushes detected non-finite values or a probe breached
+        its band), the ``breaker``
         block (a non-closed breaker reads ``'degraded'``: flushes are
         being served through the reference), ``flusher_restarts``, the
         active model (``kernel`` names the rating path and B1's launches
         by instantiation), compiled-shape budget vs. ladder, the ``aot``
         block, the ``capacity`` block (live roofline entries and the
-        residency ledger's ``owned_bytes``), the measured request p99 vs.
-        the ``slo_p99_ms`` budget, rejection and debug-dump totals,
+        residency ledger's ``owned_bytes``), the ``slo`` block (the
+        measured request p99 vs. the ``slo_p99_ms`` budget; with ``slo=``
+        each objective's burn rates and budget, the shed threshold and
+        whether the service sheds now), rejection and debug-dump totals,
         ``last_dump`` and ``uptime_s``.
         """
         snap = REGISTRY.snapshot()
@@ -887,9 +1296,21 @@ class RatingService:
             'budget_p99_ms': self.slo_p99_ms,
             'ok': None if p99_ms is None else bool(p99_ms <= self.slo_p99_ms),
         }
+        if self._slo is not None:
+            # a fresh evaluation: the poll keeps the windows moving even
+            # when no admission decision forced one
+            evaluation = self._slo.evaluate()
+            slo_block['objectives'] = evaluation['objectives']
+            slo_block['shed_burn_rate'] = evaluation['shed_burn_rate']
+            slo_block['shedding'] = bool(
+                self._slo.should_shed('rate')[0] or self._slo.should_shed('session')[0]
+            )
         with self._dump_lock:
             nonfinite_events = self._nonfinite_events
-        numerics_ok = nonfinite_events == 0
+        parity_stats = self.parity.stats() if self.parity is not None else None
+        numerics_ok = nonfinite_events == 0 and (
+            parity_stats is None or parity_stats['exceedances'] == 0
+        )
         breaker_block = self._breaker.to_dict() if self._breaker is not None else None
         breaker_ok = breaker_block is None or breaker_block['state'] == 'closed'
         owned = owned_bytes()
@@ -906,7 +1327,7 @@ class RatingService:
             'numerics': {
                 'ok': numerics_ok,
                 'nonfinite_events': nonfinite_events,
-                'parity': None,
+                'parity': parity_stats,
             },
             'breaker': breaker_block,
             'flusher_restarts': self._batcher.flusher_restarts,
@@ -932,8 +1353,18 @@ class RatingService:
         }
 
     def telemetry(self, replica: Optional[str] = None) -> Any:
-        """The replica's exposition bundle: not ported yet (ROADMAP A6)."""
-        raise _not_ported('RatingService.telemetry', 'A6')
+        """This service's exposition bundle for the fleet scrape surface.
+
+        A :class:`~socceraction_tpu_torch.obs.endpoint.Telemetry` over the
+        process registry, this service's :meth:`health` and the flight
+        recorder; serve it with
+        ``obs.endpoint.serve(telemetry=service.telemetry(replica='serve-0'))``.
+        ``replica`` is the fleet slot name (default: a host-pid id). Every
+        route reads host state only.
+        """
+        from ..obs.endpoint import Telemetry
+
+        return Telemetry(replica=replica, health=self.health)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -952,12 +1383,15 @@ class RatingService:
         Each rung goes through :meth:`_device_rate` on the model's device,
         not through the breaker, so a B1 that cannot build or launch (or
         refuses the model's widths) raises out of this call before any
-        traffic arrives. Seq models warm every window rung too. After
-        warmup the shape counters stay flat under any traffic.
+        traffic arrives. Seq models warm every window rung too.
+        ``scenario_buckets`` adds perturbation rungs: a scenario flush at
+        bucket ``b`` is the shape of a ``b``-game rate flush, so warming
+        ``b`` (e.g. :attr:`scenario_ladder`) warms the verb. After warmup
+        the shape counters stay flat under any traffic.
         """
-        if scenario_buckets:
-            raise _not_ported('RatingService.warmup(scenario_buckets=...)', 'A4')
         buckets = tuple(buckets) if buckets is not None else self._batcher.ladder
+        if scenario_buckets:
+            buckets = tuple(sorted(set(buckets) | {int(b) for b in scenario_buckets}))
         _name, _version, model = self._active()
         self._cache_state = {'dir': None}
         A = self.max_actions
@@ -973,8 +1407,11 @@ class RatingService:
         return buckets
 
     def close(self, *, drain: bool = True) -> None:
-        """Flush (or fail) queued requests and stop the flusher thread."""
+        """Flush (or fail) queued requests and stop the flusher thread; the
+        parity probe, when attached, is closed after its pending probes."""
         self._batcher.close(drain=drain)
+        if self.parity is not None:
+            self.parity.close()
 
     def __enter__(self) -> 'RatingService':
         return self
@@ -988,6 +1425,13 @@ class RatingService:
     def ladder(self) -> Tuple[int, ...]:
         """The bucket ladder (the shape budget) of this service."""
         return self._batcher.ladder
+
+    @property
+    def scenario_ladder(self) -> Tuple[int, ...]:
+        """The scenario verb's perturbation ladder ``(1, 2, 4, ...,
+        max_perturbations)``: every bucket a request's ``P`` can snap to,
+        each the shape of a rate flush of that many games."""
+        return perturbation_ladder(self.max_perturbations)
 
     @property
     def compiled_shapes(self) -> int:
@@ -1022,11 +1466,15 @@ def _on_device(device: torch.device) -> Any:
 
 
 def _upload(
-    host_batch: ActionBatch, gs: Optional[np.ndarray], device: torch.device
+    host_batch: ActionBatch,
+    gs: Optional[np.ndarray],
+    device: torch.device,
+    extra: Optional[Dict[str, np.ndarray]] = None,
 ) -> Tuple[ActionBatch, Optional[Dict[str, torch.Tensor]]]:
-    """A host staging batch (and its goalscore block) on ``device``.
+    """A host staging batch, its goalscore block and any ``extra`` dense
+    blocks (a scenario grid's) on ``device``.
 
-    On a card each field is copied from pinned memory without waiting, on
+    On a card each array is copied from pinned memory without waiting, on
     the current stream; the batch keeps the host's action count, so
     nothing here reads the device.
     """
@@ -1039,7 +1487,9 @@ def _upload(
 
     batch = type(host_batch)(**{n: put(a) for n, a in host_batch.fields().items()})
     batch = batch.with_total(host_batch.total_actions)
-    return batch, ({'goalscore': put(gs)} if gs is not None else None)
+    overrides = {'goalscore': put(gs)} if gs is not None else {}
+    overrides.update({k: put(v) for k, v in (extra or {}).items()})
+    return batch, overrides or None
 
 
 def _concat_games(stagings: List[ActionBatch]) -> ActionBatch:

@@ -1,5 +1,10 @@
-"""VAEP: training and serving."""
+"""VAEP: training and serving.
 
-from .base import VAEP, load_model
+Exports the JAX package's ``vaep`` names less its DataFrame layer
+(``features``, ``labels``, ``formula``, ``xfns_default``: ROADMAP A8).
+``load_model`` is importable from here too, as from ``vaep.base``.
+"""
 
-__all__ = ['VAEP', 'load_model']
+from .base import VAEP, NotFittedError, load_model  # noqa: F401
+
+__all__ = ['VAEP', 'NotFittedError']

@@ -583,25 +583,30 @@ class VAEP:
         """Check the batch, validate ``dense_overrides`` by name and shape,
         before any padding or dispatch, and move them to the model's device."""
         self._check_batch(batch)
-        if not dense_overrides:
-            return {}
-        widths = self._dense_override_widths()
         out = {}
-        for name, block in dense_overrides.items():
-            if name not in widths:
-                raise ValueError(
-                    f'dense override {name!r} is not a dense feature block of this '
-                    f'model; overridable blocks: {sorted(widths)}'
-                )
+        for name, block in (dense_overrides or {}).items():
             block = torch.as_tensor(block, dtype=torch.float32, device=self.device)
-            expected = (batch.n_games, batch.max_actions, widths[name])
-            if tuple(block.shape) != expected:
-                raise ValueError(
-                    f'dense override {name!r} has shape {tuple(block.shape)}, '
-                    f'expected (n_games, max_actions, width) = {expected}'
-                )
+            self._check_dense_override(name, block.shape, batch.n_games, batch.max_actions)
             out[name] = block
         return out
+
+    def _check_dense_override(
+        self, name: str, shape: Tuple[int, ...], n_games: int, max_actions: int
+    ) -> None:
+        """Raise unless ``name`` is a dense block of this model and ``shape``
+        is ``(n_games, max_actions, width)``."""
+        widths = self._dense_override_widths()
+        if name not in widths:
+            raise ValueError(
+                f'dense override {name!r} is not a dense feature block of this '
+                f'model; overridable blocks: {sorted(widths)}'
+            )
+        expected = (n_games, max_actions, widths[name])
+        if tuple(shape) != expected:
+            raise ValueError(
+                f'dense override {name!r} has shape {tuple(shape)}, '
+                f'expected (n_games, max_actions, width) = {expected}'
+            )
 
     def _apply_dense_overrides(
         self, feats: torch.Tensor, dense_overrides: Dict[str, torch.Tensor]

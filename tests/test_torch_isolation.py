@@ -266,10 +266,13 @@ import chip_smoke
 import socceraction_tpu_torch.serve.service, socceraction_tpu_torch.serve.batcher
 import socceraction_tpu_torch.serve.session, socceraction_tpu_torch.resil.breaker
 sizes = chip_smoke.ServeSizes(max_actions=256, max_batch_size=4, clients=2, requests=3, low=100,
-                              swap_clients=2, swap_requests=3, drain_requests=3, hidden=(8,))
+                              swap_clients=2, swap_requests=3, drain_requests=3, hidden=(8,),
+                              grid=(3, 2), sweep_types=5, custom_p=3, probe_clients=2,
+                              probe_requests=2, telemetry_requests=2)
 model = chip_smoke.make_model('cpu', (8,))
-launches = chip_smoke.serve_phase(model, torch.device('cpu'), sizes=sizes)
+launches, fold = chip_smoke.serve_phase(model, torch.device('cpu'), sizes=sizes)
 assert set(launches.values()) == {0}, launches
+assert fold['bucket'] == 8 and fold['b1_at_fold_shape'] is None, fold
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -284,7 +287,9 @@ def test_chip_smoke_serve_phase_runs_with_blocked_packages(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'isolated' in proc.stdout
     for part in ('(a) warmup', '(b) traffic', '(c) hot swap and rollback', '(d) breaker drill',
-                 '(e) kernel-fault drill', '(f) close(drain=True)'):
+                 '(e) kernel-fault drill', '(f) close(drain=True)', '(g) scenarios',
+                 '(h) parity probe', '(i) SLO', '(j) scenario breaker and kernel-fault drills',
+                 '(k) telemetry'):
         assert part in proc.stdout
     # the phase cleans up after itself
     assert not (tmp_path / 'build' / 'serve').exists()

@@ -651,12 +651,15 @@ def test_journal_and_registry_carry_on_across_the_packages(tmp_path, v1_checkpoi
 
 def test_learner_refuses_what_is_not_ported(tmp_path, v1_checkpoint):
     registry = ModelRegistry(str(tmp_path / 'registry'), device='cpu')
-    # the learner takes a rating service now; one built with what the JAX
-    # loop reads through it (its capture ring) raises naming the item
-    with pytest.raises(NotImplementedError, match='A4'):
-        RatingService(registry=registry, capture=TrafficCapture())
+    # the warm tier is still to port; a service built with what the JAX
+    # loop reads through it (its capture ring) now builds
     with pytest.raises(NotImplementedError, match='A5'):
         LearnConfig(aot={'ladder': (1,), 'max_actions': 64})
+    registry.publish('vaep', '1', load_model(v1_checkpoint, device='cpu'))
+    registry.activate('vaep', '1')
+    capture = TrafficCapture()
+    with RatingService(registry=registry, capture=capture) as svc:
+        assert svc.capture is capture
 
 
 def test_bootstrap_builds_a_default_vaep_on_the_learners_device(tmp_path):

@@ -37,7 +37,13 @@ from socceraction_tpu.serve import Overloaded as JaxOverloaded
 from socceraction_tpu.serve import RatingService as JaxService
 from socceraction_tpu.spadl import config as spadlconfig
 from socceraction_tpu.vaep.base import load_model as jax_load_model
-from socceraction_tpu_torch.core.batch import bucket_games, pack_actions, unpack_values, window_ladder
+from socceraction_tpu_torch.core.batch import (
+    bucket_games,
+    bucket_ladder,
+    pack_actions,
+    unpack_values,
+    window_ladder,
+)
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 from socceraction_tpu_torch.obs import REGISTRY, drain_guards
 from socceraction_tpu_torch.serve import ModelRegistry, Overloaded, RatingService, TrafficCapture
@@ -585,10 +591,6 @@ def test_swap_rejects_a_layout_change(tmp_path, models):
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    ({'slo': object()}, 'A4'),
-    ({'capture': TrafficCapture()}, 'A4'),
-    ({'parity': object()}, 'A4'),
-    ({'max_perturbations': 8192}, 'A4'),
     ({'aot_dir': 'aot'}, 'A5'),
     ({'n_replicas': 2}, 'A6'),
 ])
@@ -597,15 +599,48 @@ def test_options_not_ported_raise_naming_their_item(models, kwargs, item):
         RatingService(models['port'], **kwargs)
 
 
-@pytest.mark.parametrize('verb,item', [
-    ('rate_scenarios', 'A4'), ('rate_scenarios_sync', 'A4'), ('load_aot', 'A5'),
-    ('telemetry', 'A6'), ('warmup', 'A4'),
-])
+@pytest.mark.parametrize('verb,item', [('load_aot', 'A5')])
 def test_verbs_not_ported_raise_naming_their_item(models, verb, item):
     with RatingService(models['port'], max_actions=A, max_batch_size=2) as svc:
-        call = getattr(svc, verb)
         with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-            call(scenario_buckets=(4,)) if verb == 'warmup' else call()
+            getattr(svc, verb)()
+
+
+def test_every_jax_option_constructs(models):
+    """``slo=``, ``capture=``, ``parity=`` and a ``max_perturbations`` past
+    the default build a service, as in the JAX package; each is wired in."""
+    from socceraction_tpu_torch.obs.parity import ParityProbe
+    from socceraction_tpu_torch.obs.slo import SLOConfig
+
+    probe, capture = ParityProbe(), TrafficCapture()
+    with RatingService(models['port'], max_actions=A, max_batch_size=2,
+                       slo=SLOConfig.simple(latency_ms=1000.0), capture=capture,
+                       parity=probe, max_perturbations=8192) as svc:
+        assert (svc.capture, svc.parity) == (capture, probe)
+        assert probe.on_exceed == svc._on_parity_exceed
+        assert svc.scenario_ladder == bucket_ladder(8192)
+        assert svc.health()['slo']['shedding'] is False
+
+
+def test_warmup_with_scenario_buckets_warms_their_rungs(models):
+    """``warmup(scenario_buckets=)`` adds the perturbation rungs to the
+    ladder it warms, as the JAX service does."""
+    out = {}
+    for pkg, p in PKGS.items():
+        with p.Service(models[pkg], max_actions=A, max_batch_size=2) as svc:
+            out[pkg] = (svc.warmup(scenario_buckets=(4, 16)), svc.compiled_shapes)
+    assert out['port'] == out['jax'] == ((1, 2, 4, 16), 4)
+
+
+def test_telemetry_serves_the_services_health(models):
+    """``telemetry()`` is the fleet plane's exposition bundle over this
+    service's ``health``, as in the JAX package."""
+    from socceraction_tpu_torch.obs.endpoint import Telemetry
+
+    with RatingService(models['port'], max_actions=A, max_batch_size=2) as svc:
+        telemetry = svc.telemetry(replica='serve-a')
+        assert isinstance(telemetry, Telemetry) and telemetry.replica == 'serve-a'
+        assert telemetry.health()['model'] == svc.health()['model']
 
 
 def test_defaults_are_the_jax_services():

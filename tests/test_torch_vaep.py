@@ -306,3 +306,17 @@ def test_mlp_checkpoint_loads_directly(tmp_path):
         clf.predict_proba_device(torch.from_numpy(x)).numpy(), want, rtol=0, atol=ATOL
     )
 
+
+
+def test_vaep_exports_match_jax_less_the_dataframe_layer():
+    """The two packages' ``vaep`` modules export the same names, less the
+    DataFrame layer the port has not taken yet (ROADMAP A8); each name the
+    port exports is the object its modules define."""
+    import socceraction_tpu.vaep as jax_vaep
+    import socceraction_tpu_torch.vaep as port_vaep
+
+    dataframe_layer = {'features', 'labels', 'formula', 'xfns_default'}
+    assert set(port_vaep.__all__) == set(jax_vaep.__all__) - dataframe_layer
+    assert port_vaep.NotFittedError is NotFittedError
+    assert issubclass(port_vaep.NotFittedError, ValueError)
+    assert (port_vaep.VAEP, port_vaep.load_model) == (VAEP, load_model)
