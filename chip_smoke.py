@@ -150,7 +150,26 @@ exits non-zero:
    as ``dlopen`` would (an ``OSError``), which B1's wrapper raises as a
    ``KernelError``: the request fails, the breaker and the fallback count
    do not move, and the next request is served through B1; (f)
-   ``close(drain=True)`` resolves the queue and refuses what comes after.
+   ``close(drain=True)`` resolves the queue and refuses what comes after;
+   (g) to (k) the scenario verb, the parity probe on every flush, SLO
+   admission, the scenario breaker and ``telemetry()`` scraped;
+17. serving's outer tier: (a) the same service behind four replica lanes
+   on the one card (``RatingService(n_replicas=4)``: a stream each, the
+   model's weights shared, no allocation to build it), every lane warmed,
+   phase 16's traffic through one lane and through the lanes (B1 launches
+   equal to the flushes, every lane flushing, no fallback, no new shape,
+   each request within 1e-5 of its reference and of the one-lane value),
+   one-request flushes bitwise the one-lane service's on every lane, a
+   flush alone on a lane timed against one lane's, a sick lane named by
+   ``health()``, B1 that cannot load on one lane's stream (``KernelError``,
+   nothing degraded), a swap that fails on lane 1's warm-up and then lands
+   on every lane; (b) the warm tier: a version published with its two
+   kernel libraries, started in two child processes from empty compile
+   caches (``--aot-replica``): one installs the shipped libraries and runs
+   no ``nvcc``, one whose manifest names another card and toolkit reads
+   ``stale`` and builds; both rate a request bitwise as this process, and
+   print their cold-start timelines; (c) ``GET /health`` through a
+   ``ServingFrontend`` on a unix socket equal to ``health()``.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -269,8 +288,12 @@ from socceraction_tpu_torch.learn import (
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.resil import CircuitBreaker, FaultPlan, FaultSpec
+from socceraction_tpu_torch.config import COMPILE_CACHE_ENV, compile_cache_dir
 from socceraction_tpu_torch.serve import ModelRegistry, RatingService, SLOShed
 from socceraction_tpu_torch.serve import service as serve_service
+# the kernels this script builds: the libraries a version ships
+from socceraction_tpu_torch.serve.aot import KERNELS, env_fingerprint, read_manifest
+from socceraction_tpu_torch.serve.frontend import FrontendClient, ServingFrontend
 from socceraction_tpu_torch.serve.session import goalscore_block, score_prefix
 from socceraction_tpu_torch.vaep.base import VAEP, load_model, split_rows
 from socceraction_tpu_torch.xthreat import ExpectedThreat
@@ -293,8 +316,6 @@ PEAK_TF32_FLOPS = _H100['flops_tf32']
 XT_GAMES = 3072
 #: Groups of the xT fleet fits (``game_index % XT_GROUPS``).
 XT_GROUPS = 20
-#: Kernels this script builds.
-KERNELS = ('gather_matmul', 'segment_sum')
 #: The JAX package's bench training configuration: (128, 128) heads,
 #: minibatches of 8192, 3 epochs, on the serving batch.
 TRAIN_PARAMS = {'hidden': HIDDEN, 'batch_size': 8192, 'max_epochs': 3}
@@ -3742,10 +3763,11 @@ def read_events(prof: Any) -> Dict[str, Any]:
 def serve_phase(
     model: VAEP, device: torch.device, card: str = 'CPU', sizes: ServeSizes = ServeSizes(),
     phase4_median_s: Optional[float] = None,
-) -> Tuple[Dict[str, int], Dict[str, Any]]:
+) -> Tuple[Dict[str, int], Dict[str, Any], Dict[str, Any]]:
     """Phase 16: ``RatingService`` over ``model`` at the JAX service's
-    default shape, through B1. Returns B1's launches by part and the
-    scenario fold's timing (with B1 at the fold's shape on a card).
+    default shape, through B1. Returns B1's launches by part, the scenario
+    fold's timing (with B1 at the fold's shape on a card) and part (b)'s
+    traffic rates.
 
     The phase does not call ``rate(df)`` (the card's machine has no
     pandas): each request's one-game host staging batch is built from
@@ -4318,7 +4340,629 @@ def serve_phase(
     print(f'{label}: (g) to (k) walls (s) {json.dumps(part_walls)}')
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     print(f'{label}: B1 launches {json.dumps(launches)}; phase 16 in {time.perf_counter() - t_phase:.1f} s')
-    return launches, timing
+    one_lane = {k: traffic[k] for k in ('requests', 'wall_s', 'requests_per_s', 'actions_per_s',
+                                         'client_wall_p50_s', 'client_wall_p99_s', 'flushes')}
+    return launches, timing, one_lane
+
+
+# -- phase 17: serving's outer tier ---------------------------------------------------------
+
+#: Where phase 17 writes its registries, the warm tier's children's caches
+#: and reports, and the frontend's socket (git-ignored, removed at the end).
+LANES_DIR = os.path.join('build', 'lanes')
+#: Seconds a warm-tier child may take, start to end (the stale child
+#: builds both libraries with nvcc).
+AOT_CHILD_TIMEOUT_S = 300.0
+#: A lane service's construction must allocate less than this (no weights).
+LANE_BUILD_BYTES = 1 << 20
+
+
+class LaneSizes(NamedTuple):
+    """Phase 17's shapes: phase 16's service shape behind ``lanes`` replica
+    lanes, phase 16's traffic, the one-request flushes held bitwise and the
+    drills' requests."""
+
+    max_actions: int = ACTIONS
+    max_batch_size: int = 64
+    max_wait_ms: float = 2.0
+    max_queue: int = 256
+    lanes: int = 4
+    clients: int = 16
+    requests: int = 32
+    low: int = 1200
+    single: int = 16
+    drill_requests: int = 16
+    hidden: Tuple[int, ...] = HIDDEN
+
+
+def requested_bytes(device: torch.device) -> Optional[int]:
+    """The caching allocator's requested bytes on a card (None on the CPU)."""
+    if device.type != 'cuda':
+        return None
+    return int(torch.cuda.memory_stats(device).get('requested_bytes.all.current', 0))
+
+
+def reference_values(model: VAEP, req: ServeRequest, device: torch.device) -> np.ndarray:
+    """``rate_batch_reference`` of the request's own one-game batch."""
+    batch, overrides = serve_service._upload(req.staging, req.gs, device)
+    return model.rate_batch_reference(batch, dense_overrides=overrides)[0, : req.n].cpu().numpy()
+
+
+def count_lane_takes(svc: RatingService) -> List[Tuple[int, int, int]]:
+    """Record ``(requests, bucket, lane)`` of every flush the service's
+    lanes run from now on; returns the list they append to."""
+    takes: List[Tuple[int, int, int]] = []
+    lock = threading.Lock()
+    real = svc._batcher._runner
+
+    def runner(payloads: List[Any], bucket: int, *, lane: int = 0) -> List[Any]:
+        with lock:
+            takes.append((len(payloads), bucket, lane))
+        return real(payloads, bucket, lane=lane)
+
+    svc._batcher._runner = runner
+    return takes
+
+
+def timed_clients(
+    svc: RatingService, reqs: List[ServeRequest], clients: int,
+) -> Tuple[List[Any], List[float], float]:
+    """``reqs`` from ``clients`` closed-loop client threads (each its own
+    contiguous share): the results in request order, each request's wall
+    and the run's wall."""
+    per = len(reqs) // clients
+    results: List[Any] = [None] * len(reqs)
+    walls = [0.0] * len(reqs)
+    errors: List[BaseException] = []
+
+    def client(c: int) -> None:
+        try:
+            for i in range(c * per, (c + 1) * per):
+                t0 = time.perf_counter()
+                results[i] = submit_request(svc, reqs[i]).result(timeout=300)
+                walls[i] = time.perf_counter() - t0
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f'a client failed: {errors[0]!r}')
+    return results, walls, wall
+
+
+def traffic_record(reqs: List[ServeRequest], walls: List[float], wall: float) -> Dict[str, Any]:
+    n = len(reqs)
+    return {'requests': n, 'actions': sum(r.n for r in reqs), 'wall_s': wall,
+            'requests_per_s': n / wall, 'actions_per_s': sum(r.n for r in reqs) / wall,
+            'client_wall_p50_s': float(np.percentile(walls, 50)),
+            'client_wall_p99_s': float(np.percentile(walls, 99))}
+
+
+def lane_segment_means(before: Any, after: Any, replicas: Tuple[str, ...]) -> Dict[str, float]:
+    """:func:`segment_means` over every lane's ``replica=`` series."""
+    out = {}
+    for seg_name in ('queue_wait', 'pad', 'dispatch', 'slice'):
+        n = total = 0.0
+        for rid in replicas:
+            a = after.series('serve/segment_seconds', segment=seg_name, replica=rid)
+            b = before.series('serve/segment_seconds', segment=seg_name, replica=rid)
+            n += (a.count if a else 0) - (b.count if b else 0)
+            total += (a.total if a else 0.0) - (b.total if b else 0.0)
+        if n:
+            out[seg_name] = total / n
+    return out
+
+
+def lane_fallbacks(svc: RatingService) -> Dict[str, float]:
+    snap = REGISTRY.snapshot()
+    return {rid: snap.value('serve/fallback_flushes', replica=rid) for rid in svc.replica_ids}
+
+
+def stand_in_libraries(cache_dir: str) -> None:
+    """The CPU has no ``nvcc``: a rehearsal of the warm tier ships stand-in
+    shared objects (extension modules of this interpreter) in place of the
+    two kernel libraries, written where the build would have put them."""
+    import importlib
+
+    found = []
+    for name in ('_ctypes', '_json', '_struct', '_bisect', '_heapq', 'select', '_socket'):
+        path = getattr(importlib.import_module(name), '__file__', None) or ''
+        if path.endswith('.so'):
+            found.append(path)
+    os.makedirs(cache_dir, exist_ok=True)
+    with compile_cache(cache_dir):
+        for name, so in zip(KERNELS, found):
+            shutil.copyfile(so, cuda_build.library_path(name))
+
+
+@contextlib.contextmanager
+def compile_cache(path: str) -> Any:
+    """``SOCCERACTION_TPU_COMPILE_CACHE`` set to ``path`` inside the block."""
+    old = os.environ.get(COMPILE_CACHE_ENV)
+    os.environ[COMPILE_CACHE_ENV] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(COMPILE_CACHE_ENV, None)
+        else:
+            os.environ[COMPILE_CACHE_ENV] = old
+
+
+def aot_replica(root: str, version: str, device_type: str) -> None:
+    """One of phase 17 (b)'s warm-tier children, spawned by
+    :func:`lanes_phase` with an empty ``SOCCERACTION_TPU_COMPILE_CACHE``.
+
+    A replica's cold start, phase by phase on its own timeline: the import,
+    the registry's load of ``version`` (``checkpoint_load``), the warm tier
+    (``aot_deserialize``: ``load_aot``), the kernels' libraries
+    (``kernel_build``: installed ones load, missing ones build with
+    ``nvcc``), and the first request through the service
+    (``first_dispatch``). It writes its report and its values."""
+    with TIMELINE.phase('import', start_unix=TIMELINE.begin()):
+        pass
+    # with no card this raises: a replica never rates on the CPU in its place
+    device = resolve_device(device_type)
+    if device.type == 'cuda':
+        set_precision()
+    with open(os.path.join(root, 'spec.json'), encoding='utf-8') as fh:
+        spec = json.load(fh)
+    with TIMELINE.phase('checkpoint_load'):
+        registry = ModelRegistry(os.path.join(root, 'registry'), device=device)
+        registry.activate('vaep', version)
+    svc = RatingService(registry=registry, **spec['shape'])
+    with TIMELINE.phase('aot_deserialize'):
+        state = svc.load_aot() or {}
+    snap = REGISTRY.snapshot()
+    with TIMELINE.phase('kernel_build'):
+        if device.type == 'cuda':  # the CPU's wrappers load no library
+            cuda_build.load_libraries(KERNELS)
+    saved = np.load(os.path.join(root, 'request.npz'))
+    staging = ActionBatch(**{k[2:]: saved[k] for k in saved.files if k.startswith('f_')})
+    req = ServeRequest(staging, saved['gs'], int(saved['n']))
+    gm.fused_first_layer_quant.launches = 0
+    with TIMELINE.phase('first_dispatch'):
+        values = submit_request(svc, req).result(timeout=300)
+    TIMELINE.mark('first_rated_action')
+    svc.close()
+    snap = REGISTRY.snapshot()
+    np.save(os.path.join(root, f'values-{version}.npy'), values)
+    write_json(os.path.join(root, f'report-{version}.json'), {
+        'version': version,
+        'aot': {k: state.get(k) for k in ('outcome', 'entries_loaded', 'reason', 'mismatch')},
+        'aot_loads': {o: snap.value('serve/aot_loads', outcome=o) for o in ('hit', 'stale', 'miss')},
+        'kernel_builds': sum(snap.value('dispatch/kernel_builds', kernel=k) for k in KERNELS),
+        'build_seconds': dict(cuda_build.build_seconds),
+        'compile_cache': compile_cache_dir(),
+        'installed': {k: os.path.exists(cuda_build.library_path(k)) for k in KERNELS},
+        'library_paths': {k: str(p) for k, p in cuda_build._paths.items()},
+        'b1_launches': gm.fused_first_layer_quant.launches,
+        'coldstart': coldstart_report(),
+    })
+
+
+def spawn_aot_replicas(root: str, versions: Tuple[str, ...], device: torch.device) -> Dict[str, Dict[str, Any]]:
+    """Start one warm-tier child a version, all at once (as replicas of a
+    scale-out start), each from an empty compile cache of its own; returns
+    each one's report with its values and its wall. A child that fails or
+    outlives :data:`AOT_CHILD_TIMEOUT_S` fails the phase, and every child
+    still running is killed."""
+    env = dict(os.environ)
+    if device.type == 'cpu':
+        env['OMP_NUM_THREADS'] = '1'
+    procs: Dict[str, Tuple[subprocess.Popen, float, str]] = {}
+    try:
+        for version in versions:
+            log = os.path.join(root, f'child-{version}.log')
+            with open(log, 'w') as fh:
+                procs[version] = (subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--aot-replica', root, version,
+                     device.type],
+                    stdout=fh, stderr=subprocess.STDOUT,
+                    env={**env, COMPILE_CACHE_ENV: os.path.join(root, f'cache-{version}')},
+                ), time.perf_counter(), log)
+        deadline = time.monotonic() + AOT_CHILD_TIMEOUT_S
+        reports = {}
+        for version, (proc, t0, log) in procs.items():
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f'warm-tier child {version} exited {rc}:\n{fleet_tail(log)}')
+            with open(os.path.join(root, f'report-{version}.json'), encoding='utf-8') as fh:
+                report = json.load(fh)
+            report['values'] = np.load(os.path.join(root, f'values-{version}.npy'))
+            report['spawn_wall_s'] = wall
+            report['cache'] = os.path.join(root, f'cache-{version}')
+            reports[version] = report
+        return reports
+    finally:
+        for proc, _t0, _log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def lanes_phase(
+    model: VAEP, device: torch.device, card: str = 'CPU', sizes: LaneSizes = LaneSizes(),
+    one_lane: Optional[Dict[str, Any]] = None,
+) -> Dict[str, int]:
+    """Phase 17: serving's outer tier over ``model``. Returns B1's launches
+    by part.
+
+    (a) A ``RatingService(n_replicas=sizes.lanes)`` at phase 16's shape:
+    its construction allocates no weights (every lane aliases the model's
+    fold and heads); warm-up dispatches every rung on every lane; phase
+    16's traffic (16 closed-loop clients x 32 one-game requests) through a
+    one-lane service and through the lanes, every lane flushing, B1
+    launches equal to the fused flushes, no fallback, no new shape, every
+    request within 1e-5 of its ``rate_batch_reference`` and of the one-lane
+    service's value; one-request flushes bitwise the one-lane service's;
+    ``GET /health`` through a ``ServingFrontend`` on a unix socket equal to
+    ``health()`` (part (c)); a sick lane (its breaker tripped) named by
+    ``health()`` while the others serve; B1 that cannot load on one lane's
+    stream failing that lane's flush with ``KernelError``, its breaker and
+    the fallback count unmoved; a swap that fails when lane 1's warm-up
+    fails, with no lane serving the new version, then lands on every lane.
+    (b) The warm tier: a version published with ``aot=`` (and a copy whose
+    manifest claims another card and toolkit), each started in a child
+    process from an empty compile cache (``--aot-replica``), both at once:
+    the hit child installs both libraries and runs no ``nvcc``, the stale
+    child builds them; both rate one request bitwise as this process does.
+    """
+    label = f'lanes ({sizes.lanes} lanes on {device}, {card})'
+    A, L = sizes.max_actions, sizes.lanes
+    rng = np.random.default_rng(17)
+    shape = dict(max_actions=A, max_batch_size=sizes.max_batch_size,
+                 max_wait_ms=sizes.max_wait_ms, max_queue=sizes.max_queue)
+    launches: Dict[str, int] = {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(LANES_DIR, ignore_errors=True)
+    os.makedirs(LANES_DIR, mode=0o700)
+
+    def b1() -> int:
+        return gm.fused_first_layer_quant.launches
+
+    # -- (a) lanes share the weights; every lane warms its ladder
+    prep = model._prepared_pair()
+    sync(device)
+    before_bytes = requested_bytes(device)
+    svc = RatingService(model, n_replicas=L, **shape)
+    build_bytes = None if before_bytes is None else requested_bytes(device) - before_bytes
+    aliased = all(lp.tables.data is prep.tables.data and lp.w_dense.data is prep.w_dense.data
+                  and lp.bias is prep.bias for lp, _a, _b in svc._dispatcher_for(model)._lanes)
+    streams = {s.cuda_stream for s in svc._lane_streams if s is not None}
+    if not aliased or (build_bytes is not None and build_bytes >= LANE_BUILD_BYTES) or \
+            len(streams) != (L if device.type == 'cuda' else 0):
+        raise RuntimeError(f'{label}: lanes aliased {aliased}, construction requested '
+                           f'{build_bytes} bytes, {len(streams)} streams')
+    gm.fused_first_layer_quant.launches = 0
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+    launches['warmup'] = b1()
+    warm_shapes, ladder = svc.compiled_shapes, svc.ladder
+    if launches['warmup'] != kernel_launches(L * len(svc.ladder), device) or \
+            warm_shapes != L * len(svc.ladder):
+        raise RuntimeError(f"{label}: warm-up launched B1 {launches['warmup']} times over "
+                           f'{warm_shapes} shapes for {L} lanes x {svc.ladder}')
+    print(f'{label}: (a) construction {json.dumps({"lanes": L, "devices": [str(d) for d in svc._lane_devices], "streams": len(streams), "aliased_weights": aliased, "requested_bytes": build_bytes})}; warm-up {json.dumps({"b1": launches["warmup"], "compiled_shapes": warm_shapes, "wall_s": warm_s})}')
+
+    # -- the same traffic through one lane, then through the lanes
+    one = RatingService(model, **shape)
+    gm.fused_first_layer_quant.launches = 0
+    one.warmup()
+    launches['one-lane warmup'] = b1()
+    n_total = sizes.clients * sizes.requests
+    reqs = [serve_request(rng, int(rng.integers(sizes.low, A + 1)), A) for _ in range(n_total)]
+    one_takes = count_lane_takes(one)
+    snap0 = REGISTRY.snapshot()
+    gm.fused_first_layer_quant.launches = 0
+    one_res, one_walls, one_wall = timed_clients(one, reqs, sizes.clients)
+    sync(device)
+    launches['one-lane traffic'] = b1()
+    if launches['one-lane traffic'] != kernel_launches(len(one_takes), device):
+        raise RuntimeError(f"{label}: the one-lane service launched B1 {launches['one-lane traffic']} "
+                           f'times for {len(one_takes)} flushes')
+    one_segments = segment_means(snap0, REGISTRY.snapshot())
+    takes = count_lane_takes(svc)
+    before, snap0 = serve_counts(), REGISTRY.snapshot()
+    gm.fused_first_layer_quant.launches = 0
+    res, walls, wall = timed_clients(svc, reqs, sizes.clients)
+    sync(device)
+    launches['traffic'] = b1()
+    segments = lane_segment_means(snap0, REGISTRY.snapshot(), svc.replica_ids)
+    counts = delta(serve_counts(), before)
+    by_lane = {rid: sum(1 for *_x, lane in takes if lane == i) for i, rid in enumerate(svc.replica_ids)}
+    # on the CPU the interpreter lock serializes the flusher threads, and
+    # a lane may sit out a short rehearsal's traffic; on a card every lane
+    # must take flushes (the direct flushes below cover each lane anyway)
+    idle_lane = device.type == 'cuda' and min(by_lane.values()) < 1
+    if launches['traffic'] != kernel_launches(len(takes), device) or counts['fallback_flushes'] or \
+            idle_lane or svc.compiled_shapes != warm_shapes:
+        raise RuntimeError(f"{label}: {launches['traffic']} B1 launches for {len(takes)} flushes "
+                           f'{by_lane}, {counts["fallback_flushes"]} fallback, shapes '
+                           f'{svc.compiled_shapes} after {warm_shapes}')
+    ref_gap = one_gap = 0.0
+    for req, got, base in zip(reqs, res, one_res):
+        if got.shape != (req.n, 3) or not np.isfinite(got).all():
+            raise RuntimeError(f'{label}: a request came back {got.shape}, finite {np.isfinite(got).all()}')
+        ref_gap = max(ref_gap, float(np.abs(got - reference_values(model, req, device)).max()))
+        one_gap = max(one_gap, float(np.abs(got - base).max()))
+    if not (ref_gap <= SERVE_ATOL and one_gap <= SERVE_ATOL):
+        raise RuntimeError(f'{label}: requests {ref_gap} from rate_batch_reference, {one_gap} from '
+                           f'the one-lane service (limit {SERVE_ATOL})')
+    lane_traffic = {**traffic_record(reqs, walls, wall), 'flushes': len(takes), 'flushes_by_lane': by_lane,
+                    'mean_requests_per_flush': n_total / len(takes), 'b1_launches': launches['traffic'],
+                    'fallback_flushes': counts['fallback_flushes'], 'compiled_shapes': svc.compiled_shapes,
+                    'max_abs_err_vs_reference': ref_gap, 'max_abs_err_vs_one_lane': one_gap,
+                    'segment_mean_s': segments}
+    one_traffic = {**traffic_record(reqs, one_walls, one_wall), 'flushes': len(one_takes),
+                   'mean_requests_per_flush': n_total / len(one_takes), 'segment_mean_s': one_segments}
+    print(f'{label}: (a) traffic through {L} lanes {json.dumps(lane_traffic)}; the same requests '
+          f'through one lane {json.dumps(one_traffic)}; phase 16 one lane {json.dumps(one_lane)}')
+
+    # one-request flushes: each request alone, so every lane flushes the
+    # take the one-lane service flushes, at the same bucket; first through
+    # the queue (whichever lane takes it), then on each lane in turn
+    gm.fused_first_layer_quant.launches = 0
+    n_takes = len(takes)
+    bitwise = []
+    for req in reqs[: sizes.single]:
+        a = submit_request(one, req).result(timeout=300)
+        b = submit_request(svc, req).result(timeout=300)
+        bitwise.append(bool(np.array_equal(a, b)))
+    single_lanes = sorted({lane for *_x, lane in takes[n_takes:]})
+    per_lane, solo = [], []
+    for i, req in enumerate(reqs[:L]):
+        a = one._flush([serve_service._Payload(req.staging, req.gs, keep=(0, req.n))], 1)[0]
+        solo.append(a)
+        for lane in range(L):
+            b = svc._flush([serve_service._Payload(req.staging, req.gs, keep=(0, req.n))], 1,
+                           lane=lane)[0]
+            per_lane.append(bool(np.array_equal(a, b)))
+    launches['one-request flushes'] = b1()
+    want = 2 * sizes.single + L * (L + 1)
+    if not all(bitwise) or not all(per_lane) or \
+            launches['one-request flushes'] != kernel_launches(want, device):
+        raise RuntimeError(f'{label}: one-request flushes bitwise {bitwise}, on each lane '
+                           f"{per_lane}, B1 {launches['one-request flushes']}")
+    print(f'{label}: (a) one-request flushes {json.dumps({"through_the_queue": sizes.single, "lanes_taking_them": single_lanes, "on_each_lane": L * L, "bitwise_one_lane": all(bitwise) and all(per_lane), "b1": launches["one-request flushes"]})}')
+    # a full flush alone on one lane against the one-lane service's: what a
+    # lane's flush costs without the other lanes contending for the host
+    top = ladder[-1]
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:top]]
+    gm.fused_first_layer_quant.launches = 0
+    alone = {'one_lane_s': synced_median(lambda: one._flush(payloads, top), device),
+             'lane0_s': synced_median(lambda: svc._flush(payloads, top, lane=0), device)}
+    launches['flush walls'] = b1()
+    print(f'{label}: (a) one flush of {top} requests alone (synced medians) {json.dumps(alone)}')
+    if device.type == 'cuda':
+        # the card's busy and idle share under the same short traffic through
+        # one lane and through the lanes (the profiler's view of each stream)
+        gm.fused_first_layer_quant.launches = 0
+        busy = {name: device_busy(lambda s=s: timed_clients(s, reqs[: 4 * sizes.clients], sizes.clients))
+                for name, s in (('one_lane', one), ('lanes', svc))}
+        launches['profiled traffic'] = b1()
+        print(f'{label}: (a) {4 * sizes.clients} requests under the profiler {json.dumps(busy)}')
+    one.close()
+
+    # -- (c) the frontend: GET /health over a unix socket is health()
+    sock = os.path.join(LANES_DIR, 'frontend.sock')
+    with ServingFrontend(svc, unix_path=sock):
+        got = FrontendClient(sock).health()
+        want = json.loads(json.dumps(svc.health(), sort_keys=True, default=str))
+    for h in (got, want):
+        for key in ('uptime_s', 'last_flush_age_s'):
+            h.pop(key)
+    if got != want or got['replicas']['n'] != L:
+        raise RuntimeError(f'{label}: GET /health differs from health(): '
+                           f'{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}')
+    print(f'{label}: (c) frontend GET /health equals health() {json.dumps({"keys": len(got), "status": got["status"], "replicas": got["replicas"]["n"], "sick": got["replicas"]["sick"]})}')
+    svc.close()
+
+    # -- a sick lane, and B1 that cannot load on one lane's stream
+    drill = RatingService(model, n_replicas=L, breaker_failures=2, breaker_recovery_s=3600.0, **shape)
+    drill.warmup()
+    sick, rid = 2, drill.replica_ids[2]
+    for _ in range(2):
+        drill.breakers[sick].record_failure(RuntimeError('induced device fault'))
+    health = drill.health()
+    if health['status'] != 'degraded' or health['replicas']['sick'] != [rid]:
+        raise RuntimeError(f'{label}: after tripping {rid}: {health["status"]}, {health["replicas"]}')
+    dreqs = reqs[: sizes.drill_requests]
+    drefs = [reference_values(model, r, device) for r in dreqs]
+    fb0 = lane_fallbacks(drill)
+    dtakes = count_lane_takes(drill)
+    gm.fused_first_layer_quant.launches = 0
+    served, rounds, gap = False, 0, 0.0
+    deadline = time.monotonic() + 60.0
+    while not served and time.monotonic() < deadline:
+        rounds += 1
+        out, _w, _t = timed_clients(drill, dreqs, 4)
+        gap = max([gap] + [float(np.abs(o - r).max()) for o, r in zip(out, drefs)])
+        served = lane_fallbacks(drill)[rid] > fb0[rid]
+    sync(device)
+    launches['sick lane'] = b1()
+    fb = delta(lane_fallbacks(drill), fb0)
+    fused_flushes = sum(1 for *_x, lane in dtakes if lane != sick)
+    if not served or gap > SERVE_ATOL or any(v for r, v in fb.items() if r != rid) or \
+            launches['sick lane'] != kernel_launches(fused_flushes, device):
+        raise RuntimeError(f'{label}: sick lane served {served} in {rounds} rounds, {gap} off, '
+                           f"fallbacks {fb}, B1 {launches['sick lane']} for {fused_flushes} fused flushes")
+    print(f'{label}: (a) sick lane {json.dumps({"sick": health["replicas"]["sick"], "status": health["status"], "rounds": rounds, "fallback_flushes_by_lane": fb, "fused_flushes": fused_flushes, "b1": launches["sick lane"], "max_abs_err_vs_reference": gap})}')
+
+    fault_lane = 1
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:1]]
+    def breaker_states() -> List[Dict[str, Any]]:
+        # the open lane's dwell is a clock reading
+        return [{k: v for k, v in b.to_dict().items() if k != 'open_for_s'} for b in drill.breakers]
+
+    breakers = breaker_states()
+    fb0 = lane_fallbacks(drill)
+    dispatcher = drill._dispatcher_for(model)
+    gm.fused_first_layer_quant.launches = 0
+    if device.type == 'cuda':
+        # the library load fails as dlopen would, on lane 1's stream only
+        real_load = cuda_build.load_library
+        lane_stream = drill._lane_streams[fault_lane]
+
+        def load(name: str) -> Any:
+            if torch.cuda.current_stream(device) == lane_stream:
+                raise OSError(f'lib{name}.so: cannot open shared object file (lane fault drill)')
+            return real_load(name)
+
+        patched: Tuple[Any, str, Any] = (cuda_build, 'load_library', load)
+    else:
+        # the CPU's wrapper loads nothing: lane 1's dispatch raises instead
+        real_dispatch = dispatcher.dispatch
+
+        def dispatch(replica: int, batch: Any, overrides: Any = None) -> Any:
+            if replica == fault_lane:
+                raise cuda_build.KernelError('gather_matmul cannot be loaded (lane fault drill)')
+            return real_dispatch(replica, batch, overrides)
+
+        patched = (dispatcher, 'dispatch', dispatch)
+    original = getattr(patched[0], patched[1])
+    setattr(patched[0], patched[1], patched[2])
+    try:
+        try:
+            drill._flush(payloads, 1, lane=fault_lane)
+            raised = None
+        except cuda_build.KernelError as e:
+            raised = str(e)
+        other = drill._flush(payloads, 1, lane=0)[0]
+    finally:
+        setattr(patched[0], patched[1], original)
+    again = drill._flush(payloads, 1, lane=fault_lane)[0]
+    launches['kernel-fault drill'] = b1()
+    unmoved = breaker_states() == breakers
+    fb = delta(lane_fallbacks(drill), fb0)
+    base = solo[0]  # the one-lane service's one-request flush of reqs[0]
+    if raised is None or not unmoved or any(fb.values()) or not np.array_equal(other, base) or \
+            not np.array_equal(again, base) or launches['kernel-fault drill'] != kernel_launches(2, device):
+        raise RuntimeError(f'{label}: lane kernel-fault drill: raised {raised}, breakers unmoved '
+                           f"{unmoved}, fallbacks {fb}, B1 {launches['kernel-fault drill']}")
+    drill.close()
+    print(f'{label}: (a) kernel fault on lane {fault_lane} {json.dumps({"flush_raised": raised, "breakers_unmoved": unmoved, "fallback_flushes": fb, "lane0_bitwise_one_lane": True, "lane1_after_restore_bitwise": True, "b1": launches["kernel-fault drill"]})}')
+
+    # -- a swap lands on every lane or on none
+    registry = ModelRegistry(os.path.join(LANES_DIR, 'registry'), device=device)
+    registry.publish('vaep', '1', model)
+    registry.publish('vaep', '2', make_model(device, sizes.hidden, head_seed=200))
+    registry.activate('vaep', '1')
+    versions = {v: registry.load('vaep', v) for v in ('1', '2')}
+    sreqs = reqs[: 2 * L]
+    srefs = {v: [reference_values(m, r, device) for r in sreqs] for v, m in versions.items()}
+
+    def rated_by(outs: List[np.ndarray]) -> List[str]:
+        found = []
+        for i, got in enumerate(outs):
+            gaps = {v: float(np.abs(got - srefs[v][i]).max()) for v in srefs}
+            match = [v for v, g in gaps.items() if g <= SERVE_ATOL]
+            if len(match) != 1 or min(gaps.values()) > SERVE_ATOL or max(gaps.values()) <= SERVE_APART:
+                raise RuntimeError(f'{label}: a request is not wholly one version: {gaps}')
+            found.append(match[0])
+        return found
+
+    wsvc = RatingService(registry=registry, n_replicas=L, **shape)
+    gm.fused_first_layer_quant.launches = 0
+    wsvc.warmup()
+    k = len(wsvc.ladder) + 2  # lane 0 warms on calls 1..len(ladder), lane 1 next
+    with FaultPlan(seed=17, specs=[FaultSpec('serve.dispatch', error=RuntimeError, on_calls=(k,))]) as plan:
+        try:
+            wsvc.swap_model('vaep', '2')
+            swap_error = None
+        except RuntimeError as e:
+            swap_error = str(e)
+    points = [h['point'] for h in plan.history]
+    during = rated_by(timed_clients(wsvc, sreqs, L)[0])
+    version_during = wsvc.health()['model']['version']
+    t0 = time.perf_counter()
+    wsvc.swap_model('vaep', '2')
+    swap_s = time.perf_counter() - t0
+    swapped = rated_by(timed_clients(wsvc, sreqs, L)[0])
+    launches['swap'] = b1()
+    wsvc.close()
+    if swap_error is None or points != ['serve.dispatch'] or set(during) != {'1'} or \
+            version_during != '1' or set(swapped) != {'2'}:
+        raise RuntimeError(f'{label}: swap drill: failed swap {swap_error} at {points}, during '
+                           f'{during} ({version_during}), after {swapped}')
+    print(f'{label}: (a) swap {json.dumps({"failed_swap": swap_error, "served_during": sorted(set(during)), "version_during": version_during, "served_after": sorted(set(swapped)), "swap_wall_s": swap_s, "b1": launches["swap"]})}')
+
+    # -- (b) the warm tier: shipped libraries in a fresh process
+    root = os.path.abspath(os.path.join(LANES_DIR, 'aot'))
+    os.makedirs(root)
+    aot = {'ladder': list(ladder), 'max_actions': A}
+    publish = contextlib.nullcontext()
+    if device.type == 'cpu':
+        stand_in_libraries(os.path.join(root, 'publisher-cache'))
+        publish = compile_cache(os.path.join(root, 'publisher-cache'))
+    areg = ModelRegistry(os.path.join(root, 'registry'), device=device)
+    with publish:
+        t0 = time.perf_counter()
+        areg.publish('vaep', '1', model, aot=aot)
+        publish_s = time.perf_counter() - t0
+        areg.publish('vaep', '2', model, aot=aot)
+    manifest = read_manifest(areg.aot_dir('vaep', '1'))
+    if [e['id'] for e in manifest['entries']] != list(KERNELS) or \
+            manifest['fingerprint'] != env_fingerprint(device):
+        raise RuntimeError(f'{label}: the shipped manifest {manifest}')
+    stale_path = os.path.join(areg.aot_dir('vaep', '2'), 'manifest.json')
+    with open(stale_path, encoding='utf-8') as fh:
+        stale_manifest = json.load(fh)
+    stale_manifest['fingerprint'].update(cuda='0.0-elsewhere', device_kind='another card')
+    write_json(stale_path, stale_manifest)
+    req = serve_request(rng, A, A)
+    np.savez(os.path.join(root, 'request.npz'), gs=req.gs, n=req.n,
+             **{f'f_{k}': v for k, v in req.staging.fields().items()})
+    write_json(os.path.join(root, 'spec.json'), {'shape': shape})
+    # this process's values of the same request, from the version read back
+    preg = ModelRegistry(os.path.join(root, 'registry'), device=device)
+    preg.activate('vaep', '1')
+    with RatingService(registry=preg, **shape) as psvc:
+        gm.fused_first_layer_quant.launches = 0
+        parent_values = submit_request(psvc, req).result(timeout=300)
+        launches['warm-tier parent'] = b1()
+    outcomes = {'1': 'hit', '2': 'stale'}
+    children = {outcomes[v]: rep for v, rep in spawn_aot_replicas(root, tuple(outcomes), device).items()}
+    for outcome, rep in children.items():
+        launches[f'{outcome} child'] = int(rep['b1_launches'])
+        on_card = device.type == 'cuda'
+        want_builds = 0 if outcome == 'hit' or not on_card else len(KERNELS)
+        in_cache = all(p.startswith(rep['cache']) for p in rep['library_paths'].values())
+        ok = (rep['aot']['outcome'] == outcome and rep['compile_cache'] == rep['cache']
+              and rep['kernel_builds'] == want_builds
+              and np.array_equal(rep['values'], parent_values)
+              and rep['b1_launches'] == kernel_launches(1, device)
+              and (not on_card or (in_cache and len(rep['library_paths']) == len(KERNELS))))
+        if outcome == 'hit':
+            ok = ok and rep['aot']['entries_loaded'] == len(KERNELS) and \
+                rep['aot_loads']['hit'] == len(KERNELS) and all(rep['installed'].values())
+        else:
+            ok = ok and set(rep['aot']['mismatch']) == {'cuda', 'device_kind'} and \
+                rep['aot_loads']['stale'] == 1 and (on_card or not any(rep['installed'].values()))
+        if not ok:
+            raise RuntimeError(f'{label}: the {outcome} child: {json.dumps({k: v for k, v in rep.items() if k != "values"}, default=str)}')
+    walls = {outcome: {'phase_seconds': rep['coldstart']['phase_seconds'],
+                       'wall_s': rep['coldstart'].get('wall_s'),
+                       'unattributed_s': rep['coldstart'].get('unattributed_s'),
+                       'spawn_wall_s': rep['spawn_wall_s'], 'aot': rep['aot'],
+                       'aot_loads': rep['aot_loads'], 'kernel_builds': rep['kernel_builds'],
+                       'build_seconds': rep['build_seconds'], 'b1': rep['b1_launches'],
+                       'bitwise_parent': True}
+             for outcome, rep in children.items()}
+    print(f'{label}: (b) warm tier {json.dumps({"publish_with_aot_s": publish_s, "entries": [{k: e[k] for k in ("id", "nbytes", "digest")} for e in manifest["entries"]], "fingerprint": manifest["fingerprint"]})}')
+    for outcome, rec in walls.items():
+        print(f'{label}: (b) {outcome} child cold start {json.dumps(rec, default=str)}')
+    shutil.rmtree(LANES_DIR, ignore_errors=True)
+    print(f'{label}: B1 launches {json.dumps(launches)}; phase 17 in {time.perf_counter() - t_phase:.1f} s')
+    return launches
 
 
 def main() -> int:
@@ -4331,6 +4975,11 @@ def main() -> int:
         # one of phase 15's replica processes, spawned by fleet_phase
         fleet_dir, index, device_type = sys.argv[2:5]
         fleet_replica(fleet_dir, int(index), device_type)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == '--aot-replica':
+        # one of phase 17 (b)'s warm-tier children, spawned by lanes_phase
+        root, version, device_type = sys.argv[2:5]
+        aot_replica(root, version, device_type)
         return 0
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4537,11 +5186,16 @@ def main() -> int:
     lap('phase 15 fleet')
 
     # -- phase 16, in-process serving -----------------------------------------------
-    serve_launches, serve_fold = serve_phase(model, device, card,
-                                             phase4_median_s=serving['median_s'])
-    del model
+    serve_launches, serve_fold, one_lane = serve_phase(model, device, card,
+                                                       phase4_median_s=serving['median_s'])
     torch.cuda.empty_cache()
     lap('phase 16 serving')
+
+    # -- phase 17, serving's outer tier: lanes, the warm tier, the frontend --------
+    lane_launches = lanes_phase(model, device, card, one_lane=one_lane)
+    del model
+    torch.cuda.empty_cache()
+    lap('phase 17 lanes, warm tier, frontend')
 
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
@@ -4562,6 +5216,7 @@ def main() -> int:
         **scale_paths(scale_launches, 'gather_matmul'),
         **{f'phase15 {rid}': n for rid, n in fleet_launches.items()},
         **{f'phase16 {part}': n for part, n in serve_launches.items()},
+        **{f'phase17 {part}': n for part, n in lane_launches.items()},
     }
     b2_paths = {
         'xT fits': seg_launches,

@@ -132,16 +132,14 @@ class LearnConfig:
     #: the decision trail survives any crash. None (default) keeps the
     #: in-memory-only behavior.
     journal_path: Optional[str] = None
-    #: serving executables shipped with every staged candidate in the
-    #: JAX package; not ported (ROADMAP A5): anything but ``None`` raises
+    #: serving shapes to ship the kernel libraries for with every staged
+    #: candidate (``{'ladder': (1, ..., B), 'max_actions': N}``: match the
+    #: replicas' ``RatingService`` bucket ladder and capacity). The
+    #: libraries ride the candidate through the promotion's atomic rename,
+    #: so a replica hot-swapping to the promoted version runs no ``nvcc``
+    #: (:mod:`socceraction_tpu_torch.serve.aot`). ``None`` (default) ships
+    #: none.
     aot: Optional[Dict[str, Any]] = None
-
-    def __post_init__(self) -> None:
-        if self.aot is not None:
-            raise NotImplementedError(
-                'LearnConfig.aot: ahead-of-time serving executables are not ported '
-                "yet (the port's warm tier is ROADMAP A5)"
-            )
 
 
 def _head_archs(model: Any) -> Dict[str, str]:
@@ -721,6 +719,7 @@ class ContinuousLearner:
                     cfg.model_name,
                     candidate,
                     manifest=self._build_manifest(candidate, new_ids),
+                    aot=cfg.aot,
                 )
             # the games are consumed once a candidate was trained over
             # them — a rejected candidate must not retrain the same data

@@ -4,11 +4,13 @@ A copy of the JAX package's ``socceraction_tpu/obs/coldstart.py``. A
 replica's worth is "process start → first rated action", and shortening
 it requires knowing where those seconds go. The port's start-up phases
 (:data:`PHASES`) name what it does: ``import`` (the interpreter, torch
-and the package), ``kernel_build`` (``nvcc`` building the hand-written
-kernels, recorded by
+and the package), ``checkpoint_load``, ``aot_deserialize`` (the serving
+warm tier checking and installing shipped kernel libraries,
+:meth:`~socceraction_tpu_torch.serve.service.RatingService.load_aot`),
+``kernel_build`` (``nvcc`` building the hand-written kernels, or loading
+libraries already in place, recorded by
 :func:`~socceraction_tpu_torch.ops.cuda_build.load_libraries`),
-``checkpoint_load``, ``device_upload`` and ``first_dispatch``; the JAX
-package's ``aot_deserialize`` has no counterpart here.
+``device_upload`` and ``first_dispatch``.
 
 - :func:`process_start_unix` — the OS's record of when this process
   started (``/proc/self/stat`` start time against the boot clock), so
@@ -55,7 +57,10 @@ __all__ = [
 
 
 #: The port's start-up phases, in the order a serving process runs them.
-PHASES = ('import', 'kernel_build', 'checkpoint_load', 'device_upload', 'first_dispatch')
+PHASES = (
+    'import', 'checkpoint_load', 'aot_deserialize', 'kernel_build', 'device_upload',
+    'first_dispatch',
+)
 
 
 def process_start_unix() -> Optional[float]:

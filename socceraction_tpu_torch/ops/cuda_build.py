@@ -2,11 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-repository's ``build/kernels/`` (listed in ``.gitignore``) and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
-Nothing here runs at import time: this module imports on machines with no
-CUDA toolkit.
+build directory (:func:`build_dir`: ``SOCCERACTION_TPU_COMPILE_CACHE``
+when set, else the repository's git-ignored ``build/kernels/``) and loaded
+with ``ctypes``. The library's file name carries a digest of the source
+and the flags (:func:`library_digest`, computed without ``nvcc``), so an
+edited source is rebuilt and a stale library is never loaded. A library
+already in place (built before, or installed by the serving warm tier
+through :func:`install_library`) is loaded without ``nvcc``. Nothing here
+runs at import time: this module imports on machines with no CUDA toolkit.
 
 Every load is reported to the dispatch observatory
 (:func:`~socceraction_tpu_torch.obs.dispatch.record_kernel_build`: an
@@ -37,19 +40,22 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
+from ..config import compile_cache_dir
 from ..obs.coldstart import TIMELINE
 from ..obs.dispatch import record_kernel_build
 
 __all__ = [
-    'BUILD_DIR', 'KernelError', 'KernelRefused', 'build_log', 'build_seconds', 'kernel_boundary',
+    'BUILD_DIR', 'KernelError', 'KernelRefused', 'build_dir', 'build_library', 'build_log',
+    'build_seconds', 'install_library', 'kernel_boundary', 'library_digest', 'library_path',
     'load_libraries', 'load_library', 'ptxas_report',
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / 'csrc'
-#: Where the shared libraries are built (inside the checkout, git-ignored).
+#: Where the shared libraries are built by default (inside the checkout,
+#: git-ignored).
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
 
 _NVCC_FLAGS = (
@@ -100,6 +106,97 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
+def build_dir() -> Path:
+    """The directory libraries are built into and loaded from, read at
+    call time: ``SOCCERACTION_TPU_COMPILE_CACHE`` when set, else
+    :data:`BUILD_DIR`."""
+    configured = compile_cache_dir()
+    return Path(configured) if configured else BUILD_DIR
+
+
+def library_digest(name: str) -> str:
+    """The digest that names ``csrc/<name>.cu``'s library: its source and
+    the compiler's flags (no ``nvcc`` needed to compute it)."""
+    src = _SRC_DIR / f'{name}.cu'
+    return hashlib.sha256(src.read_bytes() + ' '.join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where :func:`load_library` finds (or builds) ``name``'s library."""
+    return build_dir() / f'lib{name}-{library_digest(name)}.so'
+
+
+def _lock_for(name: str) -> threading.Lock:
+    with _lock:
+        return _name_locks.setdefault(name, threading.Lock())
+
+
+def _build(name: str) -> Tuple[Path, bool, float]:
+    """``name``'s library on disk, built with ``nvcc`` only when it is not
+    in place: ``(path, compiled, seconds)``. Call under the name's lock."""
+    src = _SRC_DIR / f'{name}.cu'
+    so = library_path(name)
+    t0 = time.perf_counter()
+    compiled = not so.exists()
+    if compiled:
+        so.parent.mkdir(parents=True, exist_ok=True)
+        # build to a temporary name, then rename: concurrent builders
+        # never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=so.parent)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *_NVCC_FLAGS, '-o', tmp, str(src)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise KernelError(
+                    f'nvcc failed to build {src} (exit {proc.returncode}):\n'
+                    f'{proc.stdout}{proc.stderr}'
+                )
+            Path(f'{so}.log').write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return so, compiled, time.perf_counter() - t0
+
+
+def build_library(name: str) -> Path:
+    """``name``'s library on disk (built first if needed), not loaded: what
+    the serving warm tier ships."""
+    with _lock_for(name), kernel_boundary(name):
+        so, compiled, seconds = _build(name)
+        if compiled:
+            build_seconds[name] = seconds
+            record_kernel_build(name, seconds, compiled=True)
+        return so
+
+
+def install_library(name: str, blob: bytes) -> Path:
+    """Put a shipped build of ``name``'s library where :func:`load_library`
+    finds it, so the next load runs no ``nvcc``; returns its path.
+
+    The caller vouches for the bytes (the warm tier checks each against
+    its manifest's sha256 and the digest in its fingerprint first). The
+    file is written under a temporary name and renamed, so a concurrent
+    loader never reads half of it. A library this process already loaded
+    stays loaded.
+    """
+    with _lock_for(name):
+        so = library_path(name)
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=so.parent)
+        try:
+            with os.fdopen(fd, 'wb') as fh:
+                fh.write(blob)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return so
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built first if needed.
 
@@ -108,42 +205,15 @@ def load_library(name: str) -> ctypes.CDLL:
     raises with the compiler's output; a compiler that does not start or a
     library that does not load raises too, each as a :class:`KernelError`.
     """
-    with _lock:
-        name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock, kernel_boundary(name):
+    with _lock_for(name), kernel_boundary(name):
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        src = _SRC_DIR / f'{name}.cu'
-        digest = hashlib.sha256(src.read_bytes() + ' '.join(_NVCC_FLAGS).encode())
-        so = BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
-        t0 = time.perf_counter()
-        compiled = not so.exists()
-        if compiled:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # build to a temporary name, then rename: concurrent builders
-            # never load a half-written library
-            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *_NVCC_FLAGS, '-o', tmp, str(src)],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise KernelError(
-                        f'nvcc failed to build {src} (exit {proc.returncode}):\n'
-                        f'{proc.stdout}{proc.stderr}'
-                    )
-                Path(f'{so}.log').write_text(proc.stdout + proc.stderr)
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        build_seconds[name] = time.perf_counter() - t0
+        so, compiled, seconds = _build(name)
+        build_seconds[name] = seconds
         _paths[name] = so
         lib = _loaded[name] = ctypes.CDLL(str(so))
-        record_kernel_build(name, build_seconds[name], compiled=compiled)
+        record_kernel_build(name, seconds, compiled=compiled)
         return lib
 
 

@@ -17,6 +17,7 @@ segment sum per table and two products.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -29,6 +30,8 @@ __all__ = [
 
 #: Shared memory a block may use on Hopper (bytes, opt-in dynamic limit).
 _MAX_SMEM = 232448
+#: Guards the launch counts, which several threads may bump at once.
+_COUNT_LOCK = threading.Lock()
 
 _TABLE_DTYPES = {torch.float32: 'gather_matmul_f32', torch.bfloat16: 'gather_matmul_bf16'}
 
@@ -176,9 +179,12 @@ def _forward_cuda(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         plan = _launch(fn, operands, out, (n, k, r, h, d), stream)
-    fused_first_layer_quant.launches += 1
     name = plan_name(plan)
-    fused_first_layer_quant.plans[name] = fused_first_layer_quant.plans.get(name, 0) + 1
+    # several flusher threads launch at once (the service's lanes): the
+    # counts are read-modify-writes, so they take a lock
+    with _COUNT_LOCK:
+        fused_first_layer_quant.launches += 1
+        fused_first_layer_quant.plans[name] = fused_first_layer_quant.plans.get(name, 0) + 1
     return out
 
 

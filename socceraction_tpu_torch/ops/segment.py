@@ -17,6 +17,7 @@ scatter, wraps negative indices onto the last segment.
 from __future__ import annotations
 
 import ctypes
+import threading
 import functools
 from typing import Any, Dict, List, Tuple
 
@@ -32,6 +33,8 @@ __all__ = [
 ]
 
 _INT32_MAX = 2**31 - 1
+#: Guards the launch counts, which several threads may bump at once.
+_COUNT_LOCK = threading.Lock()
 
 
 def _flat(values: torch.Tensor, segment_ids: torch.Tensor) -> tuple:
@@ -122,7 +125,8 @@ def _segment_sum_cuda(vals: torch.Tensor, ids: torch.Tensor, num_segments: int) 
         stream = torch.cuda.current_stream(device).cuda_stream
         _launch(_kernel(), vals, ids, out, num_segments, grid, regime, stream)
     if n and num_segments:  # an empty stream is only the memset
-        segment_sum.launches += 1
+        with _COUNT_LOCK:  # launches may come from several threads at once
+            segment_sum.launches += 1
     return out
 
 

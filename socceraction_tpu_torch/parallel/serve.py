@@ -24,7 +24,7 @@ replica ``i`` (or one batch on each) and give me host values".
 from __future__ import annotations
 
 import copy
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,11 @@ def _fold_on(prep: PreparedPair, device: torch.device) -> PreparedPair:
         return QuantizedArray(*(None if t is None else t.to(device) for t in q))
 
     return prep._replace(tables=move(prep.tables), w_dense=move(prep.w_dense), bias=prep.bias.to(device))
+
+
+def _goalscore(gs: Optional[Any]) -> Optional[Dict[str, Any]]:
+    """A goalscore block as the dense overrides it stands for."""
+    return None if gs is None else {'goalscore': gs}
 
 
 class ReplicaDispatcher:
@@ -98,15 +103,26 @@ class ReplicaDispatcher:
             ]
             self._lanes.append((_fold_on(prep, d), *mods))
 
-    def _dispatch(self, replica: int, batch: Any, gs: Optional[Any]) -> torch.Tensor:
-        """One lane's pair dispatch and formula on its device (not read back)."""
+    @torch.no_grad()
+    def dispatch(
+        self, replica: int, batch: Any, dense_overrides: Optional[Dict[str, Any]] = None
+    ) -> torch.Tensor:
+        """Lane ``replica``'s dispatch of one padded batch -> ``(G, A, 3)``
+        values on the lane's device, not read back: the device-level half
+        of :meth:`rate_replica`, on the caller's current stream.
+
+        ``dense_overrides`` maps dense feature names to ``(G, A, width)``
+        blocks (the goalscore block, a scenario grid's blocks), moved to the
+        lane's device; a serving layer hands the returned values, the batch
+        and its blocks to a parity probe before it copies the values back.
+        """
         d = self.devices[replica]
         if batch.device != d:
             batch = batch.to(d)
-        overrides = (
-            None if gs is None
-            else {'goalscore': torch.as_tensor(gs, dtype=torch.float32, device=d)}
-        )
+        overrides = {
+            name: torch.as_tensor(block, dtype=torch.float32, device=d)
+            for name, block in (dense_overrides or {}).items()
+        } or None
         prep, mod_a, mod_b = self._lanes[replica]
         model = self.model
         pa, pb = _pair_dispatch(
@@ -124,7 +140,7 @@ class ReplicaDispatcher:
         ``(G, A, 3)`` values, bitwise ``rate_batch(batch, bucket=False)``
         of the same batch on that device. ``gs`` is a ``(G, A, 3)``
         goalscore block that replaces the computed one."""
-        return self._dispatch(replica, host_batch, gs).cpu().numpy()
+        return self.dispatch(replica, host_batch, _goalscore(gs)).cpu().numpy()
 
     @torch.no_grad()
     def rate_mesh(
@@ -162,5 +178,5 @@ class ReplicaDispatcher:
                     '"no override")'
                 )
             gs = list(gs_list)
-        values = [self._dispatch(i, b, g) for i, (b, g) in enumerate(zip(host_batches, gs))]
+        values = [self.dispatch(i, b, _goalscore(g)) for i, (b, g) in enumerate(zip(host_batches, gs))]
         return [v.cpu().numpy() for v in values]

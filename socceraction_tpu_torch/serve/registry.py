@@ -44,9 +44,10 @@ two lifecycle stages on top:
   is one warm, atomic reference swap — counted under
   ``serve/model_swaps{reason="rollback"}``.
 
-The JAX package's ahead-of-time serving executables (``publish(aot=)``,
-``stage_candidate(aot=)``, ``aot_dir``, ``export_aot``) have no
-counterpart yet: passing ``aot=`` raises (ROADMAP A5).
+``publish(aot=)``, ``stage_candidate(aot=)``, :meth:`ModelRegistry.aot_dir`
+and :meth:`ModelRegistry.export_aot` ship the serving warm tier's kernel
+libraries inside a version (:mod:`socceraction_tpu_torch.serve.aot`), as
+the JAX package ships its compiled executables.
 """
 
 from __future__ import annotations
@@ -88,14 +89,6 @@ def _version_sort_key(version: str) -> Tuple[Any, ...]:
     return tuple(
         (0, int(p)) if p.isdigit() else (1, p) for p in parts
     )
-
-
-def _no_aot(aot: Optional[Dict[str, Any]]) -> None:
-    if aot is not None:
-        raise NotImplementedError(
-            'ahead-of-time serving executables (aot=) are not ported yet: the '
-            "port's warm tier is ROADMAP A5"
-        )
 
 
 class ModelRegistry:
@@ -146,10 +139,16 @@ class ModelRegistry:
         """Save a fitted model as ``name``/``version``; returns its path.
 
         Refuses to overwrite an existing version — versions are immutable
-        (republish under a new version instead). ``aot=`` raises: the
-        serving executables are not ported (ROADMAP A5).
+        (republish under a new version instead).
+
+        ``aot`` (``{'ladder': (...), 'max_actions': N}``) additionally
+        ships the kernel libraries the model's serving needs in an
+        ``aot/`` subdirectory of the version
+        (:func:`socceraction_tpu_torch.serve.aot.export_serving_aot`): a
+        replica whose environment fingerprint matches then installs them
+        instead of running ``nvcc``. Export with the shapes replicas
+        serve (``RatingService``'s bucket ladder / ``max_actions``).
         """
-        _no_aot(aot)
         path = self._dir(name, version)
         if os.path.exists(path):
             raise ValueError(
@@ -158,7 +157,66 @@ class ModelRegistry:
             )
         os.makedirs(path)
         model.save_model(path)
+        if aot is not None:
+            self._export_aot_into(model, path, aot)
         return path
+
+    @staticmethod
+    def _export_aot_into(model: Any, path: str, aot: Dict[str, Any]) -> None:
+        """Ship the kernel libraries inside a version/candidate dir.
+
+        A failed export (a model that does not rate through the fused
+        path, a kernel that does not build) removes the just-created
+        directory before re-raising: the immutability guard would
+        otherwise refuse every retry of the same version. A *crash*
+        mid-export needs no cleanup — the manifest is written last, so a
+        manifest-less ``aot/`` reads as no artifacts.
+        """
+        from .aot import AOT_DIRNAME, export_serving_aot
+
+        try:
+            export_serving_aot(
+                model,
+                os.path.join(path, AOT_DIRNAME),
+                ladder=tuple(aot['ladder']),
+                max_actions=int(aot['max_actions']),
+            )
+        except Exception:
+            shutil.rmtree(path, ignore_errors=True)
+            raise
+
+    def aot_dir(self, name: str, version: str) -> str:
+        """The ``aot/`` artifact directory of ``name``/``version``.
+
+        A path computation only: existence (and fingerprint match) is the
+        loader's business; ``RatingService.warmup`` reads an absent
+        directory as the no-artifacts tier.
+        """
+        from .aot import AOT_DIRNAME
+
+        return os.path.join(self._dir(name, version), AOT_DIRNAME)
+
+    def export_aot(
+        self,
+        name: str,
+        version: Optional[str] = None,
+        *,
+        ladder: Any,
+        max_actions: int,
+    ) -> Dict[str, Any]:
+        """Ship the kernel libraries with an already-published version.
+
+        The backfill path for versions published without ``aot=``: loads
+        the version and writes ``aot/`` into its directory. The artifact
+        set is immutable once written. Returns the manifest.
+        """
+        from .aot import export_serving_aot
+
+        version = self.resolve_version(name, version)
+        model = self.load(name, version)
+        return export_serving_aot(
+            model, self.aot_dir(name, version), ladder=tuple(ladder), max_actions=int(max_actions),
+        )
 
     def names(self) -> List[str]:
         """Published model names."""
@@ -429,10 +487,13 @@ class ModelRegistry:
         + frozen drift-reference statistics) that travels with the
         candidate through :meth:`promote_candidate`'s atomic rename, so
         every published version carries the provenance a restarted
-        process needs (:meth:`load_manifest`). ``aot=`` raises (ROADMAP
-        A5).
+        process needs (:meth:`load_manifest`).
+
+        ``aot`` (``{'ladder': ..., 'max_actions': ...}``) ships the kernel
+        libraries in the candidate's ``aot/`` subdirectory: they ride
+        :meth:`promote_candidate`'s atomic rename with the checkpoint, so
+        a replica hot-swapping to the promoted version runs no ``nvcc``.
         """
-        _no_aot(aot)
         if tag is None:
             with self._lock:
                 self._candidate_seq += 1
@@ -446,6 +507,8 @@ class ModelRegistry:
         if manifest is not None:
             with open(os.path.join(path, 'manifest.json'), 'w') as f:
                 json.dump(manifest, f, sort_keys=True, default=str)
+        if aot is not None:
+            self._export_aot_into(model, path, aot)
         return tag, path
 
     def load_manifest(

@@ -40,18 +40,24 @@ latency-bounded server:
   through the reference off the flusher thread, on its own CUDA stream;
 - a capture ring (``capture=``) records served traffic for the learning
   loop, and :meth:`RatingService.telemetry` exposes the service to the
-  fleet's scrape surface.
+  fleet's scrape surface;
+- replica lanes (``n_replicas=N``): N flusher threads drain the one
+  queue, each lane with its own breaker (``serve.dispatch.r{i}``), its
+  ``replica=`` label and, on a card, its own CUDA stream; lane ``i`` sits
+  on card ``i`` modulo the process's cards, so lanes share a card (and
+  one copy of the weights) when there are fewer cards than lanes;
+- a warm tier (``aot_dir=``, :meth:`RatingService.load_aot`, a registry
+  version's ``aot/``): the kernel libraries shipped with a version are
+  installed before warm-up, so a new replica runs no ``nvcc``
+  (:mod:`socceraction_tpu_torch.serve.aot`).
 
-The service runs on the device of the model it serves: each flush copies
-its padded host batch there, rates it, and makes one copy of the values
-back; before that copy it reads only host counts. A sampled flush hands
-the probe its card batch, goalscore block and values before that copy.
-Every stage reports under the ``serve`` (and ``scenario``, ``slo``)
-telemetry areas, with the JAX package's names.
-
-Not ported yet, and raising with their ``ROADMAP.md`` item when asked
-for: ``aot_dir=`` and ``load_aot`` (A5); ``n_replicas > 1`` (A6). pandas
-is imported only inside the verbs that take or return frames.
+The service runs on the device of the model it serves (its lanes on
+theirs): each flush copies its padded host batch there, rates it, and
+makes one copy of the values back; before that copy it reads only host
+counts. A sampled flush hands the probe its card batch, goalscore block
+and values before that copy. Every stage reports under the ``serve`` (and
+``scenario``, ``slo``) telemetry areas, with the JAX package's names.
+pandas is imported only inside the verbs that take or return frames.
 """
 
 from __future__ import annotations
@@ -189,10 +195,6 @@ class _ScenarioPayload:
         self.ctx = ctx  # RequestContext (trace identity + segments)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP {item})')
-
-
 class RatingService:
     """In-process online rating server over a fitted VAEP model.
 
@@ -260,14 +262,25 @@ class RatingService:
         leaves the breaker as it was. Pass an explicit instance to share
         or tune one, or ``breaker_failures=0`` to disable degradation.
     n_replicas : int
-        Only 1: the replica lanes are ROADMAP A6.
+        Replica lanes. Above 1, N flusher threads share the one queue and
+        every lane rates through the fused dispatch on its own device
+        (:class:`~socceraction_tpu_torch.parallel.serve.ReplicaDispatcher`):
+        lane ``i`` on card ``i`` modulo the cards of this process, on its
+        own CUDA stream; a lane on the model's card shares the model's
+        weights. Each lane gets its own breaker (``breaker=`` is refused),
+        warms its own ladder and labels its series ``replica=r{i}``;
+        :meth:`health` names sick lanes. A model that does not rate
+        through the fused path is refused here.
     max_perturbations : int
         Top of the scenario verb's perturbation ladder
         (:attr:`scenario_ladder`, ``(1, 2, 4, ..., max_perturbations)``
         rounded up to a power of two); a grid with more perturbations is
         rejected at call time.
     aot_dir : str, optional
-        Not ported (ROADMAP A5): anything but ``None`` raises.
+        Where this model-backed service's shipped kernel libraries live (an
+        ``aot/`` directory from
+        :func:`~socceraction_tpu_torch.serve.aot.export_serving_aot`). A
+        registry-backed service reads each version's own ``aot/``.
     debug_dir : str, optional
         Where automatic flight-recorder bundles land (flusher-thread death,
         ``Overloaded`` bursts past ``overload_dump_threshold`` within
@@ -304,12 +317,9 @@ class RatingService:
     ) -> None:
         if (model is None) == (registry is None):
             raise ValueError('give exactly one of model= or registry=')
-        if aot_dir is not None:
-            raise _not_ported('RatingService(aot_dir=...)', 'A5')
-        if int(n_replicas) < 1:
+        self.n_replicas = int(n_replicas)
+        if self.n_replicas < 1:
             raise ValueError('n_replicas must be >= 1')
-        if int(n_replicas) > 1:
-            raise _not_ported('RatingService(n_replicas > 1)', 'A6')
         self.max_perturbations = int(max_perturbations)
         if self.max_perturbations < 1:
             raise ValueError('max_perturbations must be >= 1')
@@ -356,18 +366,58 @@ class RatingService:
             if slo is not None
             else None
         )
-        if breaker is not None:
-            self._breakers: List[Optional[CircuitBreaker]] = [breaker]
-        elif int(breaker_failures) > 0:
-            self._breakers = [
+        if self.n_replicas > 1:
+            if breaker is not None:
+                raise ValueError(
+                    'a shared breaker instance defeats per-replica '
+                    'degradation; with n_replicas > 1 the service builds '
+                    'one breaker per replica from breaker_failures/'
+                    'breaker_recovery_s'
+                )
+            from ..obs.wire import REPLICAS
+
+            self.replica_ids: Tuple[str, ...] = tuple(
+                REPLICAS.register(f'r{i}') for i in range(self.n_replicas)
+            )
+            self._breakers: List[Optional[CircuitBreaker]] = [
                 CircuitBreaker(
                     failure_threshold=int(breaker_failures),
                     recovery_time_s=float(breaker_recovery_s),
-                    name='serve.dispatch',
+                    name=f'serve.dispatch.{rid}',
                 )
+                if int(breaker_failures) > 0
+                else None
+                for rid in self.replica_ids
             ]
+            self._lane_devices = _lane_devices(first.device, self.n_replicas)
+            #: one CUDA stream per lane on a card, made once: a lane's
+            #: upload, dispatch and values' copy run on it, so lanes that
+            #: share a card overlap instead of queueing on one stream
+            self._lane_streams: List[Any] = [
+                torch.cuda.Stream(d) if d.type == 'cuda' else None for d in self._lane_devices
+            ]
+            # fail at construction, not first flush: the lanes serve the
+            # fused dispatch only, and a service that cannot serve its
+            # topology must say so here
+            self._dispatchers: List[Tuple[Any, Any]] = [(first, self._build_dispatcher(first))]
         else:
-            self._breakers = [None]
+            self.replica_ids = ()
+            if breaker is not None:
+                self._breakers = [breaker]
+            elif int(breaker_failures) > 0:
+                self._breakers = [
+                    CircuitBreaker(
+                        failure_threshold=int(breaker_failures),
+                        recovery_time_s=float(breaker_recovery_s),
+                        name='serve.dispatch',
+                    )
+                ]
+            else:
+                self._breakers = [None]
+            self._lane_devices = ()
+            self._lane_streams = []
+            self._dispatchers = []
+        self._dispatcher_lock = threading.Lock()
         self._batcher = MicroBatcher(
             self._flush,
             max_batch_size=max_batch_size,
@@ -375,12 +425,18 @@ class RatingService:
             max_queue=max_queue,
             on_crash=self._on_flusher_crash,
             on_request_done=self._on_request_done,
+            n_lanes=self.n_replicas,
+            lane_names=self.replica_ids or None,
         )
         self._shape_lock = threading.Lock()
         self._seen_shapes: set = set()
         self._seen_scenario_buckets: set = set()
-        #: the compile-cache tier's status from the last warmup: the port
-        #: has no compile cache (ROADMAP A5), so its directory is None
+        #: explicit artifact source for model-backed services
+        self._aot_dir_override = aot_dir
+        #: last warm-tier load summary + the (name, version) it was tried for
+        self._aot_state: Optional[Dict[str, Any]] = None
+        self._aot_tried_for: Optional[Tuple[str, str]] = None
+        #: the compile cache's status from the last warmup
         self._cache_state: Optional[Dict[str, Any]] = None
 
     # -- model plumbing ----------------------------------------------------
@@ -433,9 +489,48 @@ class RatingService:
             path = 'invalid'
         return {'path': path, 'plans': dict(fused_first_layer_quant.plans)}
 
+    # -- replica lanes ------------------------------------------------------
+
     @property
     def _breaker(self) -> Optional[CircuitBreaker]:
+        """Lane 0's breaker: the single-lane service's only one."""
         return self._breakers[0]
+
+    def _replica_kw(self, lane: int) -> Dict[str, str]:
+        """The ``replica=`` label of one lane's serve-area series."""
+        if not self.replica_ids:
+            return {}
+        return {'replica': self.replica_ids[lane]}
+
+    def _build_dispatcher(self, model: Any) -> Any:
+        """A :class:`~socceraction_tpu_torch.parallel.serve.ReplicaDispatcher`
+        for one model over the lanes' devices: a lane on the model's own
+        device shares the model's fold and heads, any other lane gets one
+        copy on its card."""
+        from ..parallel.serve import ReplicaDispatcher
+
+        return ReplicaDispatcher(model, self.n_replicas, devices=self._lane_devices)
+
+    def _dispatcher_for(self, model: Any) -> Any:
+        """The lanes' dispatcher serving ``model`` (built once per model).
+
+        Keyed by model identity, bounded to the registry's working set
+        (active + swap target + rollback source): a flush that read the
+        active model mid-swap keeps its model's dispatcher even while a
+        new one warms, so swap atomicity extends to the lanes.
+        """
+        with self._dispatcher_lock:
+            for m, d in self._dispatchers:
+                if m is model:
+                    return d
+        dispatcher = self._build_dispatcher(model)
+        with self._dispatcher_lock:
+            for m, d in self._dispatchers:
+                if m is model:  # lost a build race: keep the first
+                    return d
+            self._dispatchers.append((model, dispatcher))
+            del self._dispatchers[:-3]
+        return dispatcher
 
     def _prepare_swap_target(self, name: str, version: str) -> Any:
         """Load, validate, layout-guard and ladder-warm a swap target.
@@ -445,10 +540,12 @@ class RatingService:
         keep the active model's feature layout — sessions in flight pin
         their window shape to ``nb_prev_actions`` and the bucket ladder
         pins the served shapes, so a layout change requires a new service,
-        not a swap. The ladder is dispatched through the target on its
-        device *before* it goes live (on the caller's thread), so the
-        first post-swap request pays no first-use cost and a target that
-        cannot rate fails this call, not a flush.
+        not a swap. The version's shipped libraries are tried first
+        (:meth:`_load_aot_for`, never raising), then the ladder is
+        dispatched through the target on every lane *before* it goes live
+        (on the caller's thread), so the first post-swap request pays no
+        first-use cost and a target that cannot rate on any lane fails
+        this call, not a flush.
         """
         old = self.model
         new = self._registry.load(name, version)
@@ -458,13 +555,20 @@ class RatingService:
                 'swap target changes the feature layout '
                 '(nb_prev_actions/xfns); start a new RatingService for it'
             )
+        self._load_aot_for(name, version, new)
         A = self.max_actions
         rungs: Tuple[Optional[int], ...] = (
             window_ladder(A) if getattr(new, 'time_rungs', False) else (None,)
         )
-        for b in self._batcher.ladder:
-            for tl in rungs:
-                self._device_rate(_empty_host_batch(1, A), _empty_gs(1, A), new, b, time_len=tl)
+        # every lane warms before the caller activates the target anywhere:
+        # one lane failing to warm raises out of this loop and aborts the
+        # swap for all of them, so no mixed-version service ever serves
+        for lane in range(self.n_replicas):
+            for b in self._batcher.ladder:
+                for tl in rungs:
+                    self._device_rate(
+                        _empty_host_batch(1, A), _empty_gs(1, A), new, b, lane=lane, time_len=tl,
+                    )
         return new
 
     def swap_model(self, name: str, version: Optional[str] = None) -> Tuple[str, str]:
@@ -827,12 +931,18 @@ class RatingService:
         probe: bool = False,
         exemplar: Optional[str] = None,
     ) -> np.ndarray:
-        """Pad to the bucket, rate on the model's device, copy to host.
+        """Pad to the bucket, rate on the lane's device, copy to host.
 
-        The padded host batch is copied to the model's device (from pinned
-        memory on a card, without waiting), rated by ``rate_batch`` on
-        that device's current stream, and its values come back in one
-        copy. Nothing before that copy reads the device.
+        The padded host batch is copied to the device (from pinned memory
+        on a card, without waiting), rated, and its values come back in
+        one copy. Nothing before that copy reads the device. A one-lane
+        service rates through ``rate_batch`` on the model's device and its
+        current stream. On a service with lanes, lane ``lane`` rates
+        through the lanes' dispatcher (:meth:`_dispatcher_for`, the same
+        function on that lane's device) on the lane's own stream, which
+        first waits for the device's default stream (where models are
+        loaded and folds built); the shape key and the series carry the
+        lane.
 
         ``extra_overrides`` carries a scenario grid's dense blocks (already
         expanded to ``(bucket, A, width)``), uploaded beside the goalscore
@@ -865,16 +975,30 @@ class RatingService:
                 self._seen_shapes.add(key)
                 n_shapes = len(self._seen_shapes)
         if new_shape:
-            counter('serve/shape_traces', unit='count').inc(1, bucket=str(bucket))
+            counter('serve/shape_traces', unit='count').inc(
+                1, bucket=str(bucket), **self._replica_kw(lane)
+            )
             gauge('serve/compiled_shapes', unit='shapes').set(n_shapes)
         fault_point('serve.dispatch', bucket=bucket)
-        device = model.device
-        with _on_device(device):
+        if self.n_replicas > 1:
+            dispatcher = self._dispatcher_for(model)
+            device, stream = self._lane_devices[lane], self._lane_streams[lane]
+        else:
+            dispatcher, device, stream = None, model.device, None
+        with _on_device(device), _on_stream(stream, device):
             batch, overrides = _upload(
                 host_batch, gs if self._gs_enabled else None, device, extra_overrides
             )
-            values = model.rate_batch(batch, dense_overrides=overrides, bucket=False)
-            if probe and self.parity is not None and self.parity.should_sample():
+            if dispatcher is None:
+                values = model.rate_batch(batch, dense_overrides=overrides, bucket=False)
+            else:
+                values = dispatcher.dispatch(lane, batch, overrides)
+            # the probe's reference reads the model's own weights: a lane
+            # on another card than the model's is not sampled
+            if (
+                probe and self.parity is not None and device == model.device
+                and self.parity.should_sample()
+            ):
                 self.parity.submit_flush(
                     model, batch, (overrides or {}).get('goalscore'), values, exemplar=exemplar
                 )
@@ -920,9 +1044,10 @@ class RatingService:
         breaker = self._breakers[lane]
         if breaker is None:
             return fused(), 'fused'
+        replica_kw = self._replica_kw(lane)
         verdict = breaker.allow()
         if verdict == 'open':
-            counter('serve/fallback_flushes', unit='count').inc(1)
+            counter('serve/fallback_flushes', unit='count').inc(1, **replica_kw)
             return fallback(), 'fallback'
         try:
             values = fused()
@@ -941,7 +1066,7 @@ class RatingService:
                         'breaker': breaker.to_dict(),
                     },
                 )
-            counter('serve/fallback_flushes', unit='count').inc(1)
+            counter('serve/fallback_flushes', unit='count').inc(1, **replica_kw)
             return fallback(), 'fallback'
         breaker.record_success()
         return values, 'fused'
@@ -1084,11 +1209,12 @@ class RatingService:
                 n_values / dispatch_s, n_perturbations_bucket=bucket_label
             )
         exemplar = p.ctx.request_id if p.ctx is not None else None
+        replica_kw = self._replica_kw(lane)
         pad_s = t_pad - t0
         slice_s = t_slice - t_dispatch
-        record_segment('pad', pad_s, exemplar)
-        record_segment('dispatch', dispatch_s, exemplar)
-        record_segment('slice', slice_s, exemplar)
+        record_segment('pad', pad_s, exemplar, **replica_kw)
+        record_segment('dispatch', dispatch_s, exemplar, **replica_kw)
+        record_segment('slice', slice_s, exemplar, **replica_kw)
         if p.ctx is not None:
             p.ctx.segments.update(pad=pad_s, dispatch=dispatch_s, slice=slice_s)
         return rows
@@ -1147,12 +1273,13 @@ class RatingService:
 
         # the flush-shared half of the per-request wall decomposition
         # (queue_wait is the batcher's)
+        replica_kw = self._replica_kw(lane)
         pad_s = t_pad - t0
         dispatch_s = t_dispatch - t_pad
         slice_s = t_slice - t_dispatch
-        record_segment('pad', pad_s, exemplar)
-        record_segment('dispatch', dispatch_s, exemplar)
-        record_segment('slice', slice_s, exemplar)
+        record_segment('pad', pad_s, exemplar, **replica_kw)
+        record_segment('dispatch', dispatch_s, exemplar, **replica_kw)
+        record_segment('slice', slice_s, exemplar, **replica_kw)
         for p in payloads:
             if p.ctx is not None:
                 p.ctx.segments.update(pad=pad_s, dispatch=dispatch_s, slice=slice_s)
@@ -1252,9 +1379,28 @@ class RatingService:
             )
 
     def _aot_block(self) -> Dict[str, Any]:
-        """The ``health()['aot']`` entry: the JAX service's block with no
-        shipped executables (the port's warm tier is ROADMAP A5)."""
-        block: Dict[str, Any] = {'available': False}
+        """The ``health()['aot']`` entry: the last warm-tier load verdict.
+
+        ``available`` is False until a load was attempted (a model-backed
+        service without ``aot_dir=``, or warmup not yet run); afterwards
+        the block carries the outcome (``hit``/``stale``/``miss``), the
+        libraries installed, the shipped fingerprint and, for ``stale``,
+        the keys that moved (a torch upgrade? another card?). With it
+        the compile cache's state: its directory (None: the checkout's
+        build directory) and, when it failed to enable, the error.
+        """
+        state = self._aot_state
+        if state is None:
+            block: Dict[str, Any] = {'available': False}
+        else:
+            block = {
+                'available': True,
+                'outcome': state.get('outcome'),
+                'entries_loaded': state.get('entries_loaded', 0),
+            }
+            for key in ('model', 'reason', 'mismatch', 'fingerprint'):
+                if state.get(key) is not None:
+                    block[key] = state[key]
         if self._cache_state is not None:
             block['compile_cache'] = dict(self._cache_state)
         return block
@@ -1313,10 +1459,27 @@ class RatingService:
         )
         breaker_block = self._breaker.to_dict() if self._breaker is not None else None
         breaker_ok = breaker_block is None or breaker_block['state'] == 'closed'
+        replicas_block: Optional[Dict[str, Any]] = None
+        sick: List[str] = []
+        if self.replica_ids:
+            # one entry per lane, naming exactly which lane is sick (its
+            # breaker open or probing, or its flusher retired)
+            dead = self._batcher.dead_lanes
+            per_replica: Dict[str, Any] = {}
+            for lane, rid in enumerate(self.replica_ids):
+                b = self._breakers[lane]
+                b_dict = b.to_dict() if b is not None else None
+                lane_dead = lane in dead
+                healthy = not lane_dead and (b_dict is None or b_dict['state'] == 'closed')
+                per_replica[rid] = {'breaker': b_dict, 'flusher_dead': lane_dead, 'healthy': healthy}
+                if not healthy:
+                    sick.append(rid)
+                breaker_ok = breaker_ok and (b_dict is None or b_dict['state'] == 'closed')
+            replicas_block = {'n': self.n_replicas, 'per_replica': per_replica, 'sick': sick}
         owned = owned_bytes()
         if not state['flusher_alive']:
             status = 'flusher-dead'
-        elif not numerics_ok or not breaker_ok:
+        elif not numerics_ok or not breaker_ok or sick:
             status = 'degraded'
         else:
             status = 'ok'
@@ -1324,6 +1487,7 @@ class RatingService:
         return {
             'status': status,
             **state,
+            **({'replicas': replicas_block} if replicas_block is not None else {}),
             'numerics': {
                 'ok': numerics_ok,
                 'nonfinite_events': nonfinite_events,
@@ -1368,9 +1532,54 @@ class RatingService:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def _aot_source(self, name: str, version: str) -> Optional[str]:
+        """Where this service's shipped libraries live, or ``None``."""
+        if self._aot_dir_override is not None:
+            return self._aot_dir_override
+        if self._registry is not None:
+            return self._registry.aot_dir(name, version)
+        return None
+
+    def _load_aot_for(self, name: str, version: str, model: Any) -> Optional[Dict[str, Any]]:
+        """Try the warm tier for one model version; never raises.
+
+        The whole path — manifest parse, fingerprint and layout check,
+        checksum-verified library reads (the ``registry.aot`` fault point
+        and retry site), installing — lives in
+        :func:`~socceraction_tpu_torch.serve.aot.load_serving_aot`, which
+        reports every failure as a counted ``stale``/``miss`` instead of
+        raising. So a corrupt library, a moved toolkit or another card can
+        never fail a warmup or a swap: the build runs right after, at the
+        first dispatch of each kernel.
+        """
+        source = self._aot_source(name, version)
+        if source is None:
+            return None
+        from .aot import load_serving_aot
+
+        state = load_serving_aot(
+            model, source, ladder=self._batcher.ladder, max_actions=self.max_actions,
+            context={'model': f'{name}/{version}'},
+        )
+        self._aot_state = state
+        self._aot_tried_for = (name, version)
+        return state
+
     def load_aot(self) -> Optional[Dict[str, Any]]:
-        """Shipped serving executables: not ported yet (ROADMAP A5)."""
-        raise _not_ported('RatingService.load_aot', 'A5')
+        """Install the shipped kernel libraries of the active model (tier 1).
+
+        The explicit first tier of :meth:`warmup`: callers that meter their
+        cold start phase by phase (the ``aot_deserialize`` phase) run it
+        on its own; ``warmup()`` otherwise runs it. Returns the load
+        summary (``outcome`` ``hit``/``stale``/``miss``, see
+        :func:`~socceraction_tpu_torch.serve.aot.load_serving_aot`), or
+        ``None`` when the service has no artifact source (model-backed, no
+        ``aot_dir=``). Idempotent per active version.
+        """
+        name, version, model = self._active()
+        if self._aot_tried_for == (name, version):
+            return self._aot_state
+        return self._load_aot_for(name, version, model)
 
     def warmup(
         self,
@@ -1378,32 +1587,67 @@ class RatingService:
         *,
         scenario_buckets: Optional[Tuple[int, ...]] = None,
     ) -> Tuple[int, ...]:
-        """Dispatch every rung of the bucket ladder once; returns the buckets.
+        """Warm the bucket ladder: shipped libraries > cache > ``nvcc``.
 
-        Each rung goes through :meth:`_device_rate` on the model's device,
-        not through the breaker, so a B1 that cannot build or launch (or
+        Every rung of every lane goes through :meth:`_device_rate`, not
+        through the breaker, so a B1 that cannot build or launch (or
         refuses the model's widths) raises out of this call before any
         traffic arrives. Seq models warm every window rung too.
         ``scenario_buckets`` adds perturbation rungs: a scenario flush at
         bucket ``b`` is the shape of a ``b``-game rate flush, so warming
         ``b`` (e.g. :attr:`scenario_ladder`) warms the verb. After warmup
         the shape counters stay flat under any traffic.
+
+        The kernels' libraries come from the best tier available:
+
+        1. **shipped libraries** — :meth:`load_aot`: when the registry
+           version (or ``aot_dir=``) carries ``aot/`` artifacts and the
+           fingerprint matches, each checksum-verified library is
+           installed where ``load_library`` finds it, so the first
+           dispatch loads it and ``nvcc`` never runs;
+        2. **the compile cache** — the build directory named by
+           ``SOCCERACTION_TPU_COMPILE_CACHE``
+           (:func:`~socceraction_tpu_torch.serve.aot.enable_compile_cache`):
+           a library a sibling replica built there is loaded;
+        3. **``nvcc``** — the library is built at its first dispatch.
+
+        Returns the buckets warmed.
         """
         buckets = tuple(buckets) if buckets is not None else self._batcher.ladder
         if scenario_buckets:
             buckets = tuple(sorted(set(buckets) | {int(b) for b in scenario_buckets}))
-        _name, _version, model = self._active()
-        self._cache_state = {'dir': None}
+        name, version, model = self._active()
+        from .aot import enable_compile_cache
+
+        try:
+            self._cache_state = {'dir': enable_compile_cache()}
+        except Exception as e:
+            # a broken cache dir must not fail warmup, but "off by choice"
+            # and "broken" must read differently: record the error where
+            # the warm tier's outcomes live
+            self._cache_state = {'dir': None, 'error': f'{type(e).__name__}: {e}'}
+            from ..obs.recorder import RECORDER
+
+            try:
+                RECORDER.record('compile_cache_error', **self._cache_state)
+            except Exception:
+                pass
+        if self._aot_tried_for != (name, version):
+            self._load_aot_for(name, version, model)
         A = self.max_actions
         rungs: Tuple[Optional[int], ...] = (
             window_ladder(A) if getattr(model, 'time_rungs', False) else (None,)
         )
         with span('serve/warmup', buckets=list(buckets)):
-            for b in buckets:
-                for tl in rungs:
-                    self._device_rate(
-                        _empty_host_batch(1, A), _empty_gs(1, A), model, b, time_len=tl,
-                    )
+            # every lane warms its own ladder, so steady traffic adds a
+            # shape on no lane
+            for lane in range(self.n_replicas):
+                for b in buckets:
+                    for tl in rungs:
+                        self._device_rate(
+                            _empty_host_batch(1, A), _empty_gs(1, A), model, b, lane=lane,
+                            time_len=tl,
+                        )
         return buckets
 
     def close(self, *, drain: bool = True) -> None:
@@ -1442,12 +1686,13 @@ class RatingService:
 
     @property
     def breaker(self) -> Optional[CircuitBreaker]:
-        """The fused-dispatch circuit breaker (None when disabled)."""
+        """The fused-dispatch circuit breaker (None when disabled); lane
+        0's on a service with lanes (:attr:`breakers` has them all)."""
         return self._breakers[0]
 
     @property
     def breakers(self) -> Tuple[Optional[CircuitBreaker], ...]:
-        """Every lane's circuit breaker (one: the service has one lane)."""
+        """Every lane's circuit breaker, indexed by replica."""
         return tuple(self._breakers)
 
     @property
@@ -1463,6 +1708,26 @@ def _on_device(device: torch.device) -> Any:
     if device.type == 'cuda':
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _on_stream(stream: Any, device: torch.device) -> Any:
+    """A lane's stream made current, after it waits for what the device's
+    default stream was given before (model loads, folds); a no-op without
+    a stream (one lane, or a lane on the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stream.wait_stream(torch.cuda.default_stream(device))
+    return torch.cuda.stream(stream)
+
+
+def _lane_devices(device: torch.device, n_lanes: int) -> Tuple[torch.device, ...]:
+    """Where each lane sits: lane ``i`` on card ``i`` modulo the process's
+    cards for a model on a card (several lanes share a card when the
+    process has fewer cards than lanes), all on the CPU for a CPU model."""
+    if device.type != 'cuda':
+        return (device,) * n_lanes
+    count = torch.cuda.device_count()
+    return tuple(torch.device('cuda', i % count) for i in range(n_lanes))
 
 
 def _upload(

@@ -11,7 +11,8 @@
   also run so, at a tiny size on the CPU, with a checkpoint published and
   loaded back through the model registry; so do its scale-out phase, its
   telemetry-plane phase and its serving phase, each in a process of its
-  own.
+  own; the serving phase then runs serving's outer tier (replica lanes,
+  the warm tier's child processes, the frontend) in the same process.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -81,7 +82,7 @@ def test_the_scan_sees_the_port():
         'parallel/__init__.py', 'parallel/collectives.py', 'parallel/mesh.py', 'parallel/xt.py',
         'parallel/vaep.py', 'parallel/sequence.py', 'parallel/serve.py', 'utils/env.py',
         'obs/wire.py', 'obs/endpoint.py', 'obs/fleet.py', 'resil/breaker.py', 'serve/batcher.py',
-        'serve/session.py', 'serve/service.py',
+        'serve/session.py', 'serve/service.py', 'serve/aot.py', 'serve/frontend.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -265,14 +266,21 @@ torch.set_num_threads(1)
 import chip_smoke
 import socceraction_tpu_torch.serve.service, socceraction_tpu_torch.serve.batcher
 import socceraction_tpu_torch.serve.session, socceraction_tpu_torch.resil.breaker
+import socceraction_tpu_torch.serve.aot, socceraction_tpu_torch.serve.frontend
 sizes = chip_smoke.ServeSizes(max_actions=256, max_batch_size=4, clients=2, requests=3, low=100,
                               swap_clients=2, swap_requests=3, drain_requests=3, hidden=(8,),
                               grid=(3, 2), sweep_types=5, custom_p=3, probe_clients=2,
                               probe_requests=2, telemetry_requests=2)
 model = chip_smoke.make_model('cpu', (8,))
-launches, fold = chip_smoke.serve_phase(model, torch.device('cpu'), sizes=sizes)
+launches, fold, one_lane = chip_smoke.serve_phase(model, torch.device('cpu'), sizes=sizes)
 assert set(launches.values()) == {0}, launches
 assert fold['bucket'] == 8 and fold['b1_at_fold_shape'] is None, fold
+# and serving's outer tier: four lanes, the warm tier's two children (fresh
+# interpreters), the frontend
+lane_sizes = chip_smoke.LaneSizes(max_actions=256, max_batch_size=4, clients=4, requests=8,
+                                  low=100, single=3, drill_requests=4, hidden=(8,))
+lanes = chip_smoke.lanes_phase(model, torch.device('cpu'), sizes=lane_sizes, one_lane=one_lane)
+assert set(lanes.values()) == {0}, lanes
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('isolated')
@@ -289,10 +297,14 @@ def test_chip_smoke_serve_phase_runs_with_blocked_packages(tmp_path):
     for part in ('(a) warmup', '(b) traffic', '(c) hot swap and rollback', '(d) breaker drill',
                  '(e) kernel-fault drill', '(f) close(drain=True)', '(g) scenarios',
                  '(h) parity probe', '(i) SLO', '(j) scenario breaker and kernel-fault drills',
-                 '(k) telemetry'):
+                 '(k) telemetry', '(a) construction', '(a) traffic through 4 lanes',
+                 '(a) one-request flushes', '(c) frontend GET /health equals health()',
+                 '(a) sick lane', '(a) kernel fault on lane 1', '(a) swap', '(b) warm tier',
+                 '(b) hit child cold start', '(b) stale child cold start'):
         assert part in proc.stdout
-    # the phase cleans up after itself
+    # the phases clean up after themselves
     assert not (tmp_path / 'build' / 'serve').exists()
+    assert not (tmp_path / 'build' / 'lanes').exists()
 
 
 def test_fleet_replica_fails_without_a_gpu(tmp_path):

@@ -649,12 +649,10 @@ def test_journal_and_registry_carry_on_across_the_packages(tmp_path, v1_checkpoi
                                np.asarray(jreg.active()[2].rate_batch(jb))[mask], rtol=0, atol=ATOL)
 
 
-def test_learner_refuses_what_is_not_ported(tmp_path, v1_checkpoint):
+def test_a_service_with_a_capture_ring_builds_over_the_learners_registry(tmp_path, v1_checkpoint):
+    """What the JAX loop reads through a service (its capture ring) builds
+    over the learner's registry."""
     registry = ModelRegistry(str(tmp_path / 'registry'), device='cpu')
-    # the warm tier is still to port; a service built with what the JAX
-    # loop reads through it (its capture ring) now builds
-    with pytest.raises(NotImplementedError, match='A5'):
-        LearnConfig(aot={'ladder': (1,), 'max_actions': 64})
     registry.publish('vaep', '1', load_model(v1_checkpoint, device='cpu'))
     registry.activate('vaep', '1')
     capture = TrafficCapture()

@@ -282,20 +282,6 @@ def test_registry_load_refuses_a_corrupt_artifact_without_retrying(tmp_path, mod
     assert out['port'] == out['jax'] == ('ValueError', True, 0.0)
 
 
-AOT_CALLS = {
-    'publish': lambda reg, model, aot: reg.publish('vaep', '1', model, aot=aot),
-    'stage_candidate': lambda reg, model, aot: reg.stage_candidate('vaep', model, aot=aot),
-}
-
-
-@pytest.mark.parametrize('call', list(AOT_CALLS))
-def test_aot_hooks_are_not_ported(tmp_path, tiny_model, call):
-    reg = _registry(tmp_path)
-    with pytest.raises(NotImplementedError, match='A5'):
-        AOT_CALLS[call](reg, tiny_model, {'ladder': (1,), 'max_actions': 128})
-    assert not os.path.exists(os.path.join(reg.root, 'vaep'))
-
-
 def _manifest(p, reg, model, root):
     reg.publish('vaep', '1', model)
     seen = [reg.load_manifest('vaep', '1')]

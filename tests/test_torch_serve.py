@@ -587,23 +587,7 @@ def test_swap_rejects_a_layout_change(tmp_path, models):
     assert out['port'][1:] == (('vaep', '1'), True)
 
 
-# -- what stays out -------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize('kwargs,item', [
-    ({'aot_dir': 'aot'}, 'A5'),
-    ({'n_replicas': 2}, 'A6'),
-])
-def test_options_not_ported_raise_naming_their_item(models, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-        RatingService(models['port'], **kwargs)
-
-
-@pytest.mark.parametrize('verb,item', [('load_aot', 'A5')])
-def test_verbs_not_ported_raise_naming_their_item(models, verb, item):
-    with RatingService(models['port'], max_actions=A, max_batch_size=2) as svc:
-        with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-            getattr(svc, verb)()
+# -- options ------------------------------------------------------------------------------
 
 
 def test_every_jax_option_constructs(models):
