@@ -169,7 +169,22 @@ exits non-zero:
    no ``nvcc``, one whose manifest names another card and toolkit reads
    ``stale`` and builds; both rate a request bitwise as this process, and
    print their cold-start timelines; (c) ``GET /health`` through a
-   ``ServingFrontend`` on a unix socket equal to ``health()``.
+   ``ServingFrontend`` on a unix socket equal to ``health()``;
+18. the device work under the DataFrame layer (the card's machine has no
+   pandas, so it enters where ``VAEP.fit`` and ``compute_features`` hand
+   arrays on): (a) the 512 x 1664 batch's feature and label rows computed
+   on the card and unpacked as ``compute_features``/``compute_labels``
+   fill their frames, then ``VAEP.fit_rows`` (``fit`` after its column
+   selection: the split and one ``LEARNERS['mlp']`` call per label) with
+   (128, 128) heads, batches of 8192 and 3 epochs on the card, its wall
+   beside phase 6's ``fit_packed`` and the bytes each way; (b) the fitted
+   model's ``rate_batch``: the fused path, B1 once, within 1e-5 of its
+   reference, B1 against its plain version on the operands it was handed;
+   (c) the same remainder on 64 games on the card and on the CPU (lr 1e-4,
+   2 epochs): the split equal, statistics within 1e-6, every parameter
+   within 1e-4; (d) the pandas backend's numpy value iteration over phase
+   5's 16 x 12 card fit's matrices: its grid within 1e-5, its sweeps within
+   one.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -460,12 +475,16 @@ def first_layer_bound(operands: Tuple[torch.Tensor, ...]) -> Dict[str, Any]:
 
 
 def check_first_layer(
-    device: torch.device, dtype: torch.dtype, family: str = 'standard'
+    device: torch.device, dtype: torch.dtype, family: str = 'standard',
+    ops: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> Dict[str, Any]:
-    """B1 against its plain version at a family's serving shape (phase 3)."""
-    n = GAMES * ACTIONS
-    r, d = SERVING_SHAPES[family]
-    ops = first_layer_operands(device, dtype, n, r=r, d=d)
+    """B1 against its plain version at a family's serving shape (phase 3),
+    or on the operands ``ops`` (phase 18: those a ``rate_batch`` hands B1)."""
+    if ops is None:
+        r, d = SERVING_SHAPES[family]
+        ops = first_layer_operands(device, dtype, GAMES * ACTIONS, r=r, d=d)
+    tables, _, _, ids, x = ops
+    (n, k), (r, h), d = ids.shape, tables.shape[1:], x.shape[1]
     gm.fused_first_layer_quant.plans = {}
     got = gm.fused_first_layer_quant(*ops)
     # the instantiation the kernel reported for this launch
@@ -483,9 +502,9 @@ def check_first_layer(
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
     record = {
         'family': family,
-        'shape': {'n': n, 'k': K, 'r': r, 'h': 2 * HIDDEN[0], 'd': d},
+        'shape': {'n': n, 'k': k, 'r': r, 'h': h, 'd': d},
         'plan': plan,
-        'dtype': str(dtype).replace('torch.', ''),
+        'dtype': str(tables.dtype).replace('torch.', ''),
         'max_abs_err': max_abs,
         'max_rel_err': max_rel,
         'ms': graph_ms(lambda: gm.fused_first_layer_quant(*ops), reps=10),
@@ -4964,6 +4983,185 @@ def lanes_phase(
     print(f'{label}: B1 launches {json.dumps(launches)}; phase 17 in {time.perf_counter() - t_phase:.1f} s')
     return launches
 
+# -- phase 18: the device work under the DataFrame layer -------------------------------------
+
+
+class FrameSizes(NamedTuple):
+    """Phase 18's shapes: the serving batch for (a) and (b), the parity
+    batch for (c), and the MLP learner's parameters of each."""
+
+    games: int = GAMES
+    actions: int = ACTIONS
+    parity_games: int = PARITY_GAMES
+    params: Dict[str, Any] = TRAIN_PARAMS
+    parity_params: Dict[str, Any] = PARITY_PARAMS
+
+
+def frame_fit(batch: ActionBatch, params: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """``VAEP.fit(X, y, learner='mlp')`` without the frames, on ``device``:
+    the host rows ``compute_features``/``compute_labels`` put in their
+    frames (:meth:`VAEP.features_rows`, :meth:`VAEP.labels_rows`), then
+    :meth:`VAEP.fit_rows`, the code ``fit`` runs once it has selected its
+    columns (the split at ``val_size=0.25``, ``random_state=0``, and one
+    ``LEARNERS['mlp']`` call per label). Both kernels' counts are zeroed
+    just before and read just after; synchronized walls and the bytes
+    each way."""
+    dev = batch.device
+    model = VAEP(device=device)
+    cells = batch.n_games * batch.max_actions
+    n_features = train_layout(model.xfns, model.nb_prev_actions, model._registry).n_features
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    X, y = model.features_rows(batch), model.labels_rows(batch)
+    rows_s = time.perf_counter() - t0
+    train_rows, val_rows = model.fit_rows(
+        X, y, learner='mlp', val_size=0.25, tree_params=params, random_state=0
+    )
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'gather_matmul': gm.fused_first_layer_quant.launches,
+                'segment_sum': seg.segment_sum.launches}
+    n = batch.total_actions
+    if X.shape != (n, n_features) or X.dtype != np.float32 or not np.isfinite(X).all():
+        raise RuntimeError(f'feature rows have shape {X.shape}, {X.dtype}, not ({n}, {n_features}) finite f32')
+    if sorted(y) != ['concedes', 'scores'] or any(v.dtype != bool or v.shape != (n,) for v in y.values()):
+        raise RuntimeError('label rows are not one bool column per label')
+    heads = {}
+    for col, clf in model._models.items():
+        health = clf.train_health_
+        if not (health['finite'] and health['path'] == 'materialized'):
+            raise RuntimeError(f'head {col!r} of the frame fit trained to {health}')
+        heads[col] = {k: health[k] for k in ('epochs', 'epoch_losses', 'val_losses', 'epoch_seconds')}
+    return {
+        'model': model, 'batch': batch, 'split': (train_rows, val_rows), 'wall_s': wall,
+        'rows_s': rows_s, 'launches': launches, 'heads': heads,
+        # the padded feature tensor and both label tensors, each with the
+        # batch's mask and row order, to the host; X and y of both splits
+        # to the device once per head
+        'bytes_to_host': cells * (4 * n_features + 2)
+        + 3 * cells * (batch.mask.element_size() + batch.row_index.element_size()),
+        'bytes_to_device': len(model._models) * 4 * (len(train_rows) + len(val_rows)) * (n_features + 1),
+    }
+
+
+def compare_frame_fits(card: Dict[str, Any], cpu: Dict[str, Any]) -> Dict[str, Any]:
+    """Hold the card's frame fit to the CPU's; raise on any miss: the
+    split equal, the statistics as :func:`compare_training` holds them (std
+    within rtol 1e-6, the mean within 1e-6 of max(|mean|, std)), every
+    parameter within 1e-4."""
+    for a, b in zip(card['split'], cpu['split']):
+        if not np.array_equal(a, b):
+            raise RuntimeError('the card and the CPU split the frame rows differently')
+    report: Dict[str, Any] = {'split_equal': True}
+    for col in card['model']._models:
+        ha, hb = card['model']._models[col], cpu['model']._models[col]
+        mean_a, mean_b = _np(ha.mean_).astype(np.float64), _np(hb.mean_).astype(np.float64)
+        std_a, std_b = _np(ha.std_).astype(np.float64), _np(hb.std_).astype(np.float64)
+        std_rel = float((np.abs(std_a - std_b) / std_b).max())
+        mean_rel = float((np.abs(mean_a - mean_b) / np.maximum(np.abs(mean_b), std_b)).max())
+        gap = max_param_gap(card['model'], cpu['model'], col)
+        report[col] = {'std_rel': std_rel, 'mean_rel': mean_rel, 'param_gap': gap}
+        if not (std_rel <= 1e-6 and mean_rel <= 1e-6 and gap <= 1e-4):
+            raise RuntimeError(f'{col}: the frame fits differ between the card and the CPU: {report[col]}')
+    return report
+
+
+def xt_oracle_check(fit: Dict[str, Any]) -> Dict[str, Any]:
+    """The numpy value iteration of ``ExpectedThreat(backend='pandas')``
+    over a device fit's probability matrices (phase 5's 16 x 12 card fit):
+    its grid within 1e-5 of the fit's, its sweeps within one."""
+    probs = fit['probs']
+    w, l = fit['grid'].shape
+    oracle = ExpectedThreat(l=l, w=w, backend='pandas')
+    oracle.scoring_prob_matrix = probs['p_score']
+    oracle.shot_prob_matrix = probs['p_shot']
+    oracle.move_prob_matrix = probs['p_move']
+    oracle.transition_matrix = probs['transition']
+    t0 = time.perf_counter()
+    oracle._solve_numpy()
+    solve_s = time.perf_counter() - t0
+    err = float(np.abs(oracle.xT - fit['grid']).max())
+    gap = abs(oracle.n_iter - int(fit['iterations']))
+    if not (oracle.converged and err <= 1e-5 and gap <= 1):
+        raise RuntimeError(f'the numpy oracle is {err} from the device grid, {gap} sweeps apart')
+    return {'grid_max_abs_err': err, 'iterations': oracle.n_iter,
+            'device_iterations': int(fit['iterations']), 'numpy_solve_s': solve_s}
+
+
+def frame_phase(
+    device: torch.device, xt_fit: Dict[str, Any], card: str = 'CPU',
+    fit_packed_wall_s: Optional[float] = None, sizes: FrameSizes = FrameSizes(),
+) -> Dict[str, Any]:
+    """Phase 18, the device work under the DataFrame layer; the card's
+    machine has no pandas, so it enters where ``fit`` and
+    ``compute_features`` hand arrays on.
+
+    (a) The seeded standard batch's feature and label rows computed on
+    ``device`` and unpacked as ``compute_features``/``compute_labels`` fill
+    their frames, then ``fit``'s remainder with (128, 128) MLP heads,
+    batches of 8192, 3 epochs, trained on ``device``; its wall beside
+    phase 6's ``fit_packed``'s. (b) The fitted model's ``rate_batch`` on
+    the fused path: B1 once, within 1e-5 of ``rate_batch_reference``, and
+    B1 held to its plain version on the operands the call hands it. (c)
+    The remainder on the parity batch on ``device`` and on the CPU (lr
+    1e-4, 2 epochs), held together. (d) The pandas backend's numpy value
+    iteration over phase 5's card fit's matrices.
+    """
+    label = 'frame path'
+    t_phase = time.perf_counter()
+    batch = synthetic_batch(sizes.games, sizes.actions, seed=0, device=device)
+    run = frame_fit(batch, sizes.params, device)
+    print(
+        f"{label} (a): compute_features/compute_labels rows and fit_rows(learner='mlp') on "
+        f'{batch.total_actions} actions ({len(run["split"][0])} training rows, '
+        f'{json.dumps(sizes.params)}): {run["wall_s"]:.3f} s synced, {run["rows_s"]:.3f} s of it '
+        f'the rows; phase 6 fit_packed on the same shape: {fit_packed_wall_s} s; bytes to the '
+        f'host {run["bytes_to_host"]}, to the device {run["bytes_to_device"]}; launches '
+        f'{json.dumps(run["launches"])} ({card})'
+    )
+    for col, head in run['heads'].items():
+        print(f'{label} (a): head {col}: {json.dumps(head)}')
+        if not head['epoch_losses'][-1] < head['epoch_losses'][0]:
+            raise RuntimeError(f"{label}: head {col!r}'s training loss did not fall: {head}")
+    model, fit_launches = run['model'], run['launches']
+    gm.fused_first_layer_quant.launches = 0
+    values = model.rate_batch(batch)
+    sync(device)
+    launches = gm.fused_first_layer_quant.launches
+    if model._rating_path() != 'fused' or launches != (1 if device.type == 'cuda' else 0):
+        raise RuntimeError(f'{label}: rate_batch took {model._rating_path()!r}, B1 launched {launches} times')
+    print(f'{label} (b): rate_batch {tuple(values.shape)} on the fused path, B1 launches {launches}')
+    err = check_against_reference(model, batch, values, f'{label} (b): the fitted model')
+    b1 = None
+    if device.type == 'cuda':
+        b1 = check_first_layer(device, torch.float32, ops=first_layer_operands_of(model, batch))
+        print(f"kernel gather_matmul on {label}'s operands vs plain ({card}): {json.dumps(b1)}")
+    del model, values, batch, run
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+
+    pbatch = synthetic_batch(sizes.parity_games, sizes.actions, seed=5, device=device)
+    card_run = frame_fit(pbatch, sizes.parity_params, device)
+    t0 = time.perf_counter()
+    cpu_run = frame_fit(pbatch.to('cpu'), sizes.parity_params, 'cpu')
+    cpu_s = time.perf_counter() - t0
+    parity = compare_frame_fits(card_run, cpu_run)
+    print(
+        f'{label} (c): fit_rows on {pbatch.n_games} games, {device.type} against the CPU '
+        f'({cpu_s:.1f} s, plain versions), {json.dumps(sizes.parity_params)}: {json.dumps(parity)}'
+    )
+    del pbatch, card_run, cpu_run
+    oracle = xt_oracle_check(xt_fit)
+    print(f"{label} (d): ExpectedThreat(backend='pandas') value iteration over phase 5's "
+          f'{device.type} fit matrices: {json.dumps(oracle)}')
+    print(f'{label}: phase 18 in {time.perf_counter() - t_phase:.1f} s')
+    return {'fit_launches': fit_launches, 'rate_launches': launches, 'rate_err': err, 'b1': b1,
+            'parity': parity, 'oracle': oracle}
+
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
@@ -5197,6 +5395,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap('phase 17 lanes, warm tier, frontend')
 
+    # -- phase 18, the device work under the DataFrame layer -------------------------
+    frame = frame_phase(device, fit16, card, fit_packed_wall_s=run['wall_s'])
+    torch.cuda.empty_cache()
+    lap('phase 18 frame layer')
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -5217,6 +5420,8 @@ def main() -> int:
         **{f'phase15 {rid}': n for rid, n in fleet_launches.items()},
         **{f'phase16 {part}': n for part, n in serve_launches.items()},
         **{f'phase17 {part}': n for part, n in lane_launches.items()},
+        "phase18 fit_rows(learner='mlp'), dense": frame['fit_launches']['gather_matmul'],
+        'phase18 fitted model rate_batch': frame['rate_launches'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -5229,6 +5434,7 @@ def main() -> int:
         'phase 12 (shadow_replay, drift)': rating['launches']['segment_sum'],
         'learning loop (phase 13, 3 iterations)': learn['launches']['segment_sum'],
         **scale_paths(scale_launches, 'segment_sum'),
+        "phase18 fit_rows(learner='mlp')": frame['fit_launches']['segment_sum'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
@@ -5242,7 +5448,7 @@ def main() -> int:
         'max_abs_err': max(
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
             atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
-            learn['kernel']['max_abs_err'],
+            learn['kernel']['max_abs_err'], frame['b1']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -5266,6 +5472,10 @@ def main() -> int:
         # a scenario request's fold (P = 96 in bucket 128) through the service
         'scenario_fold_shape': serve_fold['b1_at_fold_shape'],
         'loop_training_shape': learn['kernel'],
+        # the operands the frame-fitted model's rate_batch hands B1
+        'phase18_operands': {k: frame['b1'][k] for k in (
+            'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+        )},
         'training_shapes': [
             {k: rec[k] for k in (
                 'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'backward_ms',

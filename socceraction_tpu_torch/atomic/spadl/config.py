@@ -22,6 +22,7 @@ field_length: float = _spadl.field_length
 field_width: float = _spadl.field_width
 
 bodyparts: List[str] = _spadl.bodyparts
+bodyparts_df = _spadl.bodyparts_df
 
 actiontypes: List[str] = _spadl.actiontypes + [
     'receival',

@@ -1,5 +1,6 @@
 """Atomic-VAEP: VAEP over Atomic-SPADL actions."""
 
-from .base import XFNS_DEFAULT, AtomicVAEP
+from . import features, formula, labels  # noqa: F401
+from .base import AtomicVAEP
 
-__all__ = ['AtomicVAEP', 'XFNS_DEFAULT']
+__all__ = ['AtomicVAEP', 'features', 'labels', 'formula']

@@ -1,5 +1,6 @@
 """Probability heads and their learners."""
 
+from .learners import LEARNERS
 from .mlp import MLP, AdamState, MLPClassifier
 
-__all__ = ['AdamState', 'MLP', 'MLPClassifier']
+__all__ = ['AdamState', 'LEARNERS', 'MLP', 'MLPClassifier']

@@ -251,6 +251,13 @@ class _EpochTrainer:
         return opt_state, losses_t.mean(), health
 
 
+def _rows(a: Any, device: torch.device) -> torch.Tensor:
+    """An f32 tensor of host rows (an array or a frame) on ``device``. A
+    read-only array (a frame's, under copy-on-write) is copied first: a
+    CPU tensor would share its memory."""
+    return torch.as_tensor(np.require(a, dtype=np.float32, requirements='W'), device=device)
+
+
 def _labels(y: Any, device: torch.device) -> torch.Tensor:
     """Labels as a flat f32 tensor on ``device``."""
     return torch.as_tensor(y, dtype=torch.float32, device=device).reshape(-1)
@@ -583,12 +590,15 @@ class MLPClassifier:
 
         Standardizes with ``X``'s column mean and std, minimizes the
         sigmoid cross entropy with Adam and, given ``eval_set``, early-stops
-        on its loss.
+        on its loss. The statistics are reduced in float64 and rounded to
+        float32, so that two devices' reduction orders agree to float32
+        rounding.
         """
-        X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=self.device)
-        y = torch.as_tensor(np.asarray(y, dtype=np.float32), device=self.device).reshape(-1)
-        self.mean_ = X.mean(dim=0)
-        std = X.std(dim=0, correction=0)
+        X = _rows(X, self.device)
+        y = _rows(y, self.device).reshape(-1)
+        var, mean = torch.var_mean(X.to(torch.float64), dim=0, correction=0)
+        self.mean_ = mean.to(torch.float32)
+        std = var.sqrt().to(torch.float32)
         self.std_ = torch.where(std > 0, std, 1.0)
         module = self.init_params(X.shape[1])
         mean, std = self.mean_, self.std_
@@ -600,8 +610,8 @@ class MLPClassifier:
         data = {'x': X, 'y': y, 'w': torch.ones_like(y)}
         eval_data = None
         if eval_set is not None:
-            ex = torch.as_tensor(np.asarray(eval_set[0], dtype=np.float32), device=self.device)
-            ey = torch.as_tensor(np.asarray(eval_set[1], dtype=np.float32), device=self.device)
+            ex = _rows(eval_set[0], self.device)
+            ey = _rows(eval_set[1], self.device)
             eval_data = {'x': ex, 'y': ey.reshape(-1), 'w': torch.ones(ex.shape[0], device=self.device)}
         return _fit_loop(self, module, data, X.shape[0], loss_fn, eval_data, path='materialized')
 
@@ -777,7 +787,7 @@ class MLPClassifier:
 
     def predict_proba(self, X: Any) -> np.ndarray:
         """sklearn-style ``(n, 2)`` probability matrix, as numpy."""
-        x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=self.device)
+        x = _rows(X, self.device)
         p1 = self.predict_proba_device(x).cpu().numpy()
         return np.stack([1.0 - p1, p1], axis=1)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, List
 
+import numpy as np
+
 if TYPE_CHECKING:  # pandas is imported inside the *_df tables only
     import pandas as pd
 
@@ -61,14 +63,30 @@ SHOT_PENALTY = actiontypes.index('shot_penalty')
 SHOT_FREEKICK = actiontypes.index('shot_freekick')
 CORNER_CROSSED = actiontypes.index('corner_crossed')
 CORNER_SHORT = actiontypes.index('corner_short')
+CLEARANCE = actiontypes.index('clearance')
+NON_ACTION = actiontypes.index('non_action')
 
+FAIL = results.index('fail')
 SUCCESS = results.index('success')
+OFFSIDE = results.index('offside')
 OWNGOAL = results.index('owngoal')
+YELLOW_CARD = results.index('yellow_card')
+RED_CARD = results.index('red_card')
+
+FOOT = bodyparts.index('foot')
+HEAD = bodyparts.index('head')
+OTHER = bodyparts.index('other')
+
+#: Action-type ids whose name contains 'shot': the goal predicate of the
+#: VAEP labels, the goalscore feature and xG's shot filter.
+SHOT_LIKE = tuple(i for i, t in enumerate(actiontypes) if 'shot' in t)
+
+shot_like_mask: np.ndarray = np.zeros(len(actiontypes), dtype=bool)
+shot_like_mask[list(SHOT_LIKE)] = True
 
 
 def actiontypes_df() -> 'pd.DataFrame':
     """The ``type_id`` and ``type_name`` of each SPADL action type."""
-    import numpy as np
     import pandas as pd
 
     return pd.DataFrame({'type_id': np.arange(len(actiontypes)), 'type_name': actiontypes})
@@ -76,7 +94,6 @@ def actiontypes_df() -> 'pd.DataFrame':
 
 def results_df() -> 'pd.DataFrame':
     """The ``result_id`` and ``result_name`` of each SPADL result."""
-    import numpy as np
     import pandas as pd
 
     return pd.DataFrame({'result_id': np.arange(len(results)), 'result_name': results})
@@ -84,7 +101,6 @@ def results_df() -> 'pd.DataFrame':
 
 def bodyparts_df() -> 'pd.DataFrame':
     """The ``bodypart_id`` and ``bodypart_name`` of each SPADL bodypart."""
-    import numpy as np
     import pandas as pd
 
     return pd.DataFrame({'bodypart_id': np.arange(len(bodyparts)), 'bodypart_name': bodyparts})

@@ -1,10 +1,17 @@
-"""VAEP: training and serving.
+"""VAEP: training, serving and the DataFrame layer.
 
-Exports the JAX package's ``vaep`` names less its DataFrame layer
-(``features``, ``labels``, ``formula``, ``xfns_default``: ROADMAP A8).
-``load_model`` is importable from here too, as from ``vaep.base``.
+Exports the JAX package's ``vaep`` names. ``load_model`` is importable
+from here too, as from ``vaep.base``.
 """
 
-from .base import VAEP, NotFittedError, load_model  # noqa: F401
+from . import features, formula, labels  # noqa: F401
+from .base import VAEP, NotFittedError, load_model, xfns_default  # noqa: F401
 
-__all__ = ['VAEP', 'NotFittedError']
+__all__ = [
+    'VAEP',
+    'NotFittedError',
+    'xfns_default',
+    'features',
+    'labels',
+    'formula',
+]

@@ -24,13 +24,23 @@ trains them from packed batches and rates packed batches:
   head's reference representation (the feature tensor, or a fresh
   packing for a seq head), in plain PyTorch, for parity checks.
 
-The feature family (kernels, labels, formula, fused layout, batch class)
-is a set of class-level handles, which
+The DataFrame layer is the JAX package's, on SPADL frames of one game:
+:meth:`VAEP.compute_features` and :meth:`VAEP.compute_labels` on the
+device kernels (``backend='torch'``, the default) or the pandas oracle
+transformers of :mod:`.features`, :mod:`.labels` and :mod:`.formula`
+(``backend='pandas'``); :meth:`VAEP.fit` on a feature frame with any
+learner of :data:`~socceraction_tpu_torch.ml.learners.LEARNERS` (the MLP
+trains on the model's device, the tree learners on the host);
+:meth:`VAEP.rate` and :meth:`VAEP.score`. Tree heads rate on the host:
+the batch paths hand them a host copy of the feature tensor.
+
+The feature family (kernels, labels, formula, fused layout, batch class,
+pandas transformers) is a set of class-level handles, which
 :class:`~socceraction_tpu_torch.atomic.vaep.base.AtomicVAEP` swaps.
 :meth:`VAEP.save_model` writes, and :func:`load_model` reads, the JAX
 package's checkpoint directory (``meta.json`` with its class, format
-stamp and sha256 checksums, flax-msgpack heads), so a model moves between
-the two packages either way.
+stamp and sha256 checksums, flax-msgpack heads, pickled tree heads), so a
+model moves between the two packages either way.
 """
 
 from __future__ import annotations
@@ -39,12 +49,17 @@ import hashlib
 import json
 import math
 import os
+import pickle
 import time
-from typing import TYPE_CHECKING, Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (
+    TYPE_CHECKING, Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence,
+    Tuple, Union,
+)
 
 import numpy as np
 import torch
 
+from .. import spadl as _spadl_pkg
 from ..config import NB_PREV_ACTIONS
 from ..core.batch import (
     ActionBatch,
@@ -55,7 +70,7 @@ from ..core.batch import (
     unpack_values,
 )
 from ..device import DeviceLike, resolve_device
-from ..ml.learners import PACKED_LEARNERS
+from ..ml.learners import LEARNERS, PACKED_LEARNERS
 from ..ml.mlp import MLPClassifier
 from ..obs import counter, gauge, histogram, span
 from ..ops.features import KERNELS, compute_features
@@ -79,11 +94,17 @@ from ..ops.profile import FUSED_PATH_HIDDEN_DTYPES, hidden_dtype_for, preferred_
 from ..ops.quant import check_quantize_mode
 from ..seq.classifier import SeqClassifier
 from ..seq.model import seq_pair_probs
+from . import features as fs
+from . import formula as vaepformula
+from . import labels as lab
 
-if TYPE_CHECKING:  # pandas is imported inside rate() only
+if TYPE_CHECKING:  # pandas is imported inside the methods that take or build frames
     import pandas as pd
 
-__all__ = ['CHECKPOINT_FORMAT_VERSION', 'NotFittedError', 'VAEP', 'XFNS_DEFAULT', 'load_model']
+__all__ = [
+    'CHECKPOINT_FORMAT_VERSION', 'NotFittedError', 'VAEP', 'XFNS_DEFAULT', 'load_model',
+    'xfns_default',
+]
 
 #: Newest ``save_model`` directory format this port reads (the JAX
 #: package's ``CHECKPOINT_FORMAT_VERSION``).
@@ -92,25 +113,32 @@ CHECKPOINT_FORMAT_VERSION = 3
 #: int8 scales persisted beside the heads of a quantized checkpoint.
 _QUANT_SCALES_ARTIFACT = 'models/quant_scales.npz'
 
-#: The reference's 14 default feature transformers, by kernel name.
-XFNS_DEFAULT: Tuple[str, ...] = (
-    'actiontype_onehot',
-    'result_onehot',
-    'actiontype_result_onehot',
-    'bodypart_onehot',
-    'time',
-    'startlocation',
-    'endlocation',
-    'startpolar',
-    'endpolar',
-    'movement',
-    'team',
-    'time_delta',
-    'space_delta',
-    'goalscore',
-)
+#: The reference's 14 default feature transformers.
+xfns_default: List[fs.FeatureTransfomer] = [
+    fs.actiontype_onehot,
+    fs.result_onehot,
+    fs.actiontype_result_onehot,
+    fs.bodypart_onehot,
+    fs.time,
+    fs.startlocation,
+    fs.endlocation,
+    fs.startpolar,
+    fs.endpolar,
+    fs.movement,
+    fs.team,
+    fs.time_delta,
+    fs.space_delta,
+    fs.goalscore,
+]
+
+#: The same transformers by name: the kernels of the device path.
+XFNS_DEFAULT: Tuple[str, ...] = tuple(fn.__name__ for fn in xfns_default)
 
 _LABELS = ('scores', 'concedes')
+
+#: A feature transformer: a callable of :mod:`.features` (or a custom one,
+#: pandas backend only) or the name of one.
+Transformer = Union[str, Callable[..., Any]]
 
 #: The head class of each packed learner. A warm head seeds a fit only when
 #: its class is the learner's: an MLP cannot seed a GRU, nor the reverse.
@@ -155,30 +183,46 @@ def split_rows(
     return idx[:cut], idx[cut + 1 :]
 
 
-def _check_head(col: str, head: Any) -> None:
-    """Raise unless ``head`` is an MLP or a seq head: tree heads need the
-    DataFrame layer (``VAEP.fit`` and the tree learners), which the port
-    does not have yet (ROADMAP A8)."""
-    if not isinstance(head, (MLPClassifier, SeqClassifier)):
-        raise ValueError(
-            f'head {col!r} is a {type(head).__name__}; the port rates MLP and seq heads '
-            'only (tree heads need VAEP.fit and the tree learners, ROADMAP A8)'
-        )
+def _default_learner() -> str:
+    """``'xgboost'`` when it is installed, else ``'sklearn'`` (the JAX
+    package's default)."""
+    try:
+        import xgboost  # noqa: F401
+
+        return 'xgboost'
+    except ImportError:
+        return 'sklearn'
+
+
+def _take_rows(data: Any, rows: np.ndarray) -> Any:
+    """Rows ``rows`` of a frame or series (by position) or of an array."""
+    return data.iloc[rows] if hasattr(data, 'iloc') else data[rows]
 
 
 class VAEP:
-    """VAEP over packed batches of SPADL actions.
+    """Valuing Actions by Estimating Probabilities, on frames and on packed
+    batches of SPADL actions.
 
     Parameters
     ----------
-    xfns : sequence of str, optional
-        Feature kernel names, in column order (default: the reference's 14).
+    xfns : sequence of transformers, optional
+        Feature transformers in column order: callables of
+        :mod:`.features` or their names (default: the reference's 14,
+        :data:`xfns_default`). The device path resolves each to its kernel
+        by ``__name__``; a custom transformer with no kernel serves the
+        pandas backend only. :attr:`xfns` holds their names.
     nb_prev_actions : int
         Game states per action (default 3).
+    backend : {'torch', 'pandas'}
+        How :meth:`compute_features`, :meth:`compute_labels` and
+        :meth:`rate` treat a frame: the device kernels on the model's
+        device (``'torch'``, default) or the pandas oracle transformers.
+        The batch entry points always run on the device.
     models : dict, optional
-        ``{'scores': head, 'concedes': head}`` on ``device``, each an
-        ``MLPClassifier`` or a ``SeqClassifier`` (a mixed pair rates on the
-        materialized path).
+        ``{'scores': head, 'concedes': head}``, each an ``MLPClassifier``
+        or a ``SeqClassifier`` on ``device`` (a mixed pair rates on the
+        materialized path), or a fitted tree classifier (it rates on the
+        host).
     device
         Where the model runs: ``cuda`` (default) or ``'cpu'``.
     """
@@ -186,6 +230,10 @@ class VAEP:
     # the feature family, swapped by AtomicVAEP
     _default_xfns: Tuple[str, ...] = XFNS_DEFAULT
     _kernels: Dict[str, Any] = KERNELS
+    _spadlcfg: Any = _spadl_pkg
+    _fs: Any = fs
+    _lab: Any = lab
+    _vaep: Any = vaepformula
     _compute_features_kernel = staticmethod(compute_features)
     _labels_kernel = staticmethod(scores_concedes)
     _formula_kernel = staticmethod(vaep_values)
@@ -195,25 +243,30 @@ class VAEP:
 
     def __init__(
         self,
-        xfns: Optional[Sequence[str]] = None,
+        xfns: Optional[Sequence[Transformer]] = None,
         nb_prev_actions: int = NB_PREV_ACTIONS,
+        backend: str = 'torch',
         *,
         models: Optional[Dict[str, Any]] = None,
         device: DeviceLike = None,
     ) -> None:
+        if backend not in ('torch', 'pandas'):
+            raise ValueError(f'unknown backend {backend!r}')
         self.device = resolve_device(device)
-        self.xfns = tuple(self._default_xfns if xfns is None else xfns)
-        unknown = [n for n in self.xfns if n not in self._kernels]
-        if unknown:
-            raise ValueError(f'feature transformers {unknown} have no kernel')
+        self.backend = backend
+        self._transformers = [
+            self._transformer(fn) for fn in (self._default_xfns if xfns is None else xfns)
+        ]
+        self.xfns = tuple(getattr(fn, '__name__', repr(fn)) for fn in self._transformers)
         self.nb_prev_actions = nb_prev_actions
+        self.yfns = [self._lab.scores, self._lab.concedes]
+        self._feature_names: Dict[Tuple[Any, ...], List[str]] = {}
         self._models: Dict[str, Any] = {}
         if models is not None:
             if sorted(models) != sorted(_LABELS):
                 raise ValueError(f'models must be exactly {_LABELS}, got {sorted(models)}')
             for col, clf in models.items():
-                _check_head(col, clf)
-                if clf.mean_.device != self.device:
+                if isinstance(clf, (MLPClassifier, SeqClassifier)) and clf.mean_.device != self.device:
                     raise ValueError(
                         f'head {col!r} lives on {clf.mean_.device}, the model on {self.device}'
                     )
@@ -228,6 +281,185 @@ class VAEP:
     @property
     def _registry(self) -> FusedRegistry:
         return REGISTRIES[self._fused_registry]
+
+    def _transformer(self, fn: Transformer) -> Callable[..., Any]:
+        """A transformer of the family's feature module, given or by name."""
+        if not isinstance(fn, str):
+            return fn
+        found = getattr(self._fs, fn, None)
+        if fn not in self._kernels or found is None:
+            raise ValueError(f'feature transformer {fn!r} has no kernel')
+        return found
+
+    def _kernel_names(self) -> Tuple[str, ...]:
+        """The transformers' kernel names, for the device path: a
+        transformer without a kernel raises."""
+        for name in self.xfns:
+            if name not in self._kernels:
+                raise ValueError(
+                    f'feature transformer {name!r} has no kernel; '
+                    "use backend='pandas' for custom transformers"
+                )
+        return self.xfns
+
+    def _drop_stale_quant_state(self) -> None:
+        """Drop the serving fold and any pinned int8 scales after a fit:
+        the scales describe the weights they were derived from."""
+        self._pair_prep = None
+        self._quant_scales = None
+
+    # -- frames ----------------------------------------------------------------
+
+    @property
+    def feature_names(self) -> List[str]:
+        """The feature frame's column names, as the reference derives them
+        (the transformers run on a dummy frame), cached per
+        ``(transformers, nb_prev_actions)``."""
+        key = (tuple(self._transformers), self.nb_prev_actions)
+        names = self._feature_names.get(key)
+        if names is None:
+            names = self._fs.feature_column_names(self._transformers, self.nb_prev_actions)
+            self._feature_names[key] = names
+        return names
+
+    def features_rows(self, batch: Any) -> np.ndarray:
+        """The ``(n, F)`` host feature rows of a batch's valid actions, in
+        the packed frame's row order and :attr:`feature_names`' column
+        order: what :meth:`compute_features` puts in its frame."""
+        return unpack_values(self.compute_features_batch(batch), batch)
+
+    def labels_rows(self, batch: Any) -> Dict[str, np.ndarray]:
+        """``{label: (n,) bool}`` host labels of a batch's valid actions:
+        what :meth:`compute_labels` puts in its frame."""
+        tensors = self.compute_labels_batch(batch)
+        return {col: unpack_values(t, batch).astype(bool) for col, t in zip(_LABELS, tensors)}
+
+    def compute_features(self, game: Any, game_actions: 'pd.DataFrame') -> 'pd.DataFrame':
+        """Feature representation of each game state of one game.
+
+        ``game`` needs a ``home_team_id``; ``game_actions`` is the game's
+        frame in this model's action language. The default backend packs
+        the game and runs the kernels on the model's device; ``'pandas'``
+        runs the oracle transformers.
+        """
+        import pandas as pd
+
+        if self.backend == 'torch':
+            batch, _ = self._pack(game_actions, home_team_id=game.home_team_id, device=self.device)
+            return pd.DataFrame(
+                self.features_rows(batch), columns=self.feature_names, index=game_actions.index
+            )
+        actions = self._spadlcfg.add_names(game_actions)
+        states = self._fs.gamestates(actions, self.nb_prev_actions)
+        states = self._fs.play_left_to_right(states, game.home_team_id)
+        return pd.concat([fn(states) for fn in self._transformers], axis=1)
+
+    def compute_labels(self, game: Any, game_actions: 'pd.DataFrame') -> 'pd.DataFrame':
+        """The ``scores`` and ``concedes`` labels of each game state of one
+        game (bool columns), on the backend's path."""
+        import pandas as pd
+
+        if self.backend == 'torch':
+            batch, _ = self._pack(game_actions, home_team_id=game.home_team_id, device=self.device)
+            return pd.DataFrame(self.labels_rows(batch), index=game_actions.index)
+        actions = self._spadlcfg.add_names(game_actions)
+        return pd.concat([fn(actions) for fn in self.yfns], axis=1)
+
+    def _check_columns(self, X: 'pd.DataFrame') -> List[str]:
+        cols = self.feature_names
+        if not set(cols).issubset(set(X.columns)):
+            missing = ' and '.join(set(cols).difference(X.columns))
+            raise ValueError(f'{missing} are not available in the features dataframe')
+        return cols
+
+    def fit(
+        self,
+        X: 'pd.DataFrame',
+        y: 'pd.DataFrame',
+        learner: Optional[str] = None,
+        val_size: float = 0.25,
+        tree_params: Optional[Dict[str, Any]] = None,
+        fit_params: Optional[Dict[str, Any]] = None,
+        random_state: Optional[int] = None,
+    ) -> 'VAEP':
+        """Fit one probability head per label column of ``y`` on the
+        feature frame ``X``.
+
+        ``learner`` is a key of
+        :data:`~socceraction_tpu_torch.ml.learners.LEARNERS` (default
+        ``'xgboost'`` when installed, else ``'sklearn'``); ``'mlp'`` trains
+        on the model's device. The columns :attr:`feature_names` are
+        selected and :meth:`fit_rows` does the rest.
+        """
+        cols = self._check_columns(X)
+        self.fit_rows(
+            X[cols], {col: y[col] for col in y.columns},
+            learner=_default_learner() if learner is None else learner, val_size=val_size,
+            tree_params=tree_params, fit_params=fit_params, random_state=random_state,
+        )
+        return self
+
+    def fit_rows(
+        self,
+        X: Any,
+        y: Mapping[str, Any],
+        learner: str,
+        val_size: float = 0.25,
+        tree_params: Optional[Dict[str, Any]] = None,
+        fit_params: Optional[Dict[str, Any]] = None,
+        random_state: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`fit` after it selects the columns: the split and one
+        learner call per label.
+
+        ``X`` is the ``(n, F)`` feature rows (a frame or an array) and
+        ``y`` one ``(n,)`` label column per head. The rows split as
+        :func:`split_rows` splits them (the row at the cut is in neither
+        part); the validation rows are the learner's eval set. The MLP
+        learner trains on the model's device unless ``tree_params`` names
+        another. Returns the train and validation row indices.
+        """
+        if learner not in LEARNERS:
+            raise ValueError(f'a {learner!r} learner is not supported')
+        train_rows, val_rows = split_rows(len(X), val_size, random_state)
+        if learner == 'mlp':
+            tree_params = {'device': self.device, **(tree_params or {})}
+        X_train, X_val = _take_rows(X, train_rows), _take_rows(X, val_rows)
+        fit_fn = LEARNERS[learner]
+        models = {}
+        for col, labels in y.items():
+            eval_set = [(X_val, _take_rows(labels, val_rows))] if val_size > 0 else None
+            models[col] = fit_fn(
+                X_train, _take_rows(labels, train_rows), eval_set, tree_params, fit_params
+            )
+        self._models = models
+        self._drop_stale_quant_state()
+        return train_rows, val_rows
+
+    def _estimate_probabilities(self, X: 'pd.DataFrame') -> 'pd.DataFrame':
+        """Each head's probability of each row of a feature frame."""
+        import pandas as pd
+
+        cols = self._check_columns(X)
+        Y_hat = pd.DataFrame(index=X.index)
+        for col, model in self._models.items():
+            Y_hat[col] = model.predict_proba(X[cols])[:, 1]
+        return Y_hat
+
+    def score(self, X: 'pd.DataFrame', y: 'pd.DataFrame') -> Dict[str, Dict[str, float]]:
+        """Brier score and ROC-AUC of each probability head on ``(X, y)``."""
+        from sklearn.metrics import brier_score_loss, roc_auc_score
+
+        if not self._models:
+            raise NotFittedError('fit the model before calling score')
+        y_hat = self._estimate_probabilities(X)
+        return {
+            col: {
+                'brier': brier_score_loss(y[col], y_hat[col]),
+                'auroc': roc_auc_score(y[col], y_hat[col]),
+            }
+            for col in self._models
+        }
 
     # -- fitting -------------------------------------------------------------
 
@@ -259,6 +491,7 @@ class VAEP:
         The first part of :meth:`fit_packed`, on the model's device; a
         check of two fits can compare what each trained on.
         """
+        names = self._kernel_names()
         chunks: List[TrainStates] = []
         label_chunks: List[Tuple[torch.Tensor, ...]] = []
         layout = None
@@ -266,7 +499,7 @@ class VAEP:
             batch = item[0] if isinstance(item, (tuple, list)) else item
             self._check_batch(batch)
             states, chunk_layout = build_train_states(
-                batch, names=self.xfns, k=self.nb_prev_actions, registry=self._registry
+                batch, names=names, k=self.nb_prev_actions, registry=self._registry
             )
             if layout is None:
                 layout = chunk_layout
@@ -387,9 +620,7 @@ class VAEP:
                 mean=mean, std=std, device=self.device,
             )
         self._models = models
-        # pinned int8 scales describe the weights they were derived from
-        self._pair_prep = None
-        self._quant_scales = None
+        self._drop_stale_quant_state()
         return self
 
     # -- saving ----------------------------------------------------------------
@@ -397,22 +628,36 @@ class VAEP:
     def save_model(self, path: str) -> None:
         """Write the model as the JAX package's ``save_model`` does.
 
-        ``models/<head>.npz`` per head (:meth:`MLPClassifier.save` or
-        :meth:`SeqClassifier.save`), ``models/quant_scales.npz`` with the
-        fold's int8 scales when the model serves int8, and ``meta.json``
-        with the model's class, each head's kind, the format stamp (the
-        oldest reader that can load it: 3 with a seq head, 2 with a
-        quantize mode, else 1) and
-        every artifact's sha256. Both packages' ``load_model`` read it.
+        ``models/<head>.npz`` per MLP or seq head (:meth:`MLPClassifier.save`
+        or :meth:`SeqClassifier.save`), ``models/<head>.pkl`` per tree head
+        (pickled), ``models/quant_scales.npz`` with the fold's int8 scales
+        when the model serves int8, and ``meta.json`` with the model's
+        class, backend, transformer names, each head's kind, the format
+        stamp (the oldest reader that can load it: 3 with a seq head, 2
+        with a quantize mode, else 1) and every artifact's sha256. Both
+        packages' ``load_model`` read it. Transformers are stored by name,
+        so a custom one cannot be saved.
         """
         self._heads()
+        for fn, name in zip(self._transformers, self.xfns):
+            if getattr(self._fs, name, None) is not fn:
+                raise ValueError(
+                    f'cannot serialize custom feature transformer {fn!r}; only named '
+                    'transformers from the feature module are supported'
+                )
         os.makedirs(os.path.join(path, 'models'), exist_ok=True)
         artifacts = []
         heads = {}
         for col, model in self._models.items():
-            heads[col] = 'seq' if isinstance(model, SeqClassifier) else 'mlp'
-            model.save(os.path.join(path, 'models', f'{col}.npz'))
-            artifacts.append(f'models/{col}.npz')
+            if isinstance(model, (MLPClassifier, SeqClassifier)):
+                heads[col] = 'seq' if isinstance(model, SeqClassifier) else 'mlp'
+                model.save(os.path.join(path, 'models', f'{col}.npz'))
+                artifacts.append(f'models/{col}.npz')
+            else:
+                heads[col] = 'pickle'
+                with open(os.path.join(path, 'models', f'{col}.pkl'), 'wb') as f:
+                    pickle.dump(model, f)
+                artifacts.append(f'models/{col}.pkl')
         quantize = self.quantize
         if quantize == 'int8':
             prep = self._prepared_pair()
@@ -426,8 +671,8 @@ class VAEP:
             'format_version': 3 if 'seq' in heads.values() else 2 if quantize != 'none' else 1,
             'class': type(self).__name__,
             'nb_prev_actions': self.nb_prev_actions,
-            # the JAX package's loader builds its model with this backend
-            'backend': 'jax',
+            # the JAX package's name of the device backend is 'jax'
+            'backend': 'jax' if self.backend == 'torch' else self.backend,
             'xfns': list(self.xfns),
             'heads': heads,
             **({'quantize': quantize} if quantize != 'none' else {}),
@@ -524,7 +769,7 @@ class VAEP:
         scales = (self._quant_scales or {}) if mode == 'int8' else {}
         prep = prepare_pair_fold(
             clf_a, clf_b,
-            names=self.xfns,
+            names=self._kernel_names(),
             k=self.nb_prev_actions,
             registry=self._registry,
             quantize=mode,
@@ -560,7 +805,9 @@ class VAEP:
 
     def compute_features_batch(self, batch: Any) -> torch.Tensor:
         """The ``(G, A, F)`` feature tensor of a batch, on its device."""
-        return self._compute_features_kernel(batch, names=self.xfns, k=self.nb_prev_actions)
+        return self._compute_features_kernel(
+            batch, names=self._kernel_names(), k=self.nb_prev_actions
+        )
 
     def compute_labels_batch(self, batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ``(G, A)`` scores and concedes labels of a batch."""
@@ -647,16 +894,30 @@ class VAEP:
         """Each head's ``(G, A)`` probabilities, by head kind.
 
         An MLP head reads the feature tensor ``feats`` (``None`` when no
-        head needs it); a seq head the packed rows of ``batch``, built once
-        for all seq heads, with ``dense_overrides`` written into their
-        dense columns. Tree heads are not ported and raise.
+        head needs it); a tree head a host frame of it (built once for all
+        tree heads), its probabilities coming back to the model's device; a
+        seq head the packed rows of ``batch``, built once for all seq heads,
+        with ``dense_overrides`` written into their dense columns.
         """
         probs: Dict[str, torch.Tensor] = {}
         seq_pack: Optional[Tuple[TrainStates, TrainLayout]] = None
+        flat = None
         for col, model in self._models.items():
-            _check_head(col, model)
             if isinstance(model, MLPClassifier):
                 probs[col] = model.predict_proba_device(feats)
+                continue
+            if not isinstance(model, SeqClassifier):
+                if flat is None:
+                    import pandas as pd
+
+                    flat = pd.DataFrame(
+                        feats.reshape(-1, feats.shape[-1]).cpu().numpy(),
+                        columns=self.feature_names,
+                    )
+                p = model.predict_proba(flat)[:, 1]
+                probs[col] = torch.as_tensor(
+                    p.reshape(feats.shape[:-1]).astype(np.float32), device=self.device
+                )
                 continue
             if batch is None:
                 raise ValueError(
@@ -766,6 +1027,7 @@ class VAEP:
         """:meth:`rate_batch` without its span and metrics: the dispatch
         (on ``path``, default :meth:`_rating_path`)."""
         clf_a, clf_b = self._heads()
+        names = self._kernel_names()
         path = self._rating_path() if path is None else path
         overrides = self._overrides_on_device(batch, dense_overrides)
         n_games = batch.n_games
@@ -777,7 +1039,7 @@ class VAEP:
                 for name, b in overrides.items()
             }
         common = dict(
-            names=self.xfns, k=self.nb_prev_actions, registry=self._registry,
+            names=names, k=self.nb_prev_actions, registry=self._registry,
             dense_overrides=overrides,
         )
         if path in FUSED_PATH_HIDDEN_DTYPES:
@@ -806,21 +1068,38 @@ class VAEP:
         overrides = self._overrides_on_device(batch, dense_overrides)
         return self._formula_kernel(batch, *self._materialized_probs(batch, overrides))
 
-    def rate(self, game: Any, game_actions: 'pd.DataFrame') -> 'pd.DataFrame':
+    def rate(
+        self,
+        game: Any,
+        game_actions: 'pd.DataFrame',
+        game_states: Optional['pd.DataFrame'] = None,
+    ) -> 'pd.DataFrame':
         """Offensive/defensive/total VAEP value of each action of one game.
 
         ``game`` needs a ``home_team_id``; ``game_actions`` is the game's
-        frame in this model's action language. Returns a frame indexed like
-        ``game_actions``.
+        frame in this model's action language. On the default backend,
+        without ``game_states``, the game is packed and rated by
+        :meth:`rate_batch` on the model's device. Otherwise the heads read
+        the feature frame ``game_states`` (default: :meth:`compute_features`)
+        and the pandas formula values the actions. Returns a frame indexed
+        like ``game_actions``.
         """
         import pandas as pd
 
-        batch, _ = self._pack(game_actions, home_team_id=game.home_team_id, device=self.device)
-        return pd.DataFrame(
-            unpack_values(self.rate_batch(batch), batch),
-            columns=['offensive_value', 'defensive_value', 'vaep_value'],
-            index=game_actions.index,
-        )
+        if not self._models:
+            raise NotFittedError('fit the model before calling rate')
+        if self.backend == 'torch' and game_states is None:
+            batch, _ = self._pack(game_actions, home_team_id=game.home_team_id, device=self.device)
+            return pd.DataFrame(
+                unpack_values(self.rate_batch(batch), batch),
+                columns=['offensive_value', 'defensive_value', 'vaep_value'],
+                index=game_actions.index,
+            )
+        actions = self._spadlcfg.add_names(game_actions)
+        if game_states is None:
+            game_states = self.compute_features(game, game_actions)
+        y_hat = self._estimate_probabilities(game_states)
+        return self._vaep.value(actions, y_hat[_LABELS[0]], y_hat[_LABELS[1]])
 
 
 # -- loading checkpoints of the JAX package ------------------------------------
@@ -873,10 +1152,11 @@ def load_model(path: str, *, device: DeviceLike = None) -> VAEP:
     Checks the format version and every artifact's sha256 before reading
     it, dispatches on the stored class (``'VAEP'``, or ``'AtomicVAEP'``
     for :class:`~socceraction_tpu_torch.atomic.vaep.base.AtomicVAEP`),
-    restores both heads (MLP or seq) on ``device`` (default ``cuda``), the
-    quantize mode and, for int8, the persisted scales, so the model serves
-    the bytes the saved version served. Tree heads are not ported and
-    raise.
+    restores both heads (MLP or seq on ``device``, default ``cuda``; a
+    pickled tree head as it was saved), the backend (the JAX package's
+    ``'jax'`` loads as ``'torch'``), the quantize mode and, for int8, the
+    persisted scales, so the model serves the bytes the saved version
+    served.
     """
     from ..atomic.vaep.base import AtomicVAEP
 
@@ -893,15 +1173,21 @@ def load_model(path: str, *, device: DeviceLike = None) -> VAEP:
     loaders = {'mlp': MLPClassifier.load, 'seq': SeqClassifier.load}
     models = {}
     for col, kind in meta['heads'].items():
-        if kind not in loaders:
-            raise ValueError(f'head {col!r} is a {kind!r} head; only MLP and seq heads are ported')
-        models[col] = loaders[kind](os.path.join(path, 'models', f'{col}.npz'), device=dev)
+        if kind in loaders:
+            models[col] = loaders[kind](os.path.join(path, 'models', f'{col}.npz'), device=dev)
+        elif kind == 'pickle':
+            with open(os.path.join(path, 'models', f'{col}.pkl'), 'rb') as f:
+                models[col] = pickle.load(f)
+        else:
+            raise ValueError(f'head {col!r} has an unknown kind {kind!r}')
     quantize = check_quantize_mode(meta.get('quantize', 'none'))
     for m in models.values():
         if quantize != 'none' and isinstance(m, MLPClassifier):
             m.quantize = quantize
+    backend = meta.get('backend', 'jax')
     model = classes[meta['class']](
-        meta['xfns'], meta['nb_prev_actions'], models=models, device=dev
+        meta['xfns'], meta['nb_prev_actions'], 'torch' if backend == 'jax' else backend,
+        models=models, device=dev,
     )
     scales_path = os.path.join(path, _QUANT_SCALES_ARTIFACT)
     if quantize == 'int8' and os.path.isfile(scales_path):

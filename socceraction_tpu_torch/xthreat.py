@@ -7,12 +7,23 @@ probability between an action's start and end cell of an ``l x w`` pitch
 grid; the value surface solves a Markov possession model by value
 iteration (Karun Singh, 2019).
 
-A model runs on ``device`` (``cuda`` unless the caller passes ``'cpu'``).
-``fit`` takes the port's :class:`~.core.batch.ActionBatch` or a SPADL
-DataFrame (pandas is imported only for a DataFrame, and for the grouped
-fits whose keys live in frame columns). Fitted surfaces and probability
-matrices are float64 numpy arrays, as in the JAX package, so a surface
-saved by either package loads into the other.
+Two backends, as in the JAX package:
+
+- ``backend='torch'`` (default): the model runs on ``device`` (``cuda``
+  unless the caller passes ``'cpu'``); ``fit`` takes the port's
+  :class:`~.core.batch.ActionBatch` or a SPADL DataFrame, packs it and
+  runs the kernels (segment-sum counts, the value iteration on the card);
+- ``backend='pandas'``: the numpy oracle with the reference's semantics
+  (``bincount`` scatters for its ``value_counts``, the value iteration as
+  the mat-vec its quadruple loop computes, reference ``xthreat.py:306-312``),
+  on SPADL DataFrames; it touches no device and needs none.
+
+The module-level oracle functions (``scoring_prob``, ``action_prob``,
+``move_transition_matrix``, ``get_move_actions``,
+``get_successful_move_actions``) are the reference's. pandas is imported
+only by code that takes frames. Fitted surfaces and probability matrices
+are float64 numpy arrays, as in the JAX package, so a surface saved by
+either package loads into the other.
 """
 
 from __future__ import annotations
@@ -38,7 +49,10 @@ from .spadl import config as spadlconfig
 if TYPE_CHECKING:  # pandas is imported inside the functions that take frames
     import pandas as pd
 
-__all__ = ['ExpectedThreat', 'NotFittedError', 'VARIANTS', 'load_model']
+__all__ = [
+    'ExpectedThreat', 'NotFittedError', 'VARIANTS', 'action_prob', 'get_move_actions',
+    'get_successful_move_actions', 'load_model', 'move_transition_matrix', 'scoring_prob',
+]
 
 
 class NotFittedError(ValueError):
@@ -68,13 +82,95 @@ def _get_cell_indexes(
     return xi, yj
 
 
-def _successful_moves(actions: 'pd.DataFrame') -> 'pd.DataFrame':
-    """Successful passes, dribbles and crosses."""
+def _get_flat_indexes(x: np.ndarray, y: np.ndarray, l: int = N, w: int = M) -> np.ndarray:
+    xi, yj = _get_cell_indexes(x, y, l, w)
+    return (w - 1 - yj) * l + xi
+
+
+def _count(x: np.ndarray, y: np.ndarray, l: int = N, w: int = M) -> np.ndarray:
+    """Actions per grid cell, as a ``(w, l)`` matrix with its origin at the
+    top left; rows with a NaN coordinate are left out."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    ok = ~np.isnan(x) & ~np.isnan(y)
+    flat = _get_flat_indexes(x[ok], y[ok], l, w)
+    return np.bincount(flat, minlength=w * l).astype(np.float64).reshape(w, l)
+
+
+def _safe_divide(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.divide(a, b, out=np.zeros_like(a, dtype=np.float64), where=b != 0)
+
+
+def scoring_prob(actions: 'pd.DataFrame', l: int = N, w: int = M) -> np.ndarray:
+    """P(goal | shot from cell) for each grid cell."""
+    shots = actions[actions['type_id'] == spadlconfig.SHOT]
+    goals = shots[shots['result_id'] == spadlconfig.SUCCESS]
+    shotmatrix = _count(shots['start_x'].to_numpy(), shots['start_y'].to_numpy(), l, w)
+    goalmatrix = _count(goals['start_x'].to_numpy(), goals['start_y'].to_numpy(), l, w)
+    return _safe_divide(goalmatrix, shotmatrix)
+
+
+def get_move_actions(actions: 'pd.DataFrame') -> 'pd.DataFrame':
+    """All ball-progressing actions: passes, dribbles and crosses."""
     t = actions['type_id']
-    moves = actions[
+    return actions[
         (t == spadlconfig.PASS) | (t == spadlconfig.DRIBBLE) | (t == spadlconfig.CROSS)
     ]
+
+
+def get_successful_move_actions(actions: 'pd.DataFrame') -> 'pd.DataFrame':
+    """All successful ball-progressing actions."""
+    moves = get_move_actions(actions)
     return moves[moves['result_id'] == spadlconfig.SUCCESS]
+
+
+def action_prob(
+    actions: 'pd.DataFrame', l: int = N, w: int = M
+) -> Tuple[np.ndarray, np.ndarray]:
+    """P(choose shot) and P(choose move) for each grid cell."""
+    moves = get_move_actions(actions)
+    shots = actions[actions['type_id'] == spadlconfig.SHOT]
+    movematrix = _count(moves['start_x'].to_numpy(), moves['start_y'].to_numpy(), l, w)
+    shotmatrix = _count(shots['start_x'].to_numpy(), shots['start_y'].to_numpy(), l, w)
+    total = movematrix + shotmatrix
+    return _safe_divide(shotmatrix, total), _safe_divide(movematrix, total)
+
+
+def _successful_move_pairs(
+    actions: 'pd.DataFrame', l: int, w: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(start_counts, pair_start, pair_end)`` of the move stream.
+
+    ``start_counts`` counts every move with a valid start, successful or
+    not (reference ``xthreat.py:206-216``); the pairs are the flat start
+    and end cells of the successful moves with valid end points. Moves
+    with NaN coordinates are left out, as ``_count`` leaves them out.
+    Shared by the dense transition matrix and the matrix-free sweeps.
+    """
+    moves = get_move_actions(actions)
+    sx = moves['start_x'].to_numpy(dtype=np.float64)
+    sy = moves['start_y'].to_numpy(dtype=np.float64)
+    ex = moves['end_x'].to_numpy(dtype=np.float64)
+    ey = moves['end_y'].to_numpy(dtype=np.float64)
+    start_ok = ~np.isnan(sx) & ~np.isnan(sy)
+    end_ok = start_ok & ~np.isnan(ex) & ~np.isnan(ey)
+    success = (moves['result_id'] == spadlconfig.SUCCESS).to_numpy() & end_ok
+
+    start = _get_flat_indexes(sx[start_ok], sy[start_ok], l, w)
+    start_counts = np.bincount(start, minlength=w * l).astype(np.float64)
+    pair_start = _get_flat_indexes(sx[success], sy[success], l, w)
+    pair_end = _get_flat_indexes(ex[success], ey[success], l, w)
+    return start_counts, pair_start, pair_end
+
+
+def move_transition_matrix(actions: 'pd.DataFrame', l: int = N, w: int = M) -> np.ndarray:
+    """P(successful move from cell i ends in cell j), normalized by the
+    count of *all* moves started in cell i (reference ``xthreat.py:206-216``)."""
+    n_cells = w * l
+    start_counts, pair_start, pair_end = _successful_move_pairs(actions, l, w)
+    pair = pair_start * n_cells + pair_end
+    counts = np.bincount(pair, minlength=n_cells * n_cells).reshape(n_cells, n_cells)
+    return _safe_divide(counts.astype(np.float64), start_counts[:, None])
 
 
 def _preview_keys(keys: Any, limit: int = 8) -> str:
@@ -86,7 +182,9 @@ def _preview_keys(keys: Any, limit: int = 8) -> str:
     return f'[{shown}]'
 
 
-def _resolve_variant(variant: Optional[str], accelerate: bool, keep_heatmaps: bool) -> str:
+def _resolve_variant(
+    variant: Optional[str], accelerate: bool, backend: str, keep_heatmaps: bool
+) -> str:
     """Validate and normalize the solver variant (``__init__`` and ``fit``)."""
     if variant == 'plain':
         variant = 'picard'
@@ -99,7 +197,14 @@ def _resolve_variant(variant: Optional[str], accelerate: bool, keep_heatmaps: bo
             "accelerate=True is a deprecated alias of variant='anderson' "
             f'and conflicts with variant={variant!r}'
         )
-    if variant != 'picard' and keep_heatmaps:
+    if variant == 'picard':
+        return variant
+    if backend != 'torch':
+        raise ValueError(
+            f'variant={variant!r} (accelerated value iteration) is a device-backend '
+            "feature; the pandas backend keeps the reference's plain iteration"
+        )
+    if keep_heatmaps:
         raise ValueError(
             'keep_heatmaps records the plain Picard iterate sequence; '
             f'{variant} iterates are a different (non-monotone) sequence'
@@ -126,6 +231,10 @@ class ExpectedThreat:
         Grid cells along the pitch length (x) and width (y). Default 16 x 12.
     eps : float
         Convergence threshold of the value iteration. Default 1e-5.
+    backend : {'torch', 'pandas'}
+        ``'torch'`` (default) fits and rates with the kernels on
+        ``device``; ``'pandas'`` is the numpy oracle on SPADL DataFrames,
+        which needs no device (``device`` must be left unset).
     max_iter : int
         Cap on value-iteration sweeps. Default 1000.
     keep_heatmaps : bool
@@ -144,7 +253,8 @@ class ExpectedThreat:
         default). All share the fixed point and the certificate
         (``solve_residual``, ``converged``, ``n_iter``).
     device
-        Where fits and ratings run: ``cuda`` (default) or ``'cpu'``.
+        Where the ``'torch'`` backend fits and rates: ``cuda`` (default)
+        or ``'cpu'``.
     """
 
     #: Cell count above which the auto solver goes matrix-free.
@@ -155,6 +265,7 @@ class ExpectedThreat:
         l: int = N,
         w: int = M,
         eps: float = 1e-5,
+        backend: str = 'torch',
         max_iter: int = 1000,
         keep_heatmaps: bool = False,
         solver: Optional[str] = None,
@@ -163,10 +274,16 @@ class ExpectedThreat:
         *,
         device: DeviceLike = None,
     ) -> None:
+        if backend not in ('torch', 'pandas'):
+            raise ValueError(f'unknown backend {backend!r}')
         if solver is not None and solver not in ('dense', 'matrix-free'):
             raise ValueError(f'unknown solver {solver!r}')
-        _resolve_variant(variant, accelerate, keep_heatmaps)
-        self.device = resolve_device(device)
+        _resolve_variant(variant, accelerate, backend, keep_heatmaps)
+        if backend == 'pandas' and device is not None:
+            raise ValueError("backend='pandas' runs on the host; leave device unset")
+        # the oracle touches no device: only the device backend resolves one
+        self.device = resolve_device(device) if backend == 'torch' else None
+        self.backend = backend
         self.l = l
         self.w = w
         self.eps = eps
@@ -216,27 +333,69 @@ class ExpectedThreat:
 
     # -- fitting -----------------------------------------------------------
 
-    def _solve_heatmaps(self) -> None:
-        """Host-stepped Picard sweeps in float64, keeping every surface."""
-        gs = self.scoring_prob_matrix * self.shot_prob_matrix
-        T = self.transition_matrix
+    def _value_iteration(self, sweep: Callable[[np.ndarray], np.ndarray]) -> None:
+        """Host Picard sweeps ``xT <- sweep(xT)`` in float64 until no cell
+        moves by more than ``eps``, keeping every surface with
+        ``keep_heatmaps``."""
         xT = np.zeros((self.w, self.l))
-        self.heatmaps.append(xT.copy())
+        if self.keep_heatmaps:
+            self.heatmaps.append(xT.copy())
         it = 0
         resid = None
         while it < self.max_iter:
-            new = gs + self.move_prob_matrix * (T @ xT.reshape(-1)).reshape(self.w, self.l)
+            new = sweep(xT)
             diff = new - xT
             xT = new
             it += 1
             resid = float(np.max(diff))
-            self.heatmaps.append(xT.copy())
+            if self.keep_heatmaps:
+                self.heatmaps.append(xT.copy())
             if not np.any(diff > self.eps):
                 break
         self.xT = xT
         self.n_iter = it
         self.solve_residual = resid
         self.converged = resid is not None and resid <= self.eps
+
+    def _solve_numpy(self) -> None:
+        """The value iteration over the fitted probability matrices, one
+        dense mat-vec a sweep (the oracle's dense solver)."""
+        gs = self.scoring_prob_matrix * self.shot_prob_matrix
+        T = self.transition_matrix
+
+        def sweep(xT: np.ndarray) -> np.ndarray:
+            payoff = (T @ xT.reshape(-1)).reshape(self.w, self.l)
+            return gs + self.move_prob_matrix * payoff
+
+        self._value_iteration(sweep)
+
+    def _solve_numpy_matrix_free(self, actions: 'pd.DataFrame') -> None:
+        """The value iteration with a gather and a weighted ``bincount``
+        over the successful moves a sweep, without the dense matrix."""
+        n_cells = self.w * self.l
+        start_counts, pair_start, pair_end = _successful_move_pairs(actions, self.l, self.w)
+        # every successful move counts in start_counts: the denominator is >= 1
+        wgt = 1.0 / start_counts[pair_start]
+        gs = self.scoring_prob_matrix * self.shot_prob_matrix
+
+        def sweep(xT: np.ndarray) -> np.ndarray:
+            payoff = np.bincount(
+                pair_start, weights=xT.reshape(-1)[pair_end] * wgt, minlength=n_cells
+            )
+            return gs + self.move_prob_matrix * payoff.reshape(self.w, self.l)
+
+        self._value_iteration(sweep)
+
+    def _fit_pandas(self, actions: 'pd.DataFrame') -> None:
+        """The numpy oracle's fit of one surface from a SPADL frame."""
+        self.scoring_prob_matrix = scoring_prob(actions, self.l, self.w)
+        self.shot_prob_matrix, self.move_prob_matrix = action_prob(actions, self.l, self.w)
+        if self.solver == 'matrix-free':
+            self.transition_matrix = None
+            self._solve_numpy_matrix_free(actions)
+        else:
+            self.transition_matrix = move_transition_matrix(actions, self.l, self.w)
+            self._solve_numpy()
 
     def _take_solution(self, sol: _xtops.XTSolution) -> None:
         """Adopt a single-grid solution."""
@@ -282,7 +441,7 @@ class ExpectedThreat:
         probs = _xtops.xt_probabilities(counts, l=self.l, w=self.w)
         self._take_probabilities(probs)
         if self.keep_heatmaps:
-            self._solve_heatmaps()
+            self._solve_numpy()
         else:
             self._take_solution(
                 _xtops.solve_xt(probs, eps=self.eps, max_iter=self.max_iter, solver=variant)
@@ -420,8 +579,12 @@ class ExpectedThreat:
         certificate vectors; ``rate`` then reads each action from its own
         group's surface.
         """
-        variant = _resolve_variant(self.variant, self.accelerate, self.keep_heatmaps)
+        variant = _resolve_variant(self.variant, self.accelerate, self.backend, self.keep_heatmaps)
+        if self.backend == 'pandas' and isinstance(actions, ActionBatch):
+            raise TypeError("backend='pandas' fits SPADL DataFrames, not packed batches")
         if group_by is not None:
+            if self.backend != 'torch':
+                raise ValueError('group_by (batched surface fleets) is a device-backend feature')
             if isinstance(actions, ActionBatch):
                 raise ValueError(
                     'group_by requires a DataFrame (group keys live in frame columns)'
@@ -437,7 +600,7 @@ class ExpectedThreat:
             'grid': f'{self.l}x{self.w}',
             'solver': self._effective_solver(n_grids),
             'variant': variant,
-            'backend': 'torch',
+            'backend': self.backend,
             'n_grids': str(_pow2_bucket(n_grids)),
         }
         t0 = time.perf_counter()
@@ -456,9 +619,12 @@ class ExpectedThreat:
                 self.shot_prob_matrices_ = None
                 self.move_prob_matrices_ = None
                 self.transition_matrices_ = None
-                self._fit_torch(self._as_batch(actions), variant)
+                if self.backend == 'torch':
+                    self._fit_torch(self._as_batch(actions), variant)
+                else:
+                    self._fit_pandas(actions)
         solve_s = time.perf_counter() - t0
-        if not self.keep_heatmaps:
+        if self.backend == 'torch' and not self.keep_heatmaps:
             # live-roofline feed: the fit wall is host-synced (the
             # certificate fetch waits for the solve), and the fn name is
             # the instrumented solver's, so the cost lookup finds its books
@@ -479,11 +645,39 @@ class ExpectedThreat:
     # -- inference ---------------------------------------------------------
 
     def _fine(self, grids: np.ndarray) -> Tuple[np.ndarray, int, int]:
-        """``grids`` upsampled to the 10 cm rating grid of the reference."""
+        """``grids`` upsampled to the 10 cm rating grid of the reference:
+        on the device, or in numpy on the pandas backend."""
         l = int(spadlconfig.field_length * 10)
         w = int(spadlconfig.field_width * 10)
+        if self.backend == 'pandas':
+            return self._interpolate_numpy(l, w), l, w
         g = torch.as_tensor(grids, dtype=torch.float32, device=self.device)
         return _xtops.interpolate_grid(g, l, w).cpu().numpy(), l, w
+
+    def _interpolate_numpy(self, l_out: int, w_out: int) -> np.ndarray:
+        """Bilinear upsampling of ``xT`` between cell centers, the borders
+        clamped to the edge cells' centers (the reference's FITPACK
+        ``interp2d(kind='linear')`` clamps its queries into the knot range)."""
+        cell_l = spadlconfig.field_length / self.l
+        cell_w = spadlconfig.field_width / self.w
+        xs = np.linspace(0.0, spadlconfig.field_length, l_out)
+        ys = np.linspace(0.0, spadlconfig.field_width, w_out)
+        fx = (xs - 0.5 * cell_l) / cell_l
+        fy = (ys - 0.5 * cell_w) / cell_w
+        ix = np.clip(np.floor(fx).astype(np.int64), 0, self.l - 2)
+        iy = np.clip(np.floor(fy).astype(np.int64), 0, self.w - 2)
+        tx = np.clip(fx - ix, 0.0, 1.0)
+        ty = np.clip(fy - iy, 0.0, 1.0)
+        r0 = self.w - 1 - iy
+        r1 = self.w - 2 - iy
+        g00 = self.xT[r0][:, ix]
+        g01 = self.xT[r0][:, ix + 1]
+        g10 = self.xT[r1][:, ix]
+        g11 = self.xT[r1][:, ix + 1]
+        top = g00 * (1 - tx[None, :]) + g01 * tx[None, :]
+        bot = g10 * (1 - tx[None, :]) + g11 * tx[None, :]
+        fine = top * (1 - ty[:, None]) + bot * ty[:, None]
+        return fine[::-1]
 
     def _rate_batch(
         self, grid: np.ndarray, batch: ActionBatch, l: int, w: int,
@@ -572,7 +766,9 @@ class ExpectedThreat:
         Only successful pass/dribble/cross actions are rated; every other
         row is NaN. An ``ActionBatch`` is rated on the model's device and
         comes back ``(G, A)``; a DataFrame comes back in row order, binned
-        in float64 on the host as the JAX package's frontend bins it. A
+        in float64 on the host as the JAX package's frontend bins it (on
+        either backend; ``use_interpolation`` upsamples the surface on the
+        device, or in numpy on the pandas backend). A
         grouped model rates each action against its own group's surface
         (``group_by`` overrides the fit-time column).
         """
@@ -593,11 +789,13 @@ class ExpectedThreat:
             grid, l, w = self.xT, self.l, self.w
 
         if isinstance(actions, ActionBatch):
+            if self.backend == 'pandas':
+                raise TypeError("backend='pandas' rates SPADL DataFrames, not packed batches")
             return self._rate_batch(grid, self._as_batch(actions), l, w).cpu().numpy()
 
         df = actions.reset_index(drop=True)
         ratings = np.full(len(df), np.nan)
-        moves = _successful_moves(df)
+        moves = get_successful_move_actions(df)
         sxi, syj = _get_cell_indexes(
             moves['start_x'].to_numpy(), moves['start_y'].to_numpy(), l, w
         )
@@ -669,9 +867,10 @@ class ExpectedThreat:
             json.dump(np.asarray(self.xT).tolist(), f)
 
 
-def load_model(path: str, device: DeviceLike = None) -> ExpectedThreat:
-    """A model from a saved xT value surface (JSON 2-D matrix), on ``device``."""
-    model = ExpectedThreat(device=device)
+def load_model(path: str, backend: str = 'torch', device: DeviceLike = None) -> ExpectedThreat:
+    """A model from a saved xT value surface (JSON 2-D matrix): on
+    ``device`` with the default backend, on the host with ``'pandas'``."""
+    model = ExpectedThreat(backend=backend, device=device)
     with open(path) as f:
         grid = np.asarray(json.load(f), dtype=np.float64)
     model.xT = grid

@@ -4,11 +4,12 @@
   ``jax``, ``flax``, ``optax`` or the JAX package ``socceraction_tpu``.
   The port's own name starts with ``socceraction_tpu``, so the check
   matches top-level module names exactly, never by prefix.
-- The modules ``chip_smoke.py`` runs import with those packages, and
-  ``pandas``, ``pyarrow``, ``h5py`` and ``msgpack`` (absent on the GPU
-  machine), blocked; its xT, training, Atomic-VAEP, sequence-head, season
-  feed, counterfactual, telemetry, rating-path and learning-loop phases
-  also run so, at a tiny size on the CPU, with a checkpoint published and
+- Every module of the port and ``chip_smoke.py`` import with those
+  packages, and ``pandas``, ``sklearn``, ``pyarrow``, ``h5py`` and
+  ``msgpack`` (absent on the GPU machine), blocked; the smoke's xT,
+  training, Atomic-VAEP, sequence-head, season feed, counterfactual,
+  telemetry, rating-path, learning-loop and DataFrame-layer phases also
+  run so, at a tiny size on the CPU, with a checkpoint published and
   loaded back through the model registry; so do its scale-out phase, its
   telemetry-plane phase and its serving phase, each in a process of its
   own; the serving phase then runs serving's outer tier (replica lanes,
@@ -48,6 +49,7 @@ from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.seq.model import init_seq_params
 from socceraction_tpu_torch.serve import ModelRegistry
 from socceraction_tpu_torch.vaep.base import VAEP, load_model
+from socceraction_tpu_torch.xg import XGModel
 
 ROOT = Path(__file__).resolve().parent.parent
 BANNED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu'}
@@ -83,6 +85,10 @@ def test_the_scan_sees_the_port():
         'parallel/vaep.py', 'parallel/sequence.py', 'parallel/serve.py', 'utils/env.py',
         'obs/wire.py', 'obs/endpoint.py', 'obs/fleet.py', 'resil/breaker.py', 'serve/batcher.py',
         'serve/session.py', 'serve/service.py', 'serve/aot.py', 'serve/frontend.py',
+        'schema.py', 'spadl/schema.py', 'spadl/utils.py', 'atomic/spadl/schema.py',
+        'atomic/spadl/utils.py', 'vaep/features.py', 'vaep/labels.py', 'vaep/formula.py',
+        'atomic/vaep/features.py', 'atomic/vaep/labels.py', 'atomic/vaep/formula.py',
+        'ml/learners.py', 'ratings.py', 'xthreat_v3.py', 'xg.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -108,7 +114,7 @@ import importlib.abc, sys
 # it. It imports none of them; load it before the blocker goes in.
 import torch._dynamo
 BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu', 'pandas', 'msgpack', 'pyarrow',
-           'h5py'}
+           'h5py', 'sklearn'}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
@@ -120,6 +126,11 @@ sys.path.insert(0, sys.argv[1])
 
 _BLOCKER = _BLOCK + '''
 import chip_smoke
+import importlib, pkgutil
+import socceraction_tpu_torch
+# every module of the port, the DataFrame layer's among them
+for info in pkgutil.walk_packages(socceraction_tpu_torch.__path__, 'socceraction_tpu_torch.'):
+    importlib.import_module(info.name)
 import socceraction_tpu_torch.vaep.base, socceraction_tpu_torch.convert
 import socceraction_tpu_torch.ops.cuda_build
 import socceraction_tpu_torch.xthreat, socceraction_tpu_torch.ops.xt
@@ -128,6 +139,14 @@ import socceraction_tpu_torch.ops.segment
 from socceraction_tpu_torch.core.synthetic import synthetic_batch
 fits = chip_smoke.xt_fits(synthetic_batch(4, 128, seed=2, device='cpu'), 'cpu')
 chip_smoke.compare_fits(fits, fits)
+# its DataFrame-layer phase: the frame fit's remainder, the fused rating of
+# the heads it trained, the card-against-CPU fit and the numpy xT oracle
+import socceraction_tpu_torch.xg, socceraction_tpu_torch.xthreat_v3, socceraction_tpu_torch.ratings
+small = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 3}
+frame = chip_smoke.frame_phase(torch.device('cpu'), fits['ExpectedThreat 16x12'], sizes=chip_smoke.FrameSizes(
+    games=2, actions=256, parity_games=2, params=small,
+    parity_params={**small, 'max_epochs': 2, 'learning_rate': 1e-4}))
+assert frame['rate_launches'] == 0 and frame['oracle']['grid_max_abs_err'] <= 1e-5, frame
 # and its training phase
 import socceraction_tpu_torch.ml.learners
 params = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 2}
@@ -378,6 +397,8 @@ ENTRY_POINTS = {
     ),
     'ModelRegistry': lambda: ModelRegistry('no-such-registry'),
     'ContinuousLearner': lambda: ContinuousLearner(None, None),
+    'XGModel': lambda: XGModel(),
+    "VAEP(backend='pandas')": lambda: VAEP(backend='pandas'),
 }
 
 

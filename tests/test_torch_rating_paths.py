@@ -477,14 +477,6 @@ def test_profile_read_once_per_process(pairs, family, monkeypatch):
     assert tprofile._PROFILE_FILE not in opened
 
 
-def test_tree_heads_raise():
-    class Tree:
-        mean_ = torch.zeros(1)
-
-    with pytest.raises(ValueError, match='tree'):
-        VAEP(models={'scores': Tree(), 'concedes': Tree()}, device='cpu')
-
-
 def test_mixed_pair_checkpoint_moves_to_jax(pairs, family, tmp_path):
     """The port's save_model of a mixed pair stamps each head's kind and
     format 3; the JAX package's load_model reads it and rates within 1e-5."""

@@ -309,14 +309,20 @@ def test_mlp_checkpoint_loads_directly(tmp_path):
 
 
 def test_vaep_exports_match_jax_less_the_dataframe_layer():
-    """The two packages' ``vaep`` modules export the same names, less the
-    DataFrame layer the port has not taken yet (ROADMAP A8); each name the
+    """The two packages' ``vaep`` and ``atomic.vaep`` modules export the
+    same names: the DataFrame layer (``features``, ``labels``, ``formula``,
+    ``xfns_default``) is ported now, so nothing is left out. Each name the
     port exports is the object its modules define."""
+    import socceraction_tpu.atomic.vaep as jax_atomic_vaep
     import socceraction_tpu.vaep as jax_vaep
+    import socceraction_tpu_torch.atomic.vaep as port_atomic_vaep
     import socceraction_tpu_torch.vaep as port_vaep
+    from socceraction_tpu_torch.vaep import base, features, formula, labels
 
-    dataframe_layer = {'features', 'labels', 'formula', 'xfns_default'}
-    assert set(port_vaep.__all__) == set(jax_vaep.__all__) - dataframe_layer
+    assert set(port_vaep.__all__) == set(jax_vaep.__all__)
+    assert set(port_atomic_vaep.__all__) == set(jax_atomic_vaep.__all__)
+    assert (port_vaep.features, port_vaep.labels, port_vaep.formula) == (features, labels, formula)
+    assert port_vaep.xfns_default is base.xfns_default
     assert port_vaep.NotFittedError is NotFittedError
     assert issubclass(port_vaep.NotFittedError, ValueError)
     assert (port_vaep.VAEP, port_vaep.load_model) == (VAEP, load_model)
