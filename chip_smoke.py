@@ -185,6 +185,17 @@ exits non-zero:
    within 1e-4; (d) the pandas backend's numpy value iteration over phase
    5's 16 x 12 card fit's matrices: its grid within 1e-5, its sweeps within
    one.
+19. the synthetic quality tier (the JAX package's
+   ``tests/test_quality_synthetic.py`` on the card): (a) 48 games of 1000
+   actions drawn with the chain generator's pandas-free core, timed on the
+   host, their columns' sha256 equal to :data:`SEASON_DIGEST` (the JAX
+   package's frames hash to it); (b) k = 3 feature and label rows of the 36
+   training games on the card and ``fit_rows(learner='mlp')`` with (128,
+   128) heads, batch 2048, up to 100 epochs, patience 10; (c) both heads'
+   probabilities of the 12 held-out games through B1
+   (``predict_proba_device_batch``), AUROC above 0.78 and Brier below 0.06
+   on both, a shuffled-label control's AUROC below 0.58, and B1 against its
+   plain version on the held-out operands.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -201,6 +212,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -219,8 +231,13 @@ import torch
 from socceraction_tpu_torch.atomic.spadl import config as atomicconfig
 from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
 from socceraction_tpu_torch.convert import mlp_from_jax_params
-from socceraction_tpu_torch.core.batch import ActionBatch, AtomicActionBatch
-from socceraction_tpu_torch.core.synthetic import _draw_spadl_columns, synthetic_batch
+from socceraction_tpu_torch.core.batch import ActionBatch, AtomicActionBatch, _from_numpy, pad_length
+from socceraction_tpu_torch.core.synthetic import (
+    CHAIN_COLUMNS,
+    _chain_columns,
+    _draw_spadl_columns,
+    synthetic_batch,
+)
 from socceraction_tpu_torch.device import DeviceLike, resolve_device
 from socceraction_tpu_torch.ml import mlp as mlp_mod
 from socceraction_tpu_torch.ops import cuda_build
@@ -5163,6 +5180,237 @@ def frame_phase(
             'parity': parity, 'oracle': oracle}
 
 
+# -- phase 19: the synthetic quality tier -------------------------------------------------
+
+#: sha256 of the quality tier's season (:func:`season_digest`): the chain
+#: generator's columns of games 7000 to 7047, seeds 0 to 47, home 100, away
+#: 200, 1000 actions each; the JAX package's frames hash to it too.
+SEASON_DIGEST = '183f6b6b54e4b2e2c4477f7da5a1a6ba72ee2b2b5a7bc00304dff0dfa6195f58'
+#: The quality tier's floors: held-out AUROC above, Brier below, and the
+#: shuffled-label control's AUROC below (``tests/test_quality_synthetic.py``).
+QUALITY_AUROC_FLOOR = 0.78
+QUALITY_BRIER_CEILING = 0.06
+QUALITY_CONTROL_CEILING = 0.58
+#: ``QUALITY.md``'s held-out numbers of the JAX package's MLP on this season.
+JAX_MLP_QUALITY = {'scores': {'auroc': 0.823, 'brier': 0.0347},
+                   'concedes': {'auroc': 0.847, 'brier': 0.0126}}
+QUALITY_HOME, QUALITY_AWAY = 100, 200
+
+
+class QualitySizes(NamedTuple):
+    """Phase 19's season (games ``7000 + i`` drawn with seed ``i``: the
+    first ``train_games`` to fit, the rest held out), the MLP learner's
+    parameters, and whether the tier's digest and floors hold (off for a
+    rehearsal at a tiny size)."""
+
+    train_games: int = 36
+    test_games: int = 12
+    actions: int = 1000
+    params: Dict[str, Any] = {'batch_size': 2048, 'max_epochs': 100, 'patience': 10}
+    digest: Optional[str] = SEASON_DIGEST
+    floors: bool = True
+
+
+def chain_season(sizes: QualitySizes) -> List[Dict[str, np.ndarray]]:
+    """The tier's games as the chain generator's columns, in game order."""
+    return [
+        _chain_columns(7000 + i, home_team_id=QUALITY_HOME, away_team_id=QUALITY_AWAY,
+                       n_actions=sizes.actions, seed=i)
+        for i in range(sizes.train_games + sizes.test_games)
+    ]
+
+
+def season_digest(games: List[Dict[str, np.ndarray]]) -> str:
+    """sha256 over each game's ``CHAIN_COLUMNS``, in order: name, dtype,
+    shape and bytes."""
+    h = hashlib.sha256()
+    for cols in games:
+        for c in CHAIN_COLUMNS:
+            a = np.ascontiguousarray(cols[c])
+            h.update(f'{c}:{a.dtype.str}:{a.shape}'.encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def pack_chain_games(games: List[Dict[str, np.ndarray]], home_team_id: int, device: DeviceLike) -> ActionBatch:
+    """``pack_actions`` of the games' frames with one home team, from the
+    columns (no pandas): left-aligned, padded to the lane multiple."""
+    lengths = [len(cols['game_id']) for cols in games]
+    G, A = len(games), pad_length(max(lengths))
+    mask = np.arange(A)[None, :] < np.asarray(lengths)[:, None]
+
+    def grid(values: List[np.ndarray], dtype: Any, fill: Any = 0) -> np.ndarray:
+        out = np.full((G, A), fill, dtype=dtype)
+        out[mask] = np.concatenate(values).astype(dtype)
+        return out
+
+    cols = {c: grid([g[c] for g in games], np.float32)
+            for c in ('time_seconds', 'start_x', 'start_y', 'end_x', 'end_y')}
+    cols.update({c: grid([g[c] for g in games], np.int32)
+                 for c in ('type_id', 'result_id', 'bodypart_id', 'period_id')})
+    cols['is_home'] = grid([g['team_id'] == home_team_id for g in games], bool, False)
+    cols['mask'] = mask
+    cols['n_actions'] = np.asarray(lengths, dtype=np.int32)
+    cols['game_id'] = np.arange(G, dtype=np.int32)
+    cols['row_index'] = grid([np.arange(sum(lengths), dtype=np.int32)], np.int32, -1)
+    return _from_numpy(cols, resolve_device(device))
+
+
+def auroc(y: np.ndarray, p: np.ndarray) -> float:
+    """ROC AUC from ranks, ties averaged (``roc_auc_score``'s value)."""
+    y = np.asarray(y, dtype=bool)
+    p = np.asarray(p, dtype=np.float64)
+    order = np.argsort(p, kind='mergesort')
+    _, first, counts = np.unique(p[order], return_index=True, return_counts=True)
+    ranks = np.empty(len(p))
+    ranks[order] = np.repeat(first + (counts + 1) / 2.0, counts)
+    n_pos = int(y.sum())
+    n_neg = len(y) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float('nan')  # one class only: no ranking to score
+    return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def brier(y: np.ndarray, p: np.ndarray) -> float:
+    """Mean squared gap between the probabilities and the 0/1 labels."""
+    return float(np.mean((np.asarray(p, dtype=np.float64) - np.asarray(y, dtype=np.float64)) ** 2))
+
+
+def quality_fit(
+    device: torch.device, X: np.ndarray, y: Dict[str, np.ndarray], params: Dict[str, Any],
+    random_state: int,
+) -> Dict[str, Any]:
+    """``VAEP.fit(X, y, learner='mlp')``'s remainder on the rows, on
+    ``device``, with both kernels' counts zeroed just before and read just
+    after; the synchronized wall and each head's epochs."""
+    model = VAEP(device=device)
+    sync(device)
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    model.fit_rows(X, y, learner='mlp', val_size=0.25, tree_params=params, random_state=random_state)
+    sync(device)
+    wall = time.perf_counter() - t0
+    heads = {}
+    for col, clf in model._models.items():
+        health = clf.train_health_
+        if not health['finite']:
+            raise RuntimeError(f'quality head {col!r} trained to {health}')
+        heads[col] = {'epochs': health['epochs'], 'last_loss': health['epoch_losses'][-1],
+                      'best_val_loss': min(health['val_losses']) if health['val_losses'] else None}
+    return {'model': model, 'wall_s': wall, 'heads': heads,
+            'launches': {'gather_matmul': gm.fused_first_layer_quant.launches,
+                         'segment_sum': seg.segment_sum.launches}}
+
+
+def held_out_scores(model: VAEP, batch: ActionBatch, y: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Each head's probabilities of the held-out rows through B1
+    (``predict_proba_device_batch``: one launch a head on the card), their
+    AUROC and Brier; B1's launches counted over the calls, the operands of
+    the first captured, and the probabilities against the plain path (the
+    feature tensor through the head)."""
+    dev = batch.device
+    sync(dev)
+    gm.fused_first_layer_quant.launches = 0
+    probs = {}
+    # fused_mlp_logits enters B1 through fused_first_layer (same operands)
+    with captured(fused_ops, 'fused_first_layer', first_only=True) as calls:
+        for col, clf in model._models.items():
+            probs[col] = clf.predict_proba_device_batch(batch, names=model.xfns, k=model.nb_prev_actions)
+    sync(dev)
+    launches = gm.fused_first_layer_quant.launches
+    if not calls:
+        raise RuntimeError('the held-out scores handed B1 no operands')
+    feats = model.compute_features_batch(batch)
+    plain_gap = max(float((probs[col] - clf.predict_proba_device(feats)).abs()[batch.mask].max())
+                    for col, clf in model._models.items())
+    if plain_gap > 1e-5:
+        raise RuntimeError(f'held-out probabilities through B1 are {plain_gap} from the plain path')
+    metrics = {}
+    for col, p in probs.items():
+        flat = p[batch.mask].cpu().numpy()
+        metrics[col] = {'auroc': auroc(y[col], flat), 'brier': brier(y[col], flat)}
+    return {'metrics': metrics, 'launches': launches, 'plain_gap': plain_gap, 'operands': calls[0][0]}
+
+
+def quality_phase(device: torch.device, card: str = 'CPU', sizes: QualitySizes = QualitySizes()) -> Dict[str, Any]:
+    """Phase 19, the JAX package's synthetic quality tier on ``device``.
+
+    (a) The tier's season drawn with the chain generator's pandas-free
+    core, timed on the host, its columns' sha256 held to
+    :data:`SEASON_DIGEST`. (b) Feature and label rows (k = 3) of the
+    training games on ``device`` and ``fit_rows(learner='mlp')`` with the
+    tier's parameters and ``random_state=0``. (c) Both heads' held-out
+    probabilities through B1, their AUROC and Brier held to the tier's
+    floors; the shuffled-label control (a per-column permutation from
+    ``default_rng(0)``, ``random_state=1``) held below its ceiling; B1
+    against its plain version on the held-out operands.
+    """
+    label = 'quality tier'
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    season = chain_season(sizes)
+    draw_s = time.perf_counter() - t0
+    digest = season_digest(season)
+    n_games = len(season)
+    print(f'{label} (a): {n_games} chain games of {sizes.actions} actions drawn in {draw_s:.3f} s '
+          f'on the host ({draw_s / n_games * 1e3:.1f} ms a game); sha256 {digest}')
+    if sizes.digest is not None and digest != sizes.digest:
+        raise RuntimeError(f'{label}: the season hashes to {digest}, not {sizes.digest}')
+    train = pack_chain_games(season[:sizes.train_games], QUALITY_HOME, device)
+    test = pack_chain_games(season[sizes.train_games:], QUALITY_HOME, device)
+    del season
+
+    rows = VAEP(device=device)
+    t0 = time.perf_counter()
+    X, y = rows.features_rows(train), rows.labels_rows(train)
+    rows_s = time.perf_counter() - t0
+    fit = quality_fit(device, X, y, sizes.params, random_state=0)
+    print(f"{label} (b): features_rows/labels_rows of {len(X)} training actions in {rows_s:.3f} s, "
+          f"fit_rows(learner='mlp', {json.dumps(sizes.params)}, random_state=0) in "
+          f"{fit['wall_s']:.3f} s synced; heads {json.dumps(fit['heads'])}; launches "
+          f"{json.dumps(fit['launches'])} ({card})")
+
+    y_test = rows.labels_rows(test)
+    scored = held_out_scores(fit['model'], test, y_test)
+    want = kernel_launches(len(fit['model']._models), device)
+    if scored['launches'] != want:
+        raise RuntimeError(f"{label}: the held-out scores launched B1 {scored['launches']} times, not {want}")
+    print(f"{label} (c): held-out {test.total_actions} actions through B1 "
+          f"({scored['launches']} launches, {scored['plain_gap']:.3g} from the plain path): "
+          f"{json.dumps(scored['metrics'])}; JAX MLP (QUALITY.md): {json.dumps(JAX_MLP_QUALITY)}")
+
+    rng = np.random.default_rng(0)
+    shuffled = {col: rng.permutation(y[col]) for col in ('scores', 'concedes')}
+    control = quality_fit(device, X, shuffled, sizes.params, random_state=1)
+    control_scored = held_out_scores(control['model'], test, y_test)
+    if control_scored['launches'] != want:
+        raise RuntimeError(f"{label}: the control's scores launched B1 {control_scored['launches']} times")
+    print(f"{label} (c): shuffled-label control in {control['wall_s']:.3f} s, heads "
+          f"{json.dumps(control['heads'])}: {json.dumps(control_scored['metrics'])}")
+    if sizes.floors:
+        for col, m in scored['metrics'].items():
+            if not (m['auroc'] > QUALITY_AUROC_FLOOR and m['brier'] < QUALITY_BRIER_CEILING):
+                raise RuntimeError(f'{label}: head {col!r} held out at {m}')
+        for col, m in control_scored['metrics'].items():
+            if not m['auroc'] < QUALITY_CONTROL_CEILING:
+                raise RuntimeError(f'{label}: the shuffled control head {col!r} reached {m}')
+
+    b1 = None
+    if device.type == 'cuda':
+        b1 = check_first_layer(device, torch.float32, ops=scored['operands'])
+        print(f"kernel gather_matmul on {label}'s held-out operands vs plain ({card}): {json.dumps(b1)}")
+    wall = time.perf_counter() - t_phase
+    print(f'{label}: phase 19 in {wall:.1f} s')
+    return {
+        'digest': digest, 'draw_s': draw_s, 'fit_wall_s': fit['wall_s'], 'heads': fit['heads'],
+        'metrics': scored['metrics'], 'control': control_scored['metrics'],
+        'launches': scored['launches'] + control_scored['launches'],
+        'fit_launches': {k: fit['launches'][k] + control['launches'][k] for k in fit['launches']},
+        'b1': b1, 'wall_s': wall,
+    }
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
         # one of phase 14 (b)'s ranks, spawned by scale_two_ranks
@@ -5400,6 +5648,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap('phase 18 frame layer')
 
+    # -- phase 19, the synthetic quality tier ------------------------------------------
+    quality = quality_phase(device, card)
+    torch.cuda.empty_cache()
+    lap('phase 19 quality tier')
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -5422,6 +5675,8 @@ def main() -> int:
         **{f'phase17 {part}': n for part, n in lane_launches.items()},
         "phase18 fit_rows(learner='mlp'), dense": frame['fit_launches']['gather_matmul'],
         'phase18 fitted model rate_batch': frame['rate_launches'],
+        "phase19 fit_rows(learner='mlp'), dense (fit and control)": quality['fit_launches']['gather_matmul'],
+        'phase19 held-out predict_proba_device_batch (2 models x 2 heads)': quality['launches'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -5435,6 +5690,7 @@ def main() -> int:
         'learning loop (phase 13, 3 iterations)': learn['launches']['segment_sum'],
         **scale_paths(scale_launches, 'segment_sum'),
         "phase18 fit_rows(learner='mlp')": frame['fit_launches']['segment_sum'],
+        "phase19 fit_rows(learner='mlp') (fit and control)": quality['fit_launches']['segment_sum'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
@@ -5448,7 +5704,7 @@ def main() -> int:
         'max_abs_err': max(
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
             atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
-            learn['kernel']['max_abs_err'], frame['b1']['max_abs_err'],
+            learn['kernel']['max_abs_err'], frame['b1']['max_abs_err'], quality['b1']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -5474,6 +5730,10 @@ def main() -> int:
         'loop_training_shape': learn['kernel'],
         # the operands the frame-fitted model's rate_batch hands B1
         'phase18_operands': {k: frame['b1'][k] for k in (
+            'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+        )},
+        # the operands the quality tier's held-out scores hand B1
+        'phase19_operands': {k: quality['b1'][k] for k in (
             'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
         )},
         'training_shapes': [

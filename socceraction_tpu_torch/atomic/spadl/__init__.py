@@ -1,10 +1,11 @@
 """Atomic-SPADL: the atomic action representation (the port's own copy).
 
-Vocabulary, schema and utilities of ``socceraction_tpu.atomic.spadl``; the
-converter ``convert_to_atomic`` is not ported yet.
+Vocabulary, schema, utilities and the converter ``convert_to_atomic`` of
+``socceraction_tpu.atomic.spadl``.
 """
 
 from . import config  # noqa: F401
+from .base import convert_to_atomic
 from .config import (
     actiontypes,
     actiontypes_df,
@@ -18,6 +19,7 @@ from .utils import add_names, play_left_to_right
 
 __all__ = [
     'config',
+    'convert_to_atomic',
     'actiontypes',
     'actiontypes_df',
     'bodyparts',

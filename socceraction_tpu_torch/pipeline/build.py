@@ -4,9 +4,9 @@ Port of the JAX package's ``socceraction_tpu/pipeline/build.py``.
 
 :func:`build_spadl_store` converts every game of a provider loader into a
 :class:`~socceraction_tpu_torch.pipeline.store.SeasonStore`: the
-per-game frames plus the metadata and vocabulary tables. The port has no
-SPADL converters yet, so the caller passes ``convert=``; without it the
-call names the converter that is missing.
+per-game frames plus the metadata and vocabulary tables, converted by the
+provider's SPADL converter (chosen by the loader's class name) unless the
+caller passes ``convert=``.
 
 :func:`iter_packed_build` is the *overlapped* build of the packed-season
 memmap cache (:mod:`socceraction_tpu_torch.pipeline.packed`): it streams
@@ -47,20 +47,19 @@ def build_spadl_store(
     Parameters
     ----------
     loader : EventDataLoader
-        Any provider loader (``competitions()``, ``games()``,
-        ``events()``, ``teams()``, ``players()``).
+        Any provider loader (StatsBomb, Wyscout, Opta, ...): one with
+        ``competitions()``, ``games()``, ``events()``, ``teams()`` and
+        ``players()``.
     store : SeasonStore
         Open, writable store to populate.
     competitions : iterable of (competition_id, season_id), optional
         Defaults to every competition the loader advertises.
-    convert : callable
-        ``convert(events, home_team_id) -> actions``. Required: the port
-        has no provider converters yet, and a call without it raises a
-        ``ValueError`` that names the converter the JAX package would use.
+    convert : callable, optional
+        ``convert(events, home_team_id) -> actions``. Defaults to the
+        provider converter matching the loader class name.
     atomic : bool
-        Also store each game as Atomic-SPADL. Needs the Atomic-SPADL
-        converter, which the port does not have yet: raises
-        ``ValueError``.
+        Additionally convert each game to Atomic-SPADL and store the
+        atomic vocabulary (``atomic/spadl/config.py`` id space).
     on_error : {'raise', 'skip'}
         'skip' logs and continues past games whose feed files are missing
         or malformed.
@@ -76,16 +75,15 @@ def build_spadl_store(
 
     if convert is None:
         convert = _default_converter(loader)
-    if atomic:
-        raise ValueError(
-            'atomic=True needs the Atomic-SPADL converter (convert_to_atomic), '
-            'which socceraction_tpu_torch does not have yet; store atomic frames '
-            'with SeasonStore.put_atomic_actions'
-        )
 
     store.put('actiontypes', spadlcfg.actiontypes_df())
     store.put('results', spadlcfg.results_df())
     store.put('bodyparts', spadlcfg.bodyparts_df())
+    if atomic:
+        from ..atomic.spadl import config as atomiccfg
+        from ..atomic.spadl import convert_to_atomic
+
+        store.put('atomic_actiontypes', atomiccfg.actiontypes_df())
 
     comp_table = loader.competitions()
     store.put('competitions', comp_table)
@@ -106,16 +104,22 @@ def build_spadl_store(
                     players = loader.players(game_id)
                 with timed_labels('pipeline/stage_seconds', stage='convert'):
                     actions = convert(events, row.home_team_id)
+                # inside the guarded region: a failure in the atomic
+                # conversion or the writes must also be skippable, and no
+                # metadata is appended for a partially-written game
                 store.put_actions(game_id, actions)
+                if atomic:
+                    store.put_atomic_actions(game_id, convert_to_atomic(actions))
             except Exception:
                 if on_error == 'skip':
                     logger.warning('skipping game %s', game_id, exc_info=True)
-                    # drop a partially-written frame so keys()/game_ids()
+                    # drop any partially-written frames so keys()/game_ids()
                     # never enumerate a corrupt game
-                    try:
-                        store.delete(f'actions/game_{game_id}')
-                    except Exception:
-                        logger.warning('could not clean up game %s', game_id, exc_info=True)
+                    for key in (f'actions/game_{game_id}', f'atomic_actions/game_{game_id}'):
+                        try:
+                            store.delete(key)
+                        except Exception:
+                            logger.warning('could not clean up %s', key, exc_info=True)
                     continue
                 raise
             # metadata only for games whose actions made it into the store
@@ -218,25 +222,22 @@ def iter_packed_build(
                 writer.abort()
 
 
-#: The JAX package's converter for each provider loader, by the loader
-#: class name's provider word.
-_CONVERTERS = {
-    'statsbomb': 'spadl.statsbomb.convert_to_actions',
-    'wyscout': 'spadl.wyscout.convert_to_actions',
-    'opta': 'spadl.opta.convert_to_actions',
-}
-
-
 def _default_converter(loader: Any) -> Callable[['pd.DataFrame', Any], 'pd.DataFrame']:
-    """Refuse to guess: name the converter a call without ``convert=``
-    would need. The SPADL converters are not ported yet."""
-    name = type(loader).__name__
-    for provider, converter in _CONVERTERS.items():
-        if provider in name.lower():
-            raise ValueError(
-                f'loader {name} needs the SPADL converter {converter}, which '
-                'socceraction_tpu_torch does not have yet; pass convert= explicitly'
-            )
+    """The SPADL converter of the provider the loader's class name names."""
+    name = type(loader).__name__.lower()
+    if 'statsbomb' in name:
+        from ..spadl import statsbomb
+
+        return statsbomb.convert_to_actions
+    if 'wyscout' in name:
+        from ..spadl import wyscout
+
+        return wyscout.convert_to_actions
+    if 'opta' in name:
+        from ..spadl import opta
+
+        return opta.convert_to_actions
     raise ValueError(
-        f'cannot infer a SPADL converter for loader {name}; pass convert= explicitly'
+        f'cannot infer a SPADL converter for loader {type(loader).__name__}; '
+        'pass convert= explicitly'
     )

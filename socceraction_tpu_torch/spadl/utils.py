@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING
 
 from . import config as spadlconfig
+from .base import _fix_direction_of_play
 from .schema import SPADLSchema
 
 if TYPE_CHECKING:
@@ -36,16 +37,7 @@ def add_names(actions: 'pd.DataFrame') -> 'pd.DataFrame':
 def play_left_to_right(actions: 'pd.DataFrame', home_team_id: int) -> 'pd.DataFrame':
     """A copy of one game's actions with the away team's coordinates
     mirrored in both axes, so that every team plays left to right."""
-    ltr = actions.copy()
-    away = (actions['team_id'] != home_team_id).to_numpy()
-    for col, extent in (
-        ('start_x', spadlconfig.field_length),
-        ('end_x', spadlconfig.field_length),
-        ('start_y', spadlconfig.field_width),
-        ('end_y', spadlconfig.field_width),
-    ):
-        ltr.loc[away, col] = extent - actions.loc[away, col].to_numpy()
-    return ltr
+    return _fix_direction_of_play(actions.copy(), home_team_id)
 
 
 #: The reference's name of the canonical two-argument function (its fork

@@ -8,8 +8,8 @@
   packages, and ``pandas``, ``sklearn``, ``pyarrow``, ``h5py`` and
   ``msgpack`` (absent on the GPU machine), blocked; the smoke's xT,
   training, Atomic-VAEP, sequence-head, season feed, counterfactual,
-  telemetry, rating-path, learning-loop and DataFrame-layer phases also
-  run so, at a tiny size on the CPU, with a checkpoint published and
+  telemetry, rating-path, learning-loop, DataFrame-layer and quality-tier
+  phases also run so, at a tiny size on the CPU, with a checkpoint published and
   loaded back through the model registry; so do its scale-out phase, its
   telemetry-plane phase and its serving phase, each in a process of its
   own; the serving phase then runs serving's outer tier (replica lanes,
@@ -88,7 +88,11 @@ def test_the_scan_sees_the_port():
         'schema.py', 'spadl/schema.py', 'spadl/utils.py', 'atomic/spadl/schema.py',
         'atomic/spadl/utils.py', 'vaep/features.py', 'vaep/labels.py', 'vaep/formula.py',
         'atomic/vaep/features.py', 'atomic/vaep/labels.py', 'atomic/vaep/formula.py',
-        'ml/learners.py', 'ratings.py', 'xthreat_v3.py', 'xg.py',
+        'ml/learners.py', 'ratings.py', 'xthreat_v3.py', 'xg.py', 'spadl/base.py',
+        'spadl/_deprecated.py', 'spadl/statsbomb.py', 'spadl/opta.py', 'spadl/wyscout.py',
+        'spadl/wyscout_v3.py', 'atomic/spadl/base.py', 'data/__init__.py', 'data/base.py',
+        'data/schema.py', 'data/statsbomb/__init__.py', 'data/statsbomb/loader.py',
+        'data/statsbomb/schema.py', 'core/synthetic.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -147,6 +151,16 @@ frame = chip_smoke.frame_phase(torch.device('cpu'), fits['ExpectedThreat 16x12']
     games=2, actions=256, parity_games=2, params=small,
     parity_params={**small, 'max_epochs': 2, 'learning_rate': 1e-4}))
 assert frame['rate_launches'] == 0 and frame['oracle']['grid_max_abs_err'] <= 1e-5, frame
+# its quality tier: the chain generator's columns packed without pandas, the
+# fit, the held-out scores and the shuffled control, at a tiny size
+import socceraction_tpu_torch.spadl.statsbomb, socceraction_tpu_torch.atomic.spadl.base
+import socceraction_tpu_torch.data.statsbomb.loader, socceraction_tpu_torch.spadl.wyscout_v3
+quality = chip_smoke.quality_phase(torch.device('cpu'), sizes=chip_smoke.QualitySizes(
+    train_games=2, test_games=2, actions=200, params={'hidden': (8,), 'batch_size': 256, 'max_epochs': 3},
+    digest=None, floors=False))
+assert quality['launches'] == 0 and quality['fit_launches'] == {'gather_matmul': 0, 'segment_sum': 0}, quality
+assert quality['b1'] is None and len(quality['digest']) == 64, quality
+assert all(0 <= m['auroc'] <= 1 for part in ('metrics', 'control') for m in quality[part].values()), quality
 # and its training phase
 import socceraction_tpu_torch.ml.learners
 params = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 2}

@@ -334,8 +334,7 @@ def test_ship_host_batch_widens_the_wire_for_large_ids(tmp_path):
 
 def test_build_spadl_store_matches_jax(tmp_path):
     """The same loader and converter through both packages write the same
-    store (the port has no converters yet: the test passes the JAX
-    package's)."""
+    store (an explicit ``convert=``, here the JAX package's converter)."""
     loader = StatsBombLoader(getter='local', root=DATA_DIR)
     convert = jax_statsbomb.convert_to_actions
     with JaxSeasonStore(str(tmp_path / 'jax'), mode='w') as js:
@@ -353,9 +352,16 @@ def test_build_spadl_store_matches_jax(tmp_path):
 
 
 def test_build_spadl_store_names_the_missing_converter(tmp_path):
+    """A loader whose class name names no provider has no default
+    converter: the call says so. A StatsBomb loader needs no ``convert=``,
+    with or without ``atomic=True``."""
+
+    class FeedLoader(StatsBombLoader):
+        pass
+
     loader = StatsBombLoader(getter='local', root=DATA_DIR)
     with SeasonStore(str(tmp_path / 'port'), mode='w') as ts:
-        with pytest.raises(ValueError, match='spadl.statsbomb.convert_to_actions'):
-            build_spadl_store(loader, ts)
-        with pytest.raises(ValueError, match='Atomic-SPADL converter'):
-            build_spadl_store(loader, ts, convert=jax_statsbomb.convert_to_actions, atomic=True)
+        with pytest.raises(ValueError, match='cannot infer a SPADL converter for loader FeedLoader'):
+            build_spadl_store(FeedLoader(getter='local', root=DATA_DIR), ts)
+        build_spadl_store(loader, ts, atomic=True)
+        assert {'actions/game_7584', 'atomic_actions/game_7584'} <= set(ts.keys())
