@@ -196,6 +196,21 @@ exits non-zero:
    (``predict_proba_device_batch``), AUROC above 0.78 and Brier below 0.06
    on both, a shuffled-label control's AUROC below 0.58, and B1 against its
    plain version on the held-out operands.
+20. the Wyscout and Opta loaders (the card's machine has neither pandas
+   nor lxml): (a) the ``data.wyscout`` and ``data.opta`` packages and every
+   parser module imported, the deprecated ``spadl.opta.OptaLoader``,
+   ``spadl.wyscout.WyscoutLoader`` and ``PublicWyscoutLoader`` resolved to
+   the port's classes with a ``DeprecationWarning``, and neither pandas nor
+   lxml loaded; (b) the F1, F9, F24 and MA1 JSON parsers, MA3 (less
+   ``extract_players``) and WhoScored over the repo's fixture feeds, every
+   pandas-free ``extract_*`` method, each parser's records hashed and held
+   to :data:`PROVIDER_DIGESTS` (the JAX package's parsers hash to them);
+   (c) the six fixture layouts' games (Opta XML and JSON, StatsPerform,
+   WhoScored, the Wyscout public release and API; loader, then
+   ``convert_to_actions``, read from :data:`PROVIDER_SPADL`) packed into
+   one batch and rated by phase 4's model: B1 once, within 1e-5 of
+   ``rate_batch_reference`` and of the same model's values on the CPU, B1
+   against its plain version on the operands it was handed.
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -210,6 +225,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import functools
 import gc
 import hashlib
@@ -5232,11 +5248,13 @@ def season_digest(games: List[Dict[str, np.ndarray]]) -> str:
     return h.hexdigest()
 
 
-def pack_chain_games(games: List[Dict[str, np.ndarray]], home_team_id: int, device: DeviceLike) -> ActionBatch:
-    """``pack_actions`` of the games' frames with one home team, from the
-    columns (no pandas): left-aligned, padded to the lane multiple."""
+def pack_chain_games(games: List[Dict[str, np.ndarray]], home_team_id: Any, device: DeviceLike) -> ActionBatch:
+    """``pack_actions`` of the games' frames, from the columns (no pandas):
+    left-aligned, padded to the lane multiple. ``home_team_id`` is one home
+    team for every game, or a list of one a game."""
     lengths = [len(cols['game_id']) for cols in games]
     G, A = len(games), pad_length(max(lengths))
+    homes = home_team_id if isinstance(home_team_id, (list, tuple)) else [home_team_id] * G
     mask = np.arange(A)[None, :] < np.asarray(lengths)[:, None]
 
     def grid(values: List[np.ndarray], dtype: Any, fill: Any = 0) -> np.ndarray:
@@ -5248,7 +5266,7 @@ def pack_chain_games(games: List[Dict[str, np.ndarray]], home_team_id: int, devi
             for c in ('time_seconds', 'start_x', 'start_y', 'end_x', 'end_y')}
     cols.update({c: grid([g[c] for g in games], np.int32)
                  for c in ('type_id', 'result_id', 'bodypart_id', 'period_id')})
-    cols['is_home'] = grid([g['team_id'] == home_team_id for g in games], bool, False)
+    cols['is_home'] = grid([g['team_id'] == home for g, home in zip(games, homes)], bool, False)
     cols['mask'] = mask
     cols['n_actions'] = np.asarray(lengths, dtype=np.int32)
     cols['game_id'] = np.arange(G, dtype=np.int32)
@@ -5409,6 +5427,203 @@ def quality_phase(device: torch.device, card: str = 'CPU', sizes: QualitySizes =
         'fit_launches': {k: fit['launches'][k] + control['launches'][k] for k in fit['launches']},
         'b1': b1, 'wall_s': wall,
     }
+
+
+
+# -- phase 20: the providers' loaders ------------------------------------------------------
+
+#: The provider fixture feeds, and the SPADL actions of their games
+#: (``tests/datasets/port/make_provider_spadl.py`` writes that file).
+DATASETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests', 'datasets')
+PROVIDER_SPADL = os.path.join(DATASETS, 'port', 'provider_spadl.json')
+#: Phase 20 (b): each parser the card's machine runs (none reads XML, so
+#: none needs lxml), the fixture file it reads and the ids ``OptaLoader``
+#: gives it from the file's name.
+PROVIDER_PARSERS = (
+    ('F1JSONParser', 'opta/tournament-2017-8.json', {'competition_id': 8, 'season_id': 2017}),
+    ('F9JSONParser', 'opta/f7-8-2017-501.json', {'competition_id': 8, 'season_id': 2017, 'game_id': 501}),
+    ('F24JSONParser', 'opta/f7-8-2017-501.json', {'competition_id': 8, 'season_id': 2017, 'game_id': 501}),
+    ('MA1JSONParser', 'statsperform/ma1-8-2017.json', {'competition_id': 8, 'season_id': 2017}),
+    ('MA3JSONParser', 'statsperform/ma3-8-2017-501.json',
+     {'competition_id': 8, 'season_id': 2017, 'game_id': 501}),
+    ('WhoScoredParser', 'whoscored/8-2017-501.json', {'competition_id': 8, 'season_id': 2017, 'game_id': 501}),
+)
+#: The ``extract_*`` methods that build DataFrames (the card's machine has no pandas).
+PANDAS_EXTRACTS = {'MA3JSONParser': ('extract_players',)}
+#: sha256 of each parser's records (:func:`provider_digest`); the JAX
+#: package's parsers give the same.
+PROVIDER_DIGESTS = {
+    'F1JSONParser': '6775601e4a5e87306d64c56827886ff17b6834e84921d1b3c8db45a35017265e',
+    'F9JSONParser': '6d252163fde978cb81fcfa94fa3a4c33dfec6867444d46041e8d7103087f7290',
+    'F24JSONParser': 'b84dffa09c341a8858acc0f594a82711a0e248c6818f804acd9e433c4ad09380',
+    'MA1JSONParser': 'ab7b6c2d6f0e3ade4c78f2aba134592ed4c0900e8e278a073f73e4ed9d47d6ae',
+    'MA3JSONParser': '4d5a1148cbe74f8c072db762474dd1904a2ceef27400f63caaaf38834cfad33b',
+    'WhoScoredParser': '25084edc4e510ce4aa9276c0b3114f446105a84ed947c135808a9fe7e4727680',
+}
+#: The SPADL actions of each layout's game, as the JAX package's loaders
+#: and converters give them.
+PROVIDER_ACTIONS = {'opta_xml': 10, 'opta_json': 10, 'statsperform': 10, 'whoscored': 10,
+                    'wyscout_public': 17, 'wyscout_api': 5}
+
+
+def provider_imports() -> Dict[str, Any]:
+    """Phase 20 (a): import the Wyscout and Opta packages and every parser
+    module, resolve the deprecated loader names of ``spadl.opta`` and
+    ``spadl.wyscout`` (each the port's class, with a ``DeprecationWarning``);
+    raise if pandas or lxml got loaded."""
+    import importlib
+    import pkgutil
+    import warnings
+
+    wyscout = importlib.import_module('socceraction_tpu_torch.data.wyscout')
+    opta = importlib.import_module('socceraction_tpu_torch.data.opta')
+    parsers = importlib.import_module('socceraction_tpu_torch.data.opta.parsers')
+    modules = [wyscout.__name__, opta.__name__, parsers.__name__]
+    for info in pkgutil.walk_packages(parsers.__path__, parsers.__name__ + '.'):
+        modules.append(importlib.import_module(info.name).__name__)
+    resolved = {}
+    for provider, name, want in (('opta', 'OptaLoader', opta.OptaLoader),
+                                 ('wyscout', 'WyscoutLoader', wyscout.WyscoutLoader),
+                                 ('wyscout', 'PublicWyscoutLoader', wyscout.PublicWyscoutLoader)):
+        spadl = importlib.import_module(f'socceraction_tpu_torch.spadl.{provider}')
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            got = getattr(spadl, name)
+        if got is not want:
+            raise RuntimeError(f'spadl.{provider}.{name} resolves to {got!r}, not the port\'s {want!r}')
+        if not any(issubclass(w.category, DeprecationWarning) for w in caught):
+            raise RuntimeError(f'spadl.{provider}.{name} resolved with no DeprecationWarning')
+        resolved[f'spadl.{provider}.{name}'] = f'{got.__module__}.{got.__qualname__}'
+    loaded = sorted(m for m in ('pandas', 'lxml') if m in sys.modules)
+    if loaded:
+        raise RuntimeError(f'the providers\' modules loaded {loaded}')
+    return {'modules': modules, 'resolved': resolved}
+
+
+def canonical(obj: Any) -> Any:
+    """A parser's records in one canonical JSON form: a mapping becomes its
+    ``[key, value]`` pairs sorted by key, a tuple a list, a ``datetime`` its
+    ISO string."""
+    if isinstance(obj, dict):
+        pairs = [[canonical(k), canonical(v)] for k, v in obj.items()]
+        return sorted(pairs, key=lambda kv: json.dumps(kv[0]))
+    if isinstance(obj, (list, tuple)):
+        return [canonical(v) for v in obj]
+    if isinstance(obj, datetime.datetime):
+        return obj.isoformat()
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    raise TypeError(f'no canonical form for {type(obj).__name__}: {obj!r}')
+
+
+def parser_records(parsers: Any, name: str, path: str, ids: Dict[str, Any]) -> Dict[str, Any]:
+    """Every pandas-free ``extract_*`` method's records of the parser
+    ``name`` (a class of the module ``parsers``) over the file ``path``."""
+    cls = getattr(parsers, name)
+    parser = cls(path, **ids)
+    skip = PANDAS_EXTRACTS.get(name, ())
+    return {m: getattr(parser, m)() for m in sorted(dir(cls)) if m.startswith('extract_') and m not in skip}
+
+
+def provider_digest(records: Dict[str, Any]) -> str:
+    """sha256 of the records' canonical form (compact JSON)."""
+    text = json.dumps(canonical(records), separators=(',', ':'), allow_nan=False)
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def provider_digests(parsers: Any) -> Dict[str, Dict[str, Any]]:
+    """Each parser of :data:`PROVIDER_PARSERS` (from the module ``parsers``)
+    run over its fixture file: the digest of its records and their count
+    by method."""
+    out = {}
+    for name, rel, ids in PROVIDER_PARSERS:
+        records = parser_records(parsers, name, os.path.join(DATASETS, rel), ids)
+        out[name] = {'digest': provider_digest(records), 'records': {m: len(r) for m, r in records.items()}}
+    return out
+
+
+def provider_games() -> Dict[str, Dict[str, Any]]:
+    """:data:`PROVIDER_SPADL`'s layouts: ``home_team_id`` and the actions'
+    columns as numpy arrays."""
+    with open(PROVIDER_SPADL) as fh:
+        record = json.load(fh)
+    return {layout: {'home_team_id': r['home_team_id'],
+                     'columns': {c: np.asarray(v) for c, v in r['actions'].items()}}
+            for layout, r in record.items()}
+
+
+def provider_phase(device: torch.device, card: str = 'CPU', hidden: Tuple[int, ...] = HIDDEN) -> Dict[str, Any]:
+    """Phase 20, the Wyscout and Opta loaders on the card's machine.
+
+    (a) :func:`provider_imports`. (b) Each parser of
+    :data:`PROVIDER_PARSERS` over its fixture file, every pandas-free
+    ``extract_*`` method, its records' digest held to
+    :data:`PROVIDER_DIGESTS`. (c) The
+    six layouts' games (loader, then ``convert_to_actions``, read from
+    :data:`PROVIDER_SPADL`) packed into one batch as phase 19 packs its
+    columns, rated by phase 4's model (two seeded ``hidden`` MLP heads)
+    with B1's count zeroed just before and read just after (one launch on
+    the card), held to ``rate_batch_reference`` and to the same model's
+    values on the CPU within 1e-5; on the card, B1 against its plain
+    version on the operands ``rate_batch`` hands it.
+    """
+    from socceraction_tpu_torch.data.opta import parsers
+
+    label = 'providers'
+    t_phase = time.perf_counter()
+    imports = provider_imports()
+    print(f"{label} (a): {len(imports['modules'])} modules imported, neither pandas nor lxml loaded; "
+          f"{json.dumps(imports['resolved'])}")
+
+    t0 = time.perf_counter()
+    records = provider_digests(parsers)
+    parse_s = time.perf_counter() - t0
+    print(f'{label} (b): {len(records)} parsers over the fixture feeds in {parse_s:.3f} s on the host ({card}): '
+          f'{json.dumps(records)}')
+    wrong = {name: r['digest'] for name, r in records.items() if r['digest'] != PROVIDER_DIGESTS[name]}
+    if wrong:
+        raise RuntimeError(f'{label}: parser records hash to {wrong}, not {PROVIDER_DIGESTS}')
+
+    games = provider_games()
+    counts = {layout: len(g['columns']['game_id']) for layout, g in games.items()}
+    if counts != PROVIDER_ACTIONS:
+        raise RuntimeError(f'{label}: the file holds {counts} actions, not {PROVIDER_ACTIONS}')
+    batch = pack_chain_games([g['columns'] for g in games.values()],
+                             [g['home_team_id'] for g in games.values()], device)
+    model = make_model(device, hidden)
+    sync(device)
+    gm.fused_first_layer_quant.launches = 0
+    seg.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    values = model.rate_batch(batch)
+    sync(device)
+    rate_s = time.perf_counter() - t0
+    launches = gm.fused_first_layer_quant.launches
+    segment_launches = seg.segment_sum.launches
+    if launches != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: rate_batch launched B1 {launches} times, not {kernel_launches(1, device)}')
+    if tuple(values.shape) != (batch.n_games, batch.max_actions, 3) or not bool(
+            torch.isfinite(values[batch.mask]).all()):
+        raise RuntimeError(f'{label}: rate_batch gave {tuple(values.shape)} values, or values not finite')
+    ref_gap = masked_gap(values, model.rate_batch_reference(batch), batch.mask)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save_model(tmp)
+        cpu_model = load_model(tmp, device='cpu')
+    cpu_batch = batch.to('cpu')
+    cpu_gap = masked_gap(values.cpu(), cpu_model.rate_batch(cpu_batch), cpu_batch.mask)
+    print(f'{label} (c): layouts {json.dumps(counts)} packed as {batch.n_games} x {batch.max_actions}; '
+          f'rate_batch (its first call at this shape) in {rate_s * 1e3:.3f} ms synced, B1 launches {launches}, B2 {segment_launches}; max |rate_batch - '
+          f'rate_batch_reference| {ref_gap:.3e}, max |{device.type} - CPU| {cpu_gap:.3e} (limits 1e-5; {card})')
+    if not (ref_gap <= 1e-5 and cpu_gap <= 1e-5):
+        raise RuntimeError(f'{label}: rate_batch is {ref_gap} from its reference and {cpu_gap} from the CPU')
+    b1 = None
+    if device.type == 'cuda':
+        b1 = check_first_layer(device, torch.float32, ops=first_layer_operands_of(model, batch))
+        print(f"kernel gather_matmul on {label}' operands vs plain ({card}): {json.dumps(b1)}")
+    wall = time.perf_counter() - t_phase
+    print(f'{label}: phase 20 in {wall:.1f} s')
+    return {'imports': imports, 'records': records, 'actions': counts, 'launches': launches,
+            'segment_launches': segment_launches, 'ref_gap': ref_gap, 'cpu_gap': cpu_gap, 'b1': b1, 'wall_s': wall}
 
 
 def main() -> int:
@@ -5653,6 +5868,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap('phase 19 quality tier')
 
+    # -- phase 20, the providers' loaders ------------------------------------------------
+    providers = provider_phase(device, card)
+    torch.cuda.empty_cache()
+    lap('phase 20 providers')
+
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
 
@@ -5677,6 +5897,7 @@ def main() -> int:
         'phase18 fitted model rate_batch': frame['rate_launches'],
         "phase19 fit_rows(learner='mlp'), dense (fit and control)": quality['fit_launches']['gather_matmul'],
         'phase19 held-out predict_proba_device_batch (2 models x 2 heads)': quality['launches'],
+        "phase20 the providers' games rate_batch": providers['launches'],
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -5691,6 +5912,7 @@ def main() -> int:
         **scale_paths(scale_launches, 'segment_sum'),
         "phase18 fit_rows(learner='mlp')": frame['fit_launches']['segment_sum'],
         "phase19 fit_rows(learner='mlp') (fit and control)": quality['fit_launches']['segment_sum'],
+        "phase20 the providers' games rate_batch": providers['segment_launches'],
     }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
@@ -5705,6 +5927,7 @@ def main() -> int:
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
             atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
             learn['kernel']['max_abs_err'], frame['b1']['max_abs_err'], quality['b1']['max_abs_err'],
+            providers['b1']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -5734,6 +5957,10 @@ def main() -> int:
         )},
         # the operands the quality tier's held-out scores hand B1
         'phase19_operands': {k: quality['b1'][k] for k in (
+            'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+        )},
+        # the operands the providers' games hand B1
+        'phase20_operands': {k: providers['b1'][k] for k in (
             'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
         )},
         'training_shapes': [

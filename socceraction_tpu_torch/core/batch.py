@@ -27,16 +27,16 @@ if TYPE_CHECKING:  # pandas is imported inside pack_actions only
 __all__ = [
     'ActionBatch',
     'AtomicActionBatch',
-    'bucket_games',
-    'bucket_ladder',
-    'bucket_window',
     'pack_actions',
     'pack_atomic_actions',
     'pack_row_values',
-    'pad_batch_games',
-    'pad_length',
     'unpack_values',
+    'pad_length',
+    'bucket_games',
+    'bucket_ladder',
+    'bucket_window',
     'window_ladder',
+    'pad_batch_games',
 ]
 
 _LANE = ACTION_AXIS_ALIGNMENT

@@ -16,8 +16,9 @@ promotion gate reads:
   incremental packed-cache build;
 - :mod:`.loop`: :class:`ContinuousLearner`, the ingest → warm-started fit
   → shadow → gate → publish loop over the model registry, with the
-  durable iteration journal (the rating service is not ported yet:
-  ``service=None``).
+  durable iteration journal; with ``service=`` a promotion swaps the
+  serving model through ``service.swap_model`` and a rollback goes
+  through ``service.rollback_model``.
 """
 
 from .calibration import CalibrationSummary, calibration_summary, reliability_curve

@@ -98,44 +98,54 @@ _LAZY_HOME = {name: module for module, names in _LAZY.items() for name in names}
 
 __all__ = [
     'NAME_RE',
-    'RECORDER',
-    'REGISTRY',
     'CardinalityError',
     'Claim',
     'ColdstartTimeline',
     'Counter',
     'DeadlineExceeded',
+    'FleetAggregator',
+    'FleetSnapshot',
     'FlightRecorder',
     'Gauge',
-    'GuardEvent',
     'Histogram',
     'IdleTracker',
     'InstrumentedFn',
+    'GuardEvent',
     'MemorySampler',
     'MetricRegistry',
     'ParityProbe',
+    'RECORDER',
+    'REGISTRY',
+    'REPLICAS',
     'RegistrySnapshot',
+    'ReplicaRegistry',
     'RequestContext',
     'RunLog',
     'SLOConfig',
     'SLOEngine',
     'SLOObjective',
     'Span',
+    'Telemetry',
+    'TelemetryEndpoint',
+    'WireError',
     'claim_bytes',
     'coldstart_report',
     'counter',
     'current_runlog',
     'current_span',
+    'decode_snapshot',
     'default_debug_dir',
     'device_memory_stats',
     'drain_guards',
     'dump_debug_bundle',
+    'encode_snapshot',
     'fn_cost',
     'gauge',
     'guards_enabled',
     'histogram',
     'instrument',
     'live_array_census',
+    'merge_wires',
     'new_request_context',
     'nonfinite_count',
     'note_guard',
@@ -143,19 +153,22 @@ __all__ = [
     'overflow_count',
     'owned_bytes',
     'perf_snapshot',
-    'prometheus_text',
     'process_start_unix',
+    'prometheus_text',
     'record_dispatch',
     'record_nonfinite',
     'record_overflow',
     'residency_report',
     'run_manifest',
     'sample_device_memory',
+    'scrape',
+    'scrape_health',
+    'serve_telemetry',
     'snapshot_dict',
     'span',
     'timed_labels',
     'timer_report_compat',
-    *_LAZY_HOME,
+    'typed_snapshot_from_dict',
 ]
 
 

@@ -55,8 +55,8 @@ __all__ = [
     'Claim',
     'claim_bytes',
     'owned_bytes',
-    'reset_residency',
     'residency_report',
+    'reset_residency',
     'tree_nbytes',
 ]
 

@@ -17,7 +17,7 @@ from ..core.batch import ActionBatch
 from ..spadl import config as spadlconfig
 from .labels import _goal_masks
 
-__all__ = ['KERNELS', 'compute_features', 'kernel_width']
+__all__ = ['compute_features', 'KERNELS', 'kernel_width']
 
 _N_TYPES = len(spadlconfig.actiontypes)
 _N_RESULTS = len(spadlconfig.results)

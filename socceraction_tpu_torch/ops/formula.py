@@ -19,7 +19,7 @@ from ..obs.dispatch import instrument
 from ..spadl import config as spadlconfig
 from .labels import _goal_masks
 
-__all__ = ['vaep_core', 'vaep_values']
+__all__ = ['vaep_values', 'vaep_core']
 
 
 def vaep_core(

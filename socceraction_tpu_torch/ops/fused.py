@@ -56,25 +56,25 @@ from .quant import (
 from .segment import segment_sum, segment_sum_rows
 
 __all__ = [
-    'ATOMIC_REGISTRY',
     'FusedRegistry',
-    'PreparedPair',
-    'REGISTRIES',
     'STANDARD_REGISTRY',
-    'TrainLayout',
-    'TrainStates',
-    'build_train_states',
-    'concat_train_states',
+    'ATOMIC_REGISTRY',
+    'REGISTRIES',
+    'onehot_blocks',
     'fused_mlp_logits',
     'fused_pair_logits',
-    'fused_train_logits',
-    'onehot_blocks',
-    'packed_feature_stats',
-    'pair_probs_prepared',
+    'PreparedPair',
     'prepare_pair_fold',
+    'TrainStates',
+    'TrainLayout',
+    'train_layout',
+    'build_train_states',
+    'concat_train_states',
+    'pair_probs_prepared',
+    'packed_feature_stats',
     'table_lookup',
     'take_train_states',
-    'train_layout',
+    'fused_train_logits',
 ]
 
 _N_TYPES = len(spadlconfig.actiontypes)

@@ -17,7 +17,7 @@ from ..config import LABEL_LOOKAHEAD
 from ..core.batch import ActionBatch
 from ..spadl import config as spadlconfig
 
-__all__ = ['goal_from_shot', 'scores_concedes']
+__all__ = ['scores_concedes', 'goal_from_shot']
 
 
 def _goal_masks(

@@ -38,8 +38,8 @@ import torch
 __all__ = [
     'FUSED_PATH_HIDDEN_DTYPES',
     'OPT_IN_PATHS',
-    'RATING_PATHS',
     'hidden_dtype_for',
+    'RATING_PATHS',
     'load_profiles',
     'preferred_rating_path',
     'record_measurement',

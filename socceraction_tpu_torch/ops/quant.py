@@ -22,14 +22,14 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 __all__ = [
-    'INT8_QMAX',
     'QUANTIZE_MODES',
+    'INT8_QMAX',
     'QuantizedArray',
     'check_quantize_mode',
-    'dequantize',
-    'fake_quant',
     'quantize_columns',
     'quantize_with_scale',
+    'dequantize',
+    'fake_quant',
     'quantized_nbytes',
 ]
 

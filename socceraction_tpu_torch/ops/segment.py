@@ -27,9 +27,9 @@ __all__ = [
     'launch_plan',
     'segment_sum',
     'segment_sum_cost',
-    'segment_sum_2d',
-    'segment_sum_reference',
     'segment_sum_rows',
+    'segment_sum_reference',
+    'segment_sum_2d',
 ]
 
 _INT32_MAX = 2**31 - 1

@@ -33,9 +33,9 @@ __all__ = [
     'axis_group',
     'axis_index',
     'axis_size',
-    'batch_sharding',
     'make_mesh',
     'make_replica_mesh',
+    'batch_sharding',
     'pad_games',
     'replicated',
     'shard_batch',

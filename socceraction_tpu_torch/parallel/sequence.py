@@ -45,11 +45,11 @@ from .mesh import _take, axis_group, axis_index, axis_size, is_shard, mark_shard
 
 __all__ = [
     'make_sequence_mesh',
+    'shard_batch_seq',
     'sequence_features',
     'sequence_labels',
-    'sequence_rate',
     'sequence_values',
-    'shard_batch_seq',
+    'sequence_rate',
 ]
 
 

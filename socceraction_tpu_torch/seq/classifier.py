@@ -33,7 +33,7 @@ from .model import (
     seq_train_logits,
 )
 
-__all__ = ['SEQ_FORMAT_VERSION', 'SeqClassifier']
+__all__ = ['SeqClassifier', 'SEQ_FORMAT_VERSION']
 
 #: Newest ``SeqClassifier.save`` artifact format this port reads and writes
 #: (the JAX package's ``SEQ_FORMAT_VERSION``).

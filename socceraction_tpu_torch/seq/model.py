@@ -41,12 +41,12 @@ from ..ops.fused import (
 __all__ = [
     'SeqModule',
     'check_seq_layout',
-    'dense_stats',
     'init_seq_params',
-    'seq_logits',
-    'seq_pair_probs',
     'seq_param_shapes',
+    'dense_stats',
+    'seq_logits',
     'seq_train_logits',
+    'seq_pair_probs',
 ]
 
 #: The generator stream of a seq head's initial weights (the JAX

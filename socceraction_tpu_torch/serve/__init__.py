@@ -34,12 +34,12 @@ from typing import Any
 
 __all__ = [
     'DeadlineExceeded',
-    'MatchSession',
     'MicroBatcher',
-    'ModelRegistry',
     'Overloaded',
+    'ModelRegistry',
     'RatingService',
     'SLOShed',
+    'MatchSession',
     'TrafficCapture',
     'ServingFrontend',
     'FrontendClient',

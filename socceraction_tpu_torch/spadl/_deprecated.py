@@ -7,8 +7,6 @@ converter module with a :class:`DeprecationWarning` (e.g.
 This module provides one factory that gives a converter module a PEP 562
 ``__getattr__`` doing the same: the named symbols resolve lazily from the
 corresponding ``socceraction_tpu_torch.data`` subpackage, with the same warning.
-A name whose subpackage is not ported yet raises :class:`ImportError`
-naming the missing module.
 
 Port of ``socceraction_tpu/spadl/_deprecated.py``.
 """
@@ -48,18 +46,7 @@ def deprecated_reexports(
                 DeprecationWarning,
                 stacklevel=2,
             )
-            try:
-                module = importlib.import_module(data_module)
-            except ModuleNotFoundError as err:
-                if err.name != data_module:
-                    raise
-                raise ImportError(
-                    f'{spadl_module}.{name} forwards to {data_module}, which '
-                    'socceraction_tpu_torch does not have yet (ROADMAP.md, A8 item 4: '
-                    'the data/ loaders)',
-                    name=data_module,
-                ) from None
-            return getattr(module, name)
+            return getattr(importlib.import_module(data_module), name)
         raise AttributeError(
             f'module {spadl_module!r} has no attribute {name!r}'
         )

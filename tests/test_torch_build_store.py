@@ -4,12 +4,16 @@
 The same loader goes through both packages' ``build_spadl_store`` without
 ``convert=``: the port picks its own converter by the loader's class name,
 as the JAX package does, and the stores must hold the same keys and equal
-frames, dtypes included. StatsBomb runs through both packages' loaders;
-the Wyscout and Opta converters run through the JAX package's loaders (the
-port's are not ported yet). The built store is then packed and rated on
-the CPU with a model the JAX package trained, within 1e-5 of its ``rate``.
+frames, dtypes included. StatsBomb, Wyscout and Opta run through both
+packages' loaders; a store the port builds from its own Wyscout or Opta
+loader equals the one the JAX package builds from its own. Each provider
+fixture layout's chain (loader, ``convert_to_actions``,
+``convert_to_atomic``) equals the JAX package's. The built store is then
+packed and rated on the CPU with a model the JAX package trained, within
+1e-5 of its ``rate``.
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -19,15 +23,18 @@ import pytest
 from socceraction_tpu.atomic.spadl import convert_to_atomic as jax_convert_to_atomic
 from socceraction_tpu.atomic.vaep import AtomicVAEP as JaxAtomicVAEP
 from socceraction_tpu.core.synthetic import synthetic_actions_frame
-from socceraction_tpu.data.opta import OptaLoader
+from socceraction_tpu.data.opta import OptaLoader as JaxOptaLoader
 from socceraction_tpu.data.statsbomb import StatsBombLoader as JaxStatsBombLoader
-from socceraction_tpu.data.wyscout import PublicWyscoutLoader
+from socceraction_tpu.data.wyscout import PublicWyscoutLoader as JaxPublicWyscoutLoader
 from socceraction_tpu.pipeline import SeasonStore as JaxSeasonStore
 from socceraction_tpu.pipeline import build_spadl_store as jax_build_spadl_store
 from socceraction_tpu.vaep import VAEP as JaxVAEP
 from socceraction_tpu.vaep.base import load_model as jax_load_model
+from socceraction_tpu_torch.atomic.spadl import convert_to_atomic
 from socceraction_tpu_torch.core.batch import unpack_values
+from socceraction_tpu_torch.data.opta import OptaLoader
 from socceraction_tpu_torch.data.statsbomb import StatsBombLoader
+from socceraction_tpu_torch.data.wyscout import PublicWyscoutLoader
 from socceraction_tpu_torch.pipeline import SeasonStore, build_spadl_store, load_batch
 from socceraction_tpu_torch.vaep.base import load_model
 
@@ -39,23 +46,29 @@ def _statsbomb(cls):
     return cls(getter='local', root=STATSBOMB_DIR)
 
 
-def _wyscout(_=None):
-    return PublicWyscoutLoader(root=os.path.join(DATASETS, 'wyscout_public', 'raw'), download=False)
+def _wyscout(cls):
+    return cls(root=os.path.join(DATASETS, 'wyscout_public', 'raw'), download=False)
 
 
-def _opta(_=None):
-    return OptaLoader(
+def _opta(cls):
+    return cls(
         root=os.path.join(DATASETS, 'opta'), parser='xml',
         feeds={'f7': 'f7-{competition_id}-{season_id}-{game_id}.xml',
                'f24': 'f24-{competition_id}-{season_id}-{game_id}.xml'},
     )
 
 
+def _statsperform(cls):
+    return cls(root=os.path.join(DATASETS, 'statsperform'), parser='statsperform')
+
+
 LOADERS = {
     'statsbomb-port': (StatsBombLoader, _statsbomb),
     'statsbomb-jax': (JaxStatsBombLoader, _statsbomb),
-    'wyscout-jax': (None, _wyscout),
-    'opta-jax': (None, _opta),
+    'wyscout-jax': (JaxPublicWyscoutLoader, _wyscout),
+    'opta-jax': (JaxOptaLoader, _opta),
+    'wyscout-port': (PublicWyscoutLoader, _wyscout),
+    'opta-port': (OptaLoader, _opta),
 }
 
 
@@ -89,11 +102,69 @@ def test_default_converter_and_atomic_store_equals_jax(tmp_path, name, engine):
     assert game_keys and all(k.replace('actions/', 'atomic_actions/') in keys for k in game_keys)
 
 
-@pytest.mark.parametrize('name', ['statsbomb-port', 'wyscout-jax', 'opta-jax'])
+@pytest.mark.parametrize('name', ['statsbomb-port', 'wyscout-jax', 'opta-jax', 'wyscout-port', 'opta-port'])
 def test_default_converter_without_atomic_equals_jax(tmp_path, name):
     cls, make = LOADERS[name]
     keys = assert_stores_equal(*build_both(tmp_path, make(cls)))
     assert not any(k.startswith('atomic') for k in keys)
+
+
+# the port's own loaders: (port loader, JAX loader, make); a WhoScored
+# loader has no competitions, which build_spadl_store lists
+OWN_LOADERS = {
+    'wyscout': (PublicWyscoutLoader, JaxPublicWyscoutLoader, _wyscout),
+    'opta-statsperform': (OptaLoader, JaxOptaLoader, _statsperform),
+    'opta-xml': (OptaLoader, JaxOptaLoader, _opta),
+}
+
+
+@pytest.mark.parametrize('atomic', [False, True])
+@pytest.mark.parametrize('name', list(OWN_LOADERS))
+def test_own_loader_store_equals_the_jax_loaders(tmp_path, name, atomic):
+    """The port's loader through the port's ``build_spadl_store`` and the
+    JAX package's loader through the JAX package's give equal stores."""
+    cls, jax_cls, make = OWN_LOADERS[name]
+    with SeasonStore(str(tmp_path / 'port'), mode='w') as ts:
+        build_spadl_store(make(cls), ts, atomic=atomic)
+    with JaxSeasonStore(str(tmp_path / 'jax'), mode='w') as js:
+        jax_build_spadl_store(make(jax_cls), js, atomic=atomic)
+    keys = assert_stores_equal(str(tmp_path / 'port'), str(tmp_path / 'jax'))
+    game_keys = [k for k in keys if k.startswith('actions/game_')]
+    assert len(game_keys) == 1
+    assert any(k.startswith('atomic_actions/') for k in keys) == atomic
+
+
+def _provider_chains():
+    """The provider fixture layouts' loaders and converters in both packages
+    (``tests/datasets/port/make_provider_spadl.py``)."""
+    path = os.path.join(DATASETS, 'port', 'make_provider_spadl.py')
+    spec = importlib.util.spec_from_file_location('make_provider_spadl', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+MAKE = _provider_chains()
+
+
+@pytest.fixture(scope='module')
+def provider_actions():
+    pytest.importorskip('lxml')
+    return {package: MAKE.provider_actions(package) for package in ('socceraction_tpu_torch', 'socceraction_tpu')}
+
+
+@pytest.mark.parametrize('layout', ['opta_xml', 'opta_json', 'statsperform', 'whoscored', 'wyscout_public',
+                                    'wyscout_api'])
+def test_loader_to_atomic_chain_equals_jax(provider_actions, layout):
+    """The port's loader, ``convert_to_actions`` and ``convert_to_atomic``
+    against the JAX package's, on each provider fixture layout."""
+    (home, actions), (jax_home, jax_actions) = (
+        provider_actions['socceraction_tpu_torch'][layout], provider_actions['socceraction_tpu'][layout])
+    assert home == jax_home and len(actions) > 0
+    pd.testing.assert_frame_equal(actions, jax_actions, check_exact=True, check_dtype=True)
+    atomic = convert_to_atomic(actions)
+    assert len(atomic) >= len(actions)
+    pd.testing.assert_frame_equal(atomic, jax_convert_to_atomic(jax_actions), check_exact=True, check_dtype=True)
 
 
 class StatsBombLoaderWithMissingGame(StatsBombLoader):

@@ -5,11 +5,11 @@
   The port's own name starts with ``socceraction_tpu``, so the check
   matches top-level module names exactly, never by prefix.
 - Every module of the port and ``chip_smoke.py`` import with those
-  packages, and ``pandas``, ``sklearn``, ``pyarrow``, ``h5py`` and
-  ``msgpack`` (absent on the GPU machine), blocked; the smoke's xT,
+  packages, and ``pandas``, ``lxml``, ``sklearn``, ``pyarrow``, ``h5py``
+  and ``msgpack`` (absent on the GPU machine), blocked; the smoke's xT,
   training, Atomic-VAEP, sequence-head, season feed, counterfactual,
-  telemetry, rating-path, learning-loop, DataFrame-layer and quality-tier
-  phases also run so, at a tiny size on the CPU, with a checkpoint published and
+  telemetry, rating-path, learning-loop, DataFrame-layer, quality-tier
+  and providers' phases also run so, at a tiny size on the CPU, with a checkpoint published and
   loaded back through the model registry; so do its scale-out phase, its
   telemetry-plane phase and its serving phase, each in a process of its
   own; the serving phase then runs serving's outer tier (replica lanes,
@@ -92,7 +92,14 @@ def test_the_scan_sees_the_port():
         'spadl/_deprecated.py', 'spadl/statsbomb.py', 'spadl/opta.py', 'spadl/wyscout.py',
         'spadl/wyscout_v3.py', 'atomic/spadl/base.py', 'data/__init__.py', 'data/base.py',
         'data/schema.py', 'data/statsbomb/__init__.py', 'data/statsbomb/loader.py',
-        'data/statsbomb/schema.py', 'core/synthetic.py',
+        'data/statsbomb/schema.py', 'core/synthetic.py', 'data/wyscout/__init__.py',
+        'data/wyscout/loader.py', 'data/wyscout/schema.py', 'data/wyscout/v3.py',
+        'data/opta/__init__.py', 'data/opta/loader.py', 'data/opta/schema.py',
+        'data/opta/parsers/__init__.py', 'data/opta/parsers/base.py', 'data/opta/parsers/spec.py',
+        'data/opta/parsers/f24.py', 'data/opta/parsers/f24_json.py', 'data/opta/parsers/f24_xml.py',
+        'data/opta/parsers/f1_json.py', 'data/opta/parsers/f7_xml.py', 'data/opta/parsers/f9_json.py',
+        'data/opta/parsers/statsperform.py', 'data/opta/parsers/ma1_json.py',
+        'data/opta/parsers/ma3_json.py', 'data/opta/parsers/whoscored.py',
     ):
         assert f'socceraction_tpu_torch/{module}' in names
 
@@ -118,7 +125,7 @@ import importlib.abc, sys
 # it. It imports none of them; load it before the blocker goes in.
 import torch._dynamo
 BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'socceraction_tpu', 'pandas', 'msgpack', 'pyarrow',
-           'h5py', 'sklearn'}
+           'h5py', 'sklearn', 'lxml'}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
@@ -161,6 +168,13 @@ quality = chip_smoke.quality_phase(torch.device('cpu'), sizes=chip_smoke.Quality
 assert quality['launches'] == 0 and quality['fit_launches'] == {'gather_matmul': 0, 'segment_sum': 0}, quality
 assert quality['b1'] is None and len(quality['digest']) == 64, quality
 assert all(0 <= m['auroc'] <= 1 for part in ('metrics', 'control') for m in quality[part].values()), quality
+# its providers' phase: the loaders' modules imported with neither pandas nor
+# lxml, the parsers' records held to their digests, the fixture games rated
+import socceraction_tpu_torch.data.wyscout.loader, socceraction_tpu_torch.data.opta.loader
+providers = chip_smoke.provider_phase(torch.device('cpu'), hidden=(8,))
+assert providers['launches'] == 0 and providers['segment_launches'] == 0, providers
+assert providers['b1'] is None and providers['actions'] == chip_smoke.PROVIDER_ACTIONS, providers
+assert sorted(providers['records']) == sorted(chip_smoke.PROVIDER_DIGESTS), providers
 # and its training phase
 import socceraction_tpu_torch.ml.learners
 params = {'hidden': (8,), 'batch_size': 256, 'max_epochs': 2}

@@ -6,7 +6,7 @@ exactly, dtypes included:
 
 - StatsBomb game 7584, with events from both packages' loaders;
 - the Wyscout public World Cup game, events from the JAX
-  ``PublicWyscoutLoader`` (the port's Wyscout loader is not ported yet);
+  ``PublicWyscoutLoader``;
 - the Opta F24/F7 game, events from the JAX ``OptaLoader``;
 - the Wyscout v3 events of ``tests/spadl/test_wyscout_v3.py``;
 - every public Wyscout stage, on the input the JAX converter hands it;
@@ -17,6 +17,7 @@ exactly, dtypes included:
 
 import importlib
 import importlib.util
+import inspect
 import os
 import pickle
 import warnings
@@ -325,28 +326,26 @@ def test_statsbomb_reexport_warns_and_resolves_to_the_port(name):
     assert obj is getattr(importlib.import_module('socceraction_tpu_torch.data.statsbomb'), name)
 
 
-@pytest.mark.parametrize(
-    ('module', 'name', 'missing'),
-    [
-        (opta, 'OptaLoader', 'socceraction_tpu_torch.data.opta'),
-        (opta, 'OptaEventSchema', 'socceraction_tpu_torch.data.opta'),
-        (wyscout, 'WyscoutLoader', 'socceraction_tpu_torch.data.wyscout'),
-        (wyscout, 'PublicWyscoutLoader', 'socceraction_tpu_torch.data.wyscout'),
-        (wyscout, 'WyscoutEventSchema', 'socceraction_tpu_torch.data.wyscout'),
-    ],
-)
-def test_reexport_of_an_unported_loader_names_it(module, name, missing):
-    with warnings.catch_warnings():
-        warnings.simplefilter('ignore', DeprecationWarning)
-        with pytest.raises(ImportError) as info:
-            getattr(module, name)
-    assert type(info.value) is ImportError  # not importlib's ModuleNotFoundError
-    assert missing in str(info.value) and 'A8' in str(info.value)
-    assert info.value.name == missing
-    # the JAX package resolves the same name
-    with warnings.catch_warnings():
-        warnings.simplefilter('ignore', DeprecationWarning)
-        assert getattr(getattr(jax_spadl, module.__name__.rsplit('.', 1)[1]), name) is not None
+def _deprecated_names(module):
+    """The names a converter module forwards to its data subpackage."""
+    return inspect.getclosurevars(module.__getattr__).nonlocals['names']
+
+
+LOADER_NAMES = [(module, name) for module in (opta, wyscout) for name in _deprecated_names(module)]
+
+
+@pytest.mark.parametrize(('module', 'name'), LOADER_NAMES,
+                         ids=[f'{m.__name__.rsplit(".", 1)[1]}.{n}' for m, n in LOADER_NAMES])
+def test_loader_reexport_warns_and_resolves_to_the_port(module, name):
+    provider = module.__name__.rsplit('.', 1)[1]
+    assert _deprecated_names(module) == _deprecated_names(getattr(jax_spadl, provider))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        obj = getattr(module, name)
+    assert any(issubclass(w.category, DeprecationWarning) and f'socceraction_tpu_torch.data.{provider}.{name}'
+               in str(w.message) for w in caught)
+    assert obj is getattr(importlib.import_module(f'socceraction_tpu_torch.data.{provider}'), name)
+    assert obj.__module__.startswith('socceraction_tpu_torch.')
 
 
 @pytest.mark.parametrize('module', [statsbomb, opta, wyscout])
