@@ -116,19 +116,21 @@ exits non-zero:
 14. the scale-out layer: (a) one NCCL rank in this process against the
    single-device paths, (b) two gloo ranks spawned on the same card
    (``--scale-rank``) against (a), with B1 and B2's launches per path;
-15. the cross-process telemetry plane: phase 4's model saved through the
-   checkpoint codec, four replica processes spawned on the same card
-   (``--fleet-replica``), each loading it and the built kernels, rating
-   its own seeded 512 x 1664 batch (replica 0 phase 4's, bitwise) once
-   to warm up and then 8 requests concurrently with the others through
-   B1, scoring each in an SLO engine, probing one for parity and serving
-   its telemetry endpoint on a unix socket; replica 0 serves one request
-   under a context this process minted, both writing run logs. A
-   ``FleetAggregator`` here scrapes all four: the merged rated actions,
-   ``rate_batch`` calls and SLO events equal the replicas' own counts
-   exactly, with a divergence row per replica; after a SIGKILL of the
-   last replica, exactly it is stale, the status degraded and the sums
-   unchanged; the two run logs hold one request id one hop apart;
+15. the cross-process telemetry plane: phase 4's model published in a
+   ``ModelRegistry``, four replica processes spawned on the same card
+   (``--fleet-replica``), each activating it with the built kernels behind
+   its own ``RatingService`` (phase 16's shape, an SLO and a parity probe
+   on every flush), timing a bare ``rate_batch`` of its own seeded 512 x
+   1664 batch (replica 0 phase 4's, bitwise) while the others rate, then
+   serving 8 one-game requests of that batch through the service and the
+   service's telemetry on a unix socket; replica 0's service serves one
+   request under a context this process minted, both writing run logs. A
+   ``FleetAggregator`` here scrapes all four: the merged requests, rated
+   actions, ``rate_batch`` calls and SLO events equal the replicas' own
+   counts exactly, with the services' divergence rows per replica; after a
+   SIGKILL of the last replica, exactly it is stale, the status degraded
+   and the sums unchanged; the two run logs hold one request id one hop
+   apart, through the service's own flush;
 16. in-process serving: a ``RatingService`` over phase 4's model at the
    JAX service's default shape (window 1664, ladder 1 to 64, 2 ms wait,
    queue 256), each request a one-game host staging batch built from
@@ -211,6 +213,14 @@ exits non-zero:
    one batch and rated by phase 4's model: B1 once, within 1e-5 of
    ``rate_batch_reference`` and of the same model's values on the CPU, B1
    against its plain version on the operands it was handed.
+21. seq and mixed heads behind the rating service, at phase 16's shape: a
+   seq pair (two GRU heads at 32/64/64) warms every (bucket, window rung)
+   shape; each window band's requests (lengths in (previous rung, rung])
+   land on its rung; phase 16's 512 requests go through a mixed MLP/seq
+   pair, whose materialized path reaches no B1; every request within 1e-5
+   of its reference; a swap from phase 4's model to the seq pair with
+   every shape warmed before it serves, and back; B1 unloadable under
+   mixed-pair flushes changes nothing (see :func:`seq_serve_phase`).
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
 at the atomic statistics shape to their plain versions.
@@ -247,7 +257,14 @@ import torch
 from socceraction_tpu_torch.atomic.spadl import config as atomicconfig
 from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
 from socceraction_tpu_torch.convert import mlp_from_jax_params
-from socceraction_tpu_torch.core.batch import ActionBatch, AtomicActionBatch, _from_numpy, pad_length
+from socceraction_tpu_torch.core.batch import (
+    ActionBatch,
+    AtomicActionBatch,
+    _from_numpy,
+    bucket_window,
+    pad_length,
+    window_ladder,
+)
 from socceraction_tpu_torch.core.synthetic import (
     CHAIN_COLUMNS,
     _chain_columns,
@@ -285,18 +302,16 @@ from socceraction_tpu_torch.obs.context import (
     new_request_context,
     record_request_done,
     record_request_enqueue,
-    record_segment,
 )
 from socceraction_tpu_torch.obs.endpoint import (
     EndpointError,
-    Telemetry,
     fetch,
     scrape_health,
     serve_telemetry,
 )
 from socceraction_tpu_torch.obs.fleet import FleetAggregator
 from socceraction_tpu_torch.obs.metrics import MetricRegistry
-from socceraction_tpu_torch.obs.slo import SLOConfig, SLOEngine
+from socceraction_tpu_torch.obs.slo import SLOConfig
 from socceraction_tpu_torch.obs.perf import DEVICE_PEAKS
 from socceraction_tpu_torch.ops.fused import train_layout
 from socceraction_tpu_torch.pipeline.feed import iter_batches
@@ -3199,8 +3214,14 @@ FLEET_LATENCY_MS = 1000.0
 FLEET_SICK_FACTOR = 50.0
 
 
+#: The bare ``rate_batch`` calls each replica times while every replica
+#: rates (the shared-card wall).
+FLEET_BARE_CALLS = 4
+
+
 class FleetSizes(NamedTuple):
-    """Phase 15's shapes: replica processes, each one's batch and requests."""
+    """Phase 15's shapes: replica processes, each one's batch and its
+    one-game requests through its service."""
 
     replicas: int = 4
     games: int = GAMES
@@ -3212,37 +3233,12 @@ def fleet_slo() -> SLOConfig:
     return SLOConfig.simple(latency_ms=FLEET_LATENCY_MS)
 
 
-def rate_request(
-    model: VAEP, batch: Any, ctx: RequestContext, device: torch.device
-) -> Tuple[torch.Tensor, torch.Tensor, float]:
-    """One rating request under ``ctx``: ``rate_batch`` inside a
-    ``serve/flush`` span that lists the request, synchronized, then the
-    values copied to the host; the request's enqueue, its four segments
-    (queue wait since ``ctx`` arrived, the gap to the dispatch, the
-    synced ``rate_batch``, the copy back) and its end go to the run log.
-    Returns the values on ``device`` and on the host, and the wall."""
-    record_request_enqueue(ctx, queue_depth=0)
-    t_flush = time.perf_counter()
-    with span('serve/flush', bucket=batch.n_games, request_ids=[ctx.request_id]) as flush:
-        t_dispatch = time.perf_counter()
-        values = model.rate_batch(batch)
-        sync(device)
-        t_slice = time.perf_counter()
-        host = values.cpu()
-        t_done = time.perf_counter()
-    segments = {
-        'queue_wait': t_flush - ctx.enqueue_t,
-        'pad': t_dispatch - t_flush,
-        'dispatch': t_slice - t_dispatch,
-        'slice': t_done - t_slice,
-    }
-    for name, seconds in segments.items():
-        ctx.segments[name] = seconds
-        record_segment(name, seconds, request_id=ctx.request_id)
-    wall = t_done - ctx.enqueue_t
-    record_request_done(ctx, 'ok', wall, bucket=batch.n_games, coalesced=1,
-                        flush_span_id=flush.span_id)
-    return values, host, wall
+def game_request(host: ActionBatch, k: int) -> ServeRequest:
+    """Game ``k`` of a host batch as a one-game request at the batch's
+    width (:func:`one_game_request`)."""
+    fields = {name: t[k : k + 1].numpy().copy() for name, t in host.fields().items()}
+    fields['game_id'] = np.zeros(1, dtype=np.int32)
+    return one_game_request(fields, int(host.n_actions[k]))
 
 
 def wait_for(paths: List[str], deadline: float, what: str) -> None:
@@ -3264,15 +3260,19 @@ def write_json(path: str, obj: Any) -> None:
 def fleet_replica(fleet_dir: str, index: int, device_type: str) -> None:
     """One of phase 15's replica processes, spawned by :func:`fleet_phase`.
 
-    Loads the parent's model through the checkpoint codec (and, on the
-    card, the parent's built kernels: no ``nvcc``), draws its batch from
-    its seed, rates one warm-up call, waits for every replica to be warm,
-    then rates its requests through :func:`rate_request` under a run log
-    (replica 0's first request under the parent's context), each scored by
-    an :class:`SLOEngine`, the last one probed by a :class:`ParityProbe`.
-    Replica 0 holds every request's values bitwise to phase 4's. It writes
-    its report, then serves its telemetry endpoint until its standard
-    input closes.
+    Activates the model the parent published in a :class:`ModelRegistry`
+    (on the card with the parent's built kernels: no ``nvcc``) and serves
+    it through a :class:`RatingService` at phase 16's shape with
+    ``slo=fleet_slo()`` and a :class:`ParityProbe` on every flush, under a
+    run log. It warms the service's ladder and rates its batch once, waits
+    for every replica to be warm, times its bare synced ``rate_batch`` of
+    the batch while the others rate theirs, then sends its first
+    ``requests`` games one at a time through the service (entering at
+    ``_submit``), replica 0's first under the parent's context. Each
+    request is held to its own one-game reference; replica 0's bare
+    ``rate_batch`` (phase 4's batch and bucket) bitwise to phase 4's
+    values. It writes its report, then serves ``service.telemetry()``
+    until its standard input closes.
     """
     # with no card this raises: a replica never rates on the CPU in its place
     device = resolve_device(device_type)
@@ -3283,54 +3283,83 @@ def fleet_replica(fleet_dir: str, index: int, device_type: str) -> None:
         spec = json.load(fh)
     replica = f'replica-{index}'
     deadline = time.monotonic() + spec['timeout_s']
-    model = load_model(spec['model'], device=device)
+    registry = ModelRegistry(spec['registry'], device=device)
+    # activation is per-process state: the registry directory is shared
+    registry.activate('vaep', '1')
+    model = registry.active()[2]
     batch = synthetic_batch(spec['games'], spec['actions'], seed=spec['seeds'][index], device=device)
+    host = batch.to('cpu')
+    reqs = [game_request(host, k) for k in range(spec['requests'])]
     want = torch.load(spec['values'], weights_only=True) if index == 0 else None
-    slo = SLOEngine(fleet_slo())
-    probe = ParityProbe(sample_rate=1.0, max_abs_err=1e-5, queue_size=1)
     n_requests = spec['requests']
+    probe = ParityProbe(sample_rate=1.0, max_abs_err=1e-5, queue_size=n_requests + 1)
     gm.fused_first_layer_quant.launches = 0
-    walls, dispatch, bitwise = [], [], []
+    walls, bare = [], []
     with RunLog(os.path.join(fleet_dir, replica, 'obs.jsonl'), config={'phase': 15, 'replica': replica}):
+        shape = ServeSizes()  # phase 16's service shape at this batch's width
+        svc = RatingService(registry=registry, slo=fleet_slo(), parity=probe, max_actions=spec['actions'],
+                            max_batch_size=shape.max_batch_size, max_wait_ms=shape.max_wait_ms,
+                            max_queue=shape.max_queue)
+        takes = count_takes(svc)
+        svc.warmup()
         model.rate_batch(batch)
         sync(device)
         first_rated_unix = time.time()
-        # the requests overlap only once every replica is warm
+        # the bare calls overlap only once every replica is warm
         write_json(os.path.join(fleet_dir, f'warm-{index}'), {})
         wait_for([os.path.join(fleet_dir, f'warm-{i}') for i in range(spec['replicas'])],
                  deadline, 'every replica to be warm')
-        for k in range(n_requests):
+        for _ in range(FLEET_BARE_CALLS):
+            sync(device)
+            t0 = time.perf_counter()
+            values = model.rate_batch(batch)
+            sync(device)
+            bare.append(time.perf_counter() - t0)
+        bitwise = torch.equal(values.cpu(), want) if want is not None else None
+        del values
+        results = []
+        for k, req in enumerate(reqs):
             ctx = (RequestContext.from_wire(spec['headers']) if index == 0 and k == 0
                    else new_request_context('rate'))
-            values, host, wall = rate_request(model, batch, ctx, device)
-            slo.observe_request('rate', wall, 'ok')
-            walls.append(wall)
-            dispatch.append(ctx.segments['dispatch'])
-            if want is not None:
-                bitwise.append(torch.equal(host, want))
-            if k == n_requests - 1:
-                probe.submit_flush(model, batch, None, values, exemplar=ctx.request_id)
+            t0 = time.perf_counter()
+            fut = svc._submit(serve_service._Payload(req.staging, req.gs, keep=(0, req.n), ctx=ctx),
+                              'rate', ctx)
+            results.append(fut.result(timeout=300))
+            walls.append(time.perf_counter() - t0)
         if not probe.flush(timeout=300):
             raise RuntimeError(f'{replica}: the parity probe did not finish')
-        probe.close()
+    # each request against its references: one more rate_batch a request
+    gaps = request_gaps(model, reqs, results, device, replica)
     launches = gm.fused_first_layer_quant.launches
     parity = probe.stats()
-    if not (parity['probes'] == 1 and parity['max_abs_err'] <= 1e-5):
+    if not (parity['probes'] == n_requests and parity['max_abs_err'] <= 1e-5):
         raise RuntimeError(f'{replica}: parity probe {parity}')
-    if want is not None and not all(bitwise):
-        raise RuntimeError(f'{replica}: values differ from phase 4 (bitwise per request: {bitwise})')
+    if want is not None and not bitwise:
+        raise RuntimeError(f'{replica}: the bare rate_batch differs from phase 4')
+    if takes != [(1, 1)] * n_requests:
+        raise RuntimeError(f'{replica}: the requests went out in takes {takes}')
+    phase4_gap = None
+    if want is not None:
+        phase4_gap = max(float(np.abs(got - want[k, : req.n].numpy()).max())
+                         for k, (req, got) in enumerate(zip(reqs, results)))
+    calls = len(svc.ladder) + 1 + FLEET_BARE_CALLS + 2 * n_requests
     report = {
         'replica': replica,
-        'calls': n_requests + 1,
-        'rated_actions': (n_requests + 1) * batch.total_actions,
+        # rate_batch calls: the ladder's warm-up, the warm call, the bare
+        # calls, one flush a request and one full-window rate_batch a
+        # request to hold it to
+        'calls': calls,
+        'rated_actions': (1 + FLEET_BARE_CALLS) * batch.total_actions + 2 * sum(r.n for r in reqs),
         'requests': n_requests,
         'first_rated_unix': first_rated_unix,
         'request_walls_s': walls,
-        'median_rate_batch_s': float(np.median(dispatch)),
+        'median_rate_batch_s': float(np.median(bare)),
         'launches': launches,
         'parity_max_abs_err': parity['max_abs_err'],
+        **gaps,
         # replica 0 only: its batch is phase 4's
-        'bitwise_phase4': all(bitwise) if want is not None else None,
+        'bitwise_phase4': bitwise,
+        'max_abs_err_requests_vs_phase4': phase4_gap,
         'memory_allocated': torch.cuda.memory_allocated(device) if device.type == 'cuda' else None,
         'max_memory_allocated': torch.cuda.max_memory_allocated(device) if device.type == 'cuda' else None,
     }
@@ -3338,9 +3367,11 @@ def fleet_replica(fleet_dir: str, index: int, device_type: str) -> None:
     # it once /health answers
     write_json(os.path.join(fleet_dir, f'{replica}.json'), report)
     print(f'fleet {replica}: {json.dumps(report)}', flush=True)
-    with serve_telemetry(telemetry=Telemetry(replica=replica, extra={'device': str(device)}),
-                         unix_path=spec['sockets'][index]):
-        sys.stdin.read()
+    try:
+        with serve_telemetry(telemetry=svc.telemetry(replica=replica), unix_path=spec['sockets'][index]):
+            sys.stdin.read()
+    finally:
+        svc.close()
 
 
 def fleet_tail(path: str, n: int = 3000) -> str:
@@ -3381,17 +3412,22 @@ def check_fleet_merge(
     snap: Any, docs: Dict[str, Dict[str, Any]], reports: Dict[str, Dict[str, Any]], sizes: FleetSizes,
 ) -> Dict[str, Any]:
     """The merged counters against the replicas' own documents and reports,
-    exactly: rated actions, ``rate_batch`` calls (the warm-ups included)
-    and the SLO's events of each objective. Raises on any difference."""
+    exactly: the services' requests, rated actions, ``rate_batch`` calls
+    (the warm-ups included) and the SLO's events of each objective. Raises
+    on any difference."""
     merged = snap.metrics
+    served = series_total(merged, 'serve/requests', kind='rate')
+    per_doc = sum(series_total(d['metrics'], 'serve/requests', kind='rate') for d in docs.values())
+    if not served == per_doc == sizes.replicas * sizes.requests == sum(r['requests'] for r in reports.values()):
+        raise RuntimeError(f'merged serve/requests {served}, documents {per_doc}')
     rated = series_total(merged, 'vaep/rated_actions')
     per_doc = sum(series_total(d['metrics'], 'vaep/rated_actions') for d in docs.values())
     reported = sum(r['rated_actions'] for r in reports.values())
     if not rated == per_doc == reported:
         raise RuntimeError(f'merged vaep/rated_actions {rated}, documents {per_doc}, reported {reported}')
     calls = series_count(merged, 'vaep/rate_batch_seconds')
-    want_calls = sizes.replicas * (sizes.requests + 1)
-    if not calls == want_calls == sum(r['calls'] for r in reports.values()):
+    want_calls = sum(r['calls'] for r in reports.values())
+    if calls != want_calls:
         raise RuntimeError(f'merged vaep/rate_batch_seconds count {calls}, want {want_calls}')
     events = {}
     for objective in (o.name for o in fleet_slo().objectives):
@@ -3400,7 +3436,7 @@ def check_fleet_merge(
         if not got == own == sizes.replicas * sizes.requests:
             raise RuntimeError(f'merged slo/events{{objective={objective}}} {got}, replicas {own}')
         events[objective] = got
-    return {'rated_actions': rated, 'rate_batch_calls': calls, 'slo_events': events}
+    return {'serve_requests': served, 'rated_actions': rated, 'rate_batch_calls': calls, 'slo_events': events}
 
 
 def fleet_phase(
@@ -3409,12 +3445,14 @@ def fleet_phase(
     timeout_s: float = FLEET_TIMEOUT_S,
 ) -> Dict[str, int]:
     """Phase 15: ``sizes.replicas`` replica processes share ``device``, each
-    rating its own batch and serving its telemetry endpoint; one
+    serving its own requests through a :class:`RatingService`
+    (:func:`fleet_replica`) and exposing the service's telemetry; one
     :class:`FleetAggregator` here scrapes and merges them.
 
-    The parent saves ``model`` through the checkpoint codec and ``values``
-    (phase 4's, on the seed-0 batch) for the replicas, mints a request
-    context that replica 0 serves one hop away, and spawns the replicas
+    The parent publishes ``model`` in a :class:`ModelRegistry` (through the
+    checkpoint codec) and saves ``values`` (phase 4's, on the seed-0 batch)
+    for the replicas, mints a request context that replica 0's service
+    serves one hop away, and spawns the replicas
     (fresh interpreters: this process holds the card). It waits for every
     endpoint to answer ``/health``, then holds the merge to the replicas'
     own counts (:func:`check_fleet_merge`), the SLO mesh-wide, a divergence
@@ -3429,7 +3467,7 @@ def fleet_phase(
     ids = [f'replica-{i}' for i in range(sizes.replicas)]
     sockets = [os.path.join(FLEET_DIR, f'{rid}.sock') for rid in ids]
     addresses = dict(zip(ids, sockets))
-    model.save_model(os.path.join(fleet_dir, 'model'))
+    ModelRegistry(os.path.join(fleet_dir, 'registry'), device=device).publish('vaep', '1', model)
     torch.save(values.cpu(), os.path.join(fleet_dir, 'phase4_values.pt'))
     t_phase = time.perf_counter()
     procs: Dict[str, subprocess.Popen] = {}
@@ -3439,7 +3477,7 @@ def fleet_phase(
             ctx = new_request_context('rate')
             record_request_enqueue(ctx, queue_depth=0)
             write_json(os.path.join(fleet_dir, 'spec.json'), {
-                'model': os.path.join(fleet_dir, 'model'),
+                'registry': os.path.join(fleet_dir, 'registry'),
                 'values': os.path.join(fleet_dir, 'phase4_values.pt'),
                 # replica 0 draws phase 4's batch
                 'seeds': list(range(sizes.replicas)),
@@ -3500,7 +3538,9 @@ def fleet_phase(
         docs = {rid: aggregator.last_wire(rid) for rid in ids}
         merge = check_fleet_merge(snap, docs, reports, sizes)
         rows = {(r['replica'], r['signal']) for r in snap.divergence}
-        want_rows = {(rid, s) for rid in ids for s in ('parity_max_abs_err', 'error_rate')}
+        # the services' own rows: parity, errors, p99 and breaker state
+        want_rows = {(rid, s) for rid in ids
+                     for s in ('parity_max_abs_err', 'error_rate', 'request_p99_s', 'breaker_state')}
         if not want_rows <= rows:
             raise RuntimeError(f'{label}: divergence rows {sorted(rows)}')
         if snap.slo is None or any(o.get('breaching') for o in snap.slo['objectives'].values()):
@@ -3518,7 +3558,8 @@ def fleet_phase(
         if (sorted(e['event'] for e in hop) != ['request_done', 'request_enqueue', 'span_close']
                 or any(e.get('hop') != 1 for e in hop if e['event'] != 'span_close')
                 or set(next(e for e in hop if e['event'] == 'request_done')['segments'])
-                != {'queue_wait', 'pad', 'dispatch', 'slice'}):
+                != {'queue_wait', 'pad', 'dispatch', 'slice'}
+                or next(e for e in hop if e['event'] == 'span_close')['attrs']['request_ids'] != [ctx.request_id]):
             raise RuntimeError(f'{label}: replica 0 run log holds {hop}')
 
         # SIGKILL the last replica: loud staleness, its counters kept
@@ -3550,12 +3591,15 @@ def fleet_phase(
     launches = {}
     for rid in ids:
         rep = reports[rid]
-        want = kernel_launches(sizes.requests + 1, device)
+        # the ladder's warm-up, the warm call, the bare calls, one a request
+        want = kernel_launches(rep['calls'], device)
         if rep['launches'] != want:
             raise RuntimeError(f"{label}: {rid} launched gather_matmul {rep['launches']} times, not {want}")
         launches[rid] = rep['launches']
-        line = {k: rep[k] for k in ('calls', 'rated_actions', 'median_rate_batch_s', 'launches',
-                                    'parity_max_abs_err', 'bitwise_phase4', 'memory_allocated',
+        line = {k: rep[k] for k in ('calls', 'rated_actions', 'requests', 'request_walls_s',
+                                    'median_rate_batch_s', 'launches', 'parity_max_abs_err',
+                                    'max_abs_err_vs_reference', 'max_abs_err_vs_full_window_rate_batch',
+                                    'bitwise_phase4', 'max_abs_err_requests_vs_phase4', 'memory_allocated',
                                     'max_memory_allocated')}
         line['start_to_first_rated_batch_s'] = rep['first_rated_unix'] - spawned[rid]
         print(f'{label}: {rid}: {json.dumps(line)}')
@@ -3638,12 +3682,19 @@ def serve_request(rng: np.random.Generator, n: int, max_actions: int) -> ServeRe
     fields['n_actions'] = np.array([n], dtype=np.int32)
     fields['game_id'] = np.zeros(1, dtype=np.int32)
     fields['row_index'] = np.where(valid, np.arange(max_actions, dtype=np.int32), -1).astype(np.int32)
-    is_home = cols['is_home'][0]
+    return one_game_request(fields, n)
+
+
+def one_game_request(fields: Dict[str, np.ndarray], n: int) -> ServeRequest:
+    """A request of one game's padded host fields and its ``n`` valid
+    actions, with the whole-match goalscore block the service computes for
+    a frame."""
+    is_home = fields['is_home'][0, :n]
     team, opp, _a, _b = score_prefix(
-        cols['type_id'][0].astype(np.int64), cols['result_id'][0].astype(np.int64),
+        fields['type_id'][0, :n].astype(np.int64), fields['result_id'][0, :n].astype(np.int64),
         is_home == bool(is_home[0]),
     )
-    return ServeRequest(ActionBatch(**fields), goalscore_block(team, opp, max_actions), n)
+    return ServeRequest(ActionBatch(**fields), goalscore_block(team, opp, fields['type_id'].shape[1]), n)
 
 
 def submit_request(svc: RatingService, req: ServeRequest, admit: bool = False) -> Any:
@@ -3946,21 +3997,12 @@ def serve_phase(
     # one flush of a full 64-bucket under the profiler, on this thread: no
     # host read before the values' copy; then flush walls against a bare
     # rate_batch of the same padded batch
-    from torch.profiler import ProfilerActivity, profile
-
     top = svc.ladder[-1]
     payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:top]]
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
     gm.fused_first_layer_quant.launches = 0
-    sync(device)
-    with profile(activities=activities) as prof:
-        svc._flush(payloads, top)
-    reads = read_events(prof)
-    # on the CPU every tensor is a host tensor: only a card's read waits
-    before_copy = reads['before_copy'] if device.type == 'cuda' else []
-    if before_copy or b1() != kernel_launches(1, device):
-        raise RuntimeError(f'{label}: the profiled flush read the device before its values copy '
-                           f'({reads}) or launched B1 {b1()} times')
+    reads = profiled_flush_reads(svc, reqs, top, device, label)
+    if b1() != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: the profiled flush launched B1 {b1()} times')
     cost = {}
     for b in sorted({1, min(16, top), top}):
         def concat_pad(b: int = b) -> Any:
@@ -4271,15 +4313,10 @@ def serve_phase(
             launches['parity probe'] != kernel_launches(n_flushes, device):
         raise RuntimeError(f"{label}: probe {stats} over {n_flushes} flushes, B1 "
                            f"{launches['parity probe']}, requests {probe_gap} off")
-    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:top]]
-    sync(device)
-    with profile(activities=activities) as prof:
-        svc._flush(payloads, top)
-    probe_reads = read_events(prof)
-    if (probe_reads['before_copy'] if device.type == 'cuda' else []) or not probe.flush(timeout=300) \
-            or probe.stats()['probes'] != n_flushes + 1 or probe.stats()['exceedances']:
-        raise RuntimeError(f'{label}: the probed flush read the device before its values copy '
-                           f'({probe_reads}) or its probe {probe.stats()}')
+    probe_reads = profiled_flush_reads(svc, reqs, top, device, f'{label}: probed')
+    if not probe.flush(timeout=300) or probe.stats()['probes'] != n_flushes + 1 or \
+            probe.stats()['exceedances']:
+        raise RuntimeError(f'{label}: the probed flush\'s probe {probe.stats()}')
     health = svc.health()
     svc.close()
     part_walls['h'] = time.perf_counter() - t_part
@@ -4302,6 +4339,9 @@ def serve_phase(
     svc = RatingService(model, slo=SLOConfig.simple(
         latency_ms=1e-6, latency_target=0.9, fast_window_s=0.5, slow_window_s=1.0,
         min_events=4, shed_burn_rate=1.0, eval_interval_s=0.0), **shape)
+    # warm, as the loose service is: the shed and health() must read the
+    # same events, so all four must fall inside the 0.5 s fast window
+    svc.warmup()
     shed_at, reason = None, None
     for i, r in enumerate(reqs[:16]):
         try:
@@ -5626,6 +5666,445 @@ def provider_phase(device: torch.device, card: str = 'CPU', hidden: Tuple[int, .
             'segment_launches': segment_launches, 'ref_gap': ref_gap, 'cpu_gap': cpu_gap, 'b1': b1, 'wall_s': wall}
 
 
+# -- phase 21: seq and mixed heads behind the rating service ----------------------------------
+
+#: Where phase 21's registry lives (git-ignored, removed at the end).
+SEQ_SERVE_DIR = os.path.join('build', 'serve_seq')
+#: The seed of the window bands' request lengths.
+SEQ_BAND_SEED = 21
+
+
+class SeqServeSizes(NamedTuple):
+    """Phase 21's shapes: phase 16's service shape (the JAX service's
+    defaults), the window bands' closed-loop clients and requests, phase
+    16's mixed traffic (``clients`` x ``mixed_requests``, ``low`` to
+    ``max_actions`` actions), the cross-family swap's clients and the
+    drill's requests."""
+
+    max_actions: int = ACTIONS
+    max_batch_size: int = 64
+    max_wait_ms: float = 2.0
+    max_queue: int = 256
+    clients: int = 16
+    band_requests: int = 4
+    mixed_requests: int = 32
+    low: int = 1200
+    swap_clients: int = 4
+    swap_requests: int = 8
+    drill_requests: int = 4
+
+
+def seq_pair(device: torch.device) -> VAEP:
+    """Standard VAEP with two seq heads at the default widths (32, 64, 64),
+    seeds 0 and 1."""
+    return VAEP(models={'scores': make_seq_head(VAEP, device, seed=0),
+                        'concedes': make_seq_head(VAEP, device, seed=1)}, device=device)
+
+
+def mixed_pair(mlp: VAEP, device: torch.device) -> VAEP:
+    """Phase 12's mixed pair: ``mlp``'s scores head and a seq concedes head."""
+    return VAEP(models={'scores': mlp._models['scores'], 'concedes': make_seq_head(VAEP, device)},
+                device=device)
+
+
+def window_counts(rungs: Tuple[int, ...]) -> Dict[str, float]:
+    """``seq/window_slices`` of every rung in the process registry."""
+    snap = REGISTRY.snapshot()
+    return {str(r): snap.value('seq/window_slices', window=str(r)) for r in rungs}
+
+
+@contextlib.contextmanager
+def b1_calls() -> Any:
+    """Count the calls of B1's wrappers (``fused_first_layer`` and
+    ``fused_first_layer_quant``, as ``ops/fused.py`` reaches them) in the
+    enclosed block, on the CPU as on the card; yields the count's reader."""
+    with captured(fused_ops, 'fused_first_layer') as plain, \
+            captured(fused_ops, 'fused_first_layer_quant') as quant:
+        yield lambda: len(plain) + len(quant)
+
+
+def request_gaps(model: VAEP, reqs: List[ServeRequest], results: List[Any], device: torch.device,
+                 label: str) -> Dict[str, Any]:
+    """Each request's values against its own one-game
+    ``rate_batch_reference`` (held to :data:`SERVE_ATOL`) and against a
+    full-window ``rate_batch`` of the same game (reported, with whether
+    every request is bitwise that)."""
+    ref_gap = full_gap = 0.0
+    bitwise = True
+    for req, got in zip(reqs, results):
+        ref, full = request_references(model, req, device)
+        if got.shape != (req.n, 3) or not np.isfinite(got).all():
+            raise RuntimeError(f'{label}: a request came back {got.shape}, finite {np.isfinite(got).all()}')
+        ref_gap = max(ref_gap, float(np.abs(got - ref).max()))
+        full_gap = max(full_gap, float(np.abs(got - full).max()))
+        bitwise = bitwise and bool(np.array_equal(got, full))
+    if ref_gap > SERVE_ATOL:
+        raise RuntimeError(f'{label}: a request is {ref_gap} from rate_batch_reference (limit {SERVE_ATOL})')
+    return {'max_abs_err_vs_reference': ref_gap, 'max_abs_err_vs_full_window_rate_batch': full_gap,
+            'bitwise_full_window_rate_batch': bitwise}
+
+
+def flush_beside_bare(svc: RatingService, model: VAEP, reqs: List[ServeRequest], bucket: int,
+                      device: torch.device) -> Dict[str, Any]:
+    """A ``bucket``-request flush of ``reqs`` (synced median) beside a bare
+    ``rate_batch`` of the same padded batch, cut to the flush's window rung
+    as the service cuts it."""
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:bucket]]
+    host, gs = serve_service._pad_to_bucket(
+        serve_service._concat_games([r.staging for r in reqs[:bucket]]),
+        np.concatenate([r.gs for r in reqs[:bucket]]), bucket)
+    rung = bucket_window(max(r.n for r in reqs[:bucket]), host.max_actions) if model.time_rungs \
+        else host.max_actions
+    if rung < host.max_actions:
+        host, gs = serve_service._slice_window(host, gs, rung)
+    batch, overrides = serve_service._upload(host, gs, device)
+    flush_s = synced_median(lambda: svc._flush(payloads, bucket), device)
+    bare_s = synced_median(lambda: model.rate_batch(batch, dense_overrides=overrides, bucket=False), device)
+    return {'bucket': bucket, 'window': rung, 'actions': int(host.total_actions), 'flush_s': flush_s,
+            'bare_rate_batch_s': bare_s, 'flush_over_bare': flush_s / bare_s}
+
+
+def profiled_flush_reads(svc: RatingService, reqs: List[ServeRequest], bucket: int,
+                         device: torch.device, label: str) -> Dict[str, Any]:
+    """One ``bucket``-request flush under the profiler: no host read before
+    its values copy on a card (:func:`read_events`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    payloads = [serve_service._Payload(r.staging, r.gs, keep=(0, r.n)) for r in reqs[:bucket]]
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    sync(device)
+    with profile(activities=activities) as prof:
+        svc._flush(payloads, bucket)
+    reads = read_events(prof)
+    # on the CPU every tensor is a host tensor: only a card's read waits
+    if device.type == 'cuda' and reads['before_copy']:
+        raise RuntimeError(f'{label}: the profiled flush read the device before its values copy: {reads}')
+    return reads
+
+
+def seq_serve_phase(
+    mlp: VAEP, device: torch.device, card: str = 'CPU', sizes: SeqServeSizes = SeqServeSizes(),
+) -> Dict[str, Any]:
+    """Phase 21: seq and mixed heads behind ``RatingService`` at phase 16's
+    shape. Returns B1's launches by part and B1 at a bucket-64 flush's
+    operands of the swap's MLP version (on a card).
+
+    The seq pair (:func:`seq_pair`) snaps each flush's action axis to its
+    window rung; the mixed pair (:func:`mixed_pair`) rates on the
+    materialized path, which reaches no B1 wrapper: its MLP head reads the
+    feature tensor, as in the JAX package. Requests enter at ``_submit``
+    (:func:`submit_request`), built from seeded arrays. (a) ``warmup()``:
+    every (bucket, window rung) shape of the seq pair, every bucket of the
+    mixed pair; (b) each window band in turn (lengths in (previous rung,
+    rung], seed 21) from closed-loop clients, every flush of the band at
+    its rung (``seq/window_slices``), then phase 16's mixed traffic; each
+    request held to its one-game reference and set beside a full-window
+    ``rate_batch``; a bucket-64 flush at the smallest and the full window
+    beside a bare ``rate_batch``, profiled flushes, the card's idle share
+    under the full-window band; (c) a registry with the MLP model as v1
+    and the seq pair as v2: a swap to v2 while clients submit, every v2
+    shape warmed before v2 is activated, then a rollback; (d) B1's library
+    made to fail under mixed-pair flushes.
+    """
+    label = f'seq serve ({device}, {card})'
+    A = sizes.max_actions
+    shape = dict(max_actions=A, max_batch_size=sizes.max_batch_size,
+                 max_wait_ms=sizes.max_wait_ms, max_queue=sizes.max_queue)
+    rungs = window_ladder(A)
+    launches: Dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    def b1() -> int:
+        return gm.fused_first_layer_quant.launches
+
+    seq_model = seq_pair(device)
+    mixed = mixed_pair(mlp, device)
+    paths = {'seq': seq_model._rating_path(), 'mixed': mixed._rating_path()}
+    if paths != {'seq': 'seq', 'mixed': 'materialized'} or not seq_model.time_rungs or mixed.time_rungs:
+        raise RuntimeError(f'{label}: rating paths {paths}, time rungs {seq_model.time_rungs}, '
+                           f'{mixed.time_rungs}')
+
+    # -- (a) warm-up: every (bucket, window rung) shape of the seq pair, every
+    # bucket of the mixed pair
+    services: Dict[str, RatingService] = {}
+    warm: Dict[str, Any] = {}
+    for name, model in (('seq', seq_model), ('mixed', mixed)):
+        svc = RatingService(model, **shape)
+        wins = window_counts(rungs)
+        gm.fused_first_layer_quant.launches = 0
+        with b1_calls() as calls:
+            sync(device)
+            t0 = time.perf_counter()
+            svc.warmup()
+            sync(device)
+            wall = time.perf_counter() - t0
+        want = len(svc.ladder) * (len(rungs) if name == 'seq' else 1)
+        sliced = delta(window_counts(rungs), wins)
+        want_sliced = {str(r): float(len(svc.ladder) if name == 'seq' and r < A else 0) for r in rungs}
+        if svc.compiled_shapes != want or b1() or calls() or sliced != want_sliced:
+            raise RuntimeError(f'{label}: {name} warm-up: {svc.compiled_shapes} shapes (want {want}), '
+                               f'B1 {b1()} launches and {calls()} wrapper calls, window slices {sliced}')
+        services[name] = svc
+        warm[name] = {'compiled_shapes': svc.compiled_shapes, 'wall_s': wall, 'window_slices': sliced,
+                      'b1': b1()}
+    launches['warmup'] = sum(w['b1'] for w in warm.values())
+    print(f'{label}: (a) warmup {json.dumps({"ladder": list(services["seq"].ladder), "window_rungs": list(rungs), **warm})}')
+
+    # -- (b) traffic by window band, then the mixed pair's traffic
+    svc = services['seq']
+    takes = count_takes(svc)
+    rng = np.random.default_rng(SEQ_BAND_SEED)
+    n_band = sizes.clients * sizes.band_requests
+    top = svc.ladder[-1]
+    bands: Dict[str, Any] = {}
+    band_reqs: Dict[int, List[ServeRequest]] = {}
+    busy = None
+    prev = 0
+    launches['seq bands'] = 0
+    for r in rungs:
+        reqs = [serve_request(rng, int(n), A) for n in rng.integers(prev + 1, r + 1, size=n_band)]
+        band_reqs[r] = reqs
+        prev = r
+        before, wins, first = serve_counts(), window_counts(rungs), len(takes)
+        out: Dict[str, Any] = {}
+
+        def run(reqs: List[ServeRequest] = reqs) -> None:
+            out['results'], out['walls'], out['wall'] = timed_clients(svc, reqs, sizes.clients)
+
+        gm.fused_first_layer_quant.launches = 0
+        with b1_calls() as calls:
+            if r == A and device.type == 'cuda':
+                busy = device_busy(run)
+            else:
+                run()
+        n_calls = calls()
+        counts = delta(serve_counts(), before)
+        sliced = delta(window_counts(rungs), wins)
+        flushes = takes[first:]
+        want_sliced = {str(q): float(len(flushes) if q == r and r < A else 0) for q in rungs}
+        if sliced != want_sliced or counts['fallback_flushes'] or b1() or n_calls or \
+                svc.compiled_shapes != warm['seq']['compiled_shapes']:
+            raise RuntimeError(f'{label}: band {r}: {len(flushes)} flushes, window slices {sliced}, '
+                               f"fallback {counts['fallback_flushes']}, B1 {b1()} launches and {n_calls} "
+                               f'wrapper calls, shapes {svc.compiled_shapes}')
+        launches['seq bands'] += b1()
+        buckets: Dict[str, int] = {}
+        for _n, b in flushes:
+            buckets[str(b)] = buckets.get(str(b), 0) + 1
+        bands[str(r)] = {**traffic_record(reqs, out['walls'], out['wall']),
+                         'lengths': [min(q.n for q in reqs), max(q.n for q in reqs)],
+                         'flushes': len(flushes), 'window_slices': sliced[str(r)], 'buckets': buckets,
+                         'fallback_flushes': counts['fallback_flushes'], 'b1_launches': b1(),
+                         'b1_wrapper_calls': n_calls,
+                         **request_gaps(seq_model, reqs, out['results'], device, f'{label}: band {r}')}
+        print(f'{label}: (b) window band {r} ({card}): {json.dumps(bands[str(r)])}')
+    cost = {str(r): flush_beside_bare(svc, seq_model, band_reqs[r], top, device) for r in (rungs[0], A)}
+    seq_reads = profiled_flush_reads(svc, band_reqs[A], top, device, f'{label}: seq')
+    print(f'{label}: (b) a {top}-request flush beside a bare rate_batch of the same padded batch '
+          f'(synced medians, {card}): {json.dumps(cost)}; profiled full-window flush {json.dumps(seq_reads)}; '
+          f'the card under the {A} band: {json.dumps(busy)}')
+
+    msvc = services['mixed']
+    mtakes = count_takes(msvc)
+    rng16 = np.random.default_rng(16)
+    mreqs = [serve_request(rng16, int(rng16.integers(sizes.low, A + 1)), A)
+             for _ in range(sizes.clients * sizes.mixed_requests)]
+    before = serve_counts()
+    gm.fused_first_layer_quant.launches = 0
+    with b1_calls() as calls:
+        mresults, mwalls, mwall = timed_clients(msvc, mreqs, sizes.clients)
+    n_calls = calls()
+    launches['mixed traffic'] = b1()
+    counts = delta(serve_counts(), before)
+    if counts['fallback_flushes'] or b1() or n_calls or msvc.compiled_shapes != warm['mixed']['compiled_shapes']:
+        raise RuntimeError(f'{label}: mixed traffic: {len(mtakes)} flushes, fallback '
+                           f"{counts['fallback_flushes']}, B1 {b1()} launches and {n_calls} wrapper calls, "
+                           f'shapes {msvc.compiled_shapes}')
+    mixed_rec = {**traffic_record(mreqs, mwalls, mwall), 'flushes': len(mtakes),
+                 'mean_requests_per_flush': len(mreqs) / len(mtakes),
+                 'fallback_flushes': counts['fallback_flushes'], 'b1_launches': b1(), 'b1_wrapper_calls': n_calls,
+                 **request_gaps(mixed, mreqs, mresults, device, f'{label}: mixed')}
+    mixed_rec['flush'] = flush_beside_bare(msvc, mixed, mreqs, top, device)
+    mixed_rec['profiled_flush'] = profiled_flush_reads(msvc, mreqs, top, device, f'{label}: mixed')
+    print(f'{label}: (b) mixed pair traffic ({card}): {json.dumps(mixed_rec)}')
+
+    # -- (c) a hot swap across families: the MLP model as v1, the seq pair as v2
+    shutil.rmtree(SEQ_SERVE_DIR, ignore_errors=True)
+    os.makedirs(SEQ_SERVE_DIR)
+    registry = ModelRegistry(os.path.join(SEQ_SERVE_DIR, 'registry'), device=device)
+    registry.publish('vaep', '1', mlp)
+    registry.publish('vaep', '2', seq_model)
+    registry.activate('vaep', '1')
+    versions = {v: registry.load('vaep', v) for v in ('1', '2')}
+    ssvc = RatingService(registry=registry, **shape)
+    ssvc.warmup()
+    v1_shapes = ssvc.compiled_shapes
+    at_activation: Dict[str, Any] = {}
+    real_activate = registry.activate
+
+    def activate(name: str, version: Optional[str] = None) -> Any:
+        # what the service had dispatched when v2 goes live
+        if version == '2':
+            at_activation.update(shapes=ssvc.compiled_shapes, window_slices=window_counts(rungs))
+        return real_activate(name, version)
+
+    registry.activate = activate  # type: ignore[method-assign]
+    served: List[str] = []
+    real_active = ssvc._active
+
+    def active() -> Tuple[str, str, Any]:
+        # the version each flush reads (once a flush, on the flusher thread)
+        out = real_active()
+        if threading.current_thread().name.startswith('serve-flusher'):
+            served.append(out[1])
+        return out
+
+    ssvc._active = active  # type: ignore[method-assign]
+    n_swap = sizes.swap_clients * sizes.swap_requests
+    srng = np.random.default_rng(SEQ_BAND_SEED + 1)
+    sreqs = [serve_request(srng, int(srng.integers(100, A + 1)), A) for _ in range(n_swap)]
+    sresults: List[Any] = [None] * n_swap
+    submitted = [0.0] * n_swap
+    started, swapped = threading.Event(), threading.Event()
+    done_lock = threading.Lock()
+    done = [0]
+    errors: List[BaseException] = []
+    quarter = max(1, sizes.swap_requests // 4)
+
+    def swap_client(c: int) -> None:
+        try:
+            for k in range(sizes.swap_requests):
+                if k == sizes.swap_requests - quarter:
+                    swapped.wait(timeout=300)  # the last requests go in after the swap
+                i = c * sizes.swap_requests + k
+                submitted[i] = time.monotonic()
+                sresults[i] = submit_request(ssvc, sreqs[i]).result(timeout=300)
+                with done_lock:
+                    done[0] += 1
+                    if done[0] >= sizes.swap_clients * quarter:
+                        started.set()
+        except BaseException as e:  # reported below
+            errors.append(e)
+            started.set()
+
+    before, wins = serve_counts(), window_counts(rungs)
+    gm.fused_first_layer_quant.launches = 0
+    threads = [threading.Thread(target=swap_client, args=(c,)) for c in range(sizes.swap_clients)]
+    for t in threads:
+        t.start()
+    started.wait(timeout=300)
+    t0 = time.perf_counter()
+    try:
+        ssvc.swap_model('vaep', '2')
+    finally:
+        swapped.set()
+    swap_s = time.perf_counter() - t0
+    swap_done = time.monotonic()
+    swapped_shapes = ssvc.compiled_shapes
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f'{label}: a swap client failed: {errors[0]!r}')
+    t0 = time.perf_counter()
+    ssvc.rollback_model()
+    rollback_s = time.perf_counter() - t0
+    back = [submit_request(ssvc, r).result(timeout=300) for r in sreqs[: sizes.swap_clients]]
+    # read before the references below, which launch B1 for v1 too
+    launches['swap'] = b1()
+    counts = delta(serve_counts(), before)
+    by_version = {'1': 0, '2': 0}
+    after_swap = 0
+    for req, got, t_sub in zip(sreqs, sresults, submitted):
+        gaps = {v: float(np.abs(got - request_references(m, req, device)[0]).max())
+                for v, m in versions.items()}
+        match = [v for v, g in gaps.items() if g <= SERVE_ATOL]
+        other = [v for v, g in gaps.items() if g > SERVE_APART]
+        if len(match) != 1 or len(other) != 1:
+            raise RuntimeError(f'{label}: a request is not wholly one version: {gaps}')
+        by_version[match[0]] += 1
+        if t_sub > swap_done:
+            after_swap += 1
+            if match[0] != '2':
+                raise RuntimeError(f'{label}: a request submitted after the swap was rated by v1')
+    for req, got in zip(sreqs, back):
+        if float(np.abs(got - request_references(versions['1'], req, device)[0]).max()) > SERVE_ATOL:
+            raise RuntimeError(f'{label}: after rollback a request was not rated by v1')
+    all_shapes = len(ssvc.ladder) * len(rungs)
+    # v2 goes live with every one of its shapes dispatched: the shapes of
+    # v1's ladder at the full window and v2's cut windows
+    v1_flushes = served.count('1')
+    want_b1 = kernel_launches(len(ssvc.ladder) + v1_flushes, device)  # the rollback's warm-up and v1's flushes
+    if at_activation.get('shapes') != all_shapes or swapped_shapes != all_shapes or \
+            ssvc.compiled_shapes != all_shapes or registry.active()[:2] != ('vaep', '1') or \
+            after_swap == 0 or by_version['2'] == 0 or counts['fallback_flushes'] or launches['swap'] != want_b1:
+        raise RuntimeError(f'{label}: swap: shapes at v2 activation {at_activation}, after the swap '
+                           f'{swapped_shapes}, at the end {ssvc.compiled_shapes} (want {all_shapes}); '
+                           f'active {registry.active()[:2]}; {after_swap} after the swap, by version '
+                           f"{by_version}; fallback {counts['fallback_flushes']}; B1 {launches['swap']} (want {want_b1})")
+    swap = {'requests': n_swap, 'by_version': by_version, 'submitted_after_swap': after_swap,
+            'failed': 0, 'v1_compiled_shapes': v1_shapes, 'shapes_at_v2_activation': at_activation['shapes'],
+            'window_slices_at_v2_activation': delta(at_activation['window_slices'], wins),
+            'compiled_shapes': ssvc.compiled_shapes, 'swap_wall_s': swap_s, 'rollback_wall_s': rollback_s,
+            'model_swaps': counts['swaps'], 'model_swaps_rollback': counts['rollbacks'],
+            'flushes_by_version': {v: served.count(v) for v in ('1', '2')}, 'b1_launches': launches['swap']}
+    print(f'{label}: (c) swap MLP v1 -> seq v2 and rollback ({card}): {json.dumps(swap)}')
+    ssvc.close()
+    # B1 at the operands a full bucket of v1's flush hands it
+    b1_rec = None
+    if device.type == 'cuda':
+        host, gs = serve_service._pad_to_bucket(
+            serve_service._concat_games([r.staging for r in mreqs[:top]]),
+            np.concatenate([r.gs for r in mreqs[:top]]), top)
+        batch, overrides = serve_service._upload(host, gs, device)
+        b1_rec = fold_first_layer(mlp, batch, overrides)
+        del batch, overrides
+        print(f"{label}: kernel gather_matmul at a {top}-request flush's operands vs plain ({card}): "
+              f'{json.dumps(b1_rec)}')
+    shutil.rmtree(SEQ_SERVE_DIR, ignore_errors=True)
+
+    # -- (d) B1 cannot load under mixed-pair flushes
+    breaker_before = msvc.breaker.to_dict()
+    before = serve_counts()
+    attempts = [0]
+
+    def no_b1(*args: Any, **kwargs: Any) -> Any:
+        attempts[0] += 1
+        if device.type == 'cuda':
+            raise OSError('libgather_matmul.so: cannot open shared object file (kernel-fault drill)')
+        raise cuda_build.KernelError('gather_matmul cannot be loaded (kernel-fault drill)')
+
+    # as phase 16 (e): on the card the library load fails, on the CPU the wrapper
+    patched = (cuda_build, 'load_library') if device.type == 'cuda' else (fused_ops, 'fused_first_layer_quant')
+    real = getattr(*patched)
+    setattr(*patched, no_b1)
+    gm.fused_first_layer_quant.launches = 0
+    outcomes: List[Any] = []
+    try:
+        for req in mreqs[: sizes.drill_requests]:
+            try:
+                outcomes.append(submit_request(msvc, req).result(timeout=300))
+            except cuda_build.KernelError as e:
+                outcomes.append(e)
+    finally:
+        setattr(*patched, real)
+    counts = delta(serve_counts(), before)
+    raised = [str(o) for o in outcomes if isinstance(o, BaseException)]
+    bitwise = all(isinstance(o, np.ndarray) and np.array_equal(o, m) for o, m in zip(outcomes, mresults))
+    unmoved = msvc.breaker.to_dict() == breaker_before
+    if raised or attempts[0] or b1() or not unmoved or counts['fallback_flushes']:
+        raise RuntimeError(f'{label}: B1 cannot load under mixed-pair flushes: raised {raised}, '
+                           f'{attempts[0]} load attempts, B1 {b1()}, breaker {msvc.breaker.to_dict()} '
+                           f'(was {breaker_before}), fallback {counts["fallback_flushes"]}')
+    gaps = request_gaps(mixed, mreqs[: sizes.drill_requests], outcomes, device, f'{label}: drill')
+    launches['drill'] = b1()
+    print(f'{label}: (d) B1 cannot load under mixed-pair flushes ({card}): '
+          f'{json.dumps({"requests": len(outcomes), "raised": len(raised), "b1_load_attempts": attempts[0], "breaker_unmoved": unmoved, "fallback_flushes": counts["fallback_flushes"], "health": msvc.health()["status"], "bitwise_the_undisturbed_values": bitwise, **gaps})}')
+    for s in services.values():
+        s.close()
+    print(f'{label}: B1 launches {json.dumps(launches)}; phase 21 in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'b1': b1_rec, 'bands': bands, 'mixed': mixed_rec, 'swap': swap}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--scale-rank':
         # one of phase 14 (b)'s ranks, spawned by scale_two_ranks
@@ -5854,7 +6333,6 @@ def main() -> int:
 
     # -- phase 17, serving's outer tier: lanes, the warm tier, the frontend --------
     lane_launches = lanes_phase(model, device, card, one_lane=one_lane)
-    del model
     torch.cuda.empty_cache()
     lap('phase 17 lanes, warm tier, frontend')
 
@@ -5872,6 +6350,12 @@ def main() -> int:
     providers = provider_phase(device, card)
     torch.cuda.empty_cache()
     lap('phase 20 providers')
+
+    # -- phase 21, seq and mixed heads behind the rating service ----------------------
+    seq_serve = seq_serve_phase(model, device, card)
+    del model
+    torch.cuda.empty_cache()
+    lap('phase 21 seq serving')
 
     for rec in seg_checks:
         print(f'kernel segment_sum vs plain ({card}): {json.dumps(rec)}')
@@ -5898,6 +6382,7 @@ def main() -> int:
         "phase19 fit_rows(learner='mlp'), dense (fit and control)": quality['fit_launches']['gather_matmul'],
         'phase19 held-out predict_proba_device_batch (2 models x 2 heads)': quality['launches'],
         "phase20 the providers' games rate_batch": providers['launches'],
+        **{f'phase21 {part}': n for part, n in seq_serve['launches'].items()},
     }
     b2_paths = {
         'xT fits': seg_launches,
@@ -5927,7 +6412,7 @@ def main() -> int:
             max(rec['max_abs_err'] for rec in checks.values()), train_b1['max_abs_err'],
             atomic_train_b1['max_abs_err'], rating['kernels']['gather_matmul']['max_abs_err'],
             learn['kernel']['max_abs_err'], frame['b1']['max_abs_err'], quality['b1']['max_abs_err'],
-            providers['b1']['max_abs_err'],
+            providers['b1']['max_abs_err'], seq_serve['b1']['max_abs_err'],
         ),
         'ms': f32['ms'],
         'plain_ms': f32['plain_ms'],
@@ -5962,6 +6447,10 @@ def main() -> int:
         # the operands the providers' games hand B1
         'phase20_operands': {k: providers['b1'][k] for k in (
             'shape', 'plan', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+        )},
+        # the operands a full bucket of phase 21's MLP version hands B1
+        'phase21_operands': {k: seq_serve['b1'][k] for k in (
+            'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
         )},
         'training_shapes': [
             {k: rec[k] for k in (

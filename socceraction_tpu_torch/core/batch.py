@@ -129,6 +129,14 @@ class _PackedBatch:
         moved = type(self)(**{n: t.to(dev) for n, t in self.fields().items()})
         return moved.with_total(self._host_total)
 
+    def replace(self, **fields: Any) -> Any:
+        """A batch of the same class with the named fields replaced and the
+        rest shared (``flax.struct.dataclass``'s ``replace``, which the JAX
+        package's batches have). The host count is kept unless
+        ``n_actions`` is replaced; an unknown name raises ``TypeError``."""
+        out = dataclasses.replace(self, **fields)
+        return out if 'n_actions' in fields else out.with_total(self._host_total)
+
     def astype(self, float_dtype: Any) -> Any:
         """A copy with the continuous fields cast to ``float_dtype`` (a
         torch dtype or anything numpy reads as a dtype); every other field

@@ -803,6 +803,8 @@ class ExpectedThreat:
         ratings[moves.index.to_numpy()] = grid[w - 1 - eyj, exi] - grid[w - 1 - syj, sxi]
         return ratings
 
+    predict = rate  # deprecated alias, as the JAX package keeps it for the reference's API
+
     def interpolator(self, kind: str = 'linear') -> Callable[..., np.ndarray]:
         """A callable interpolating the xT surface over the pitch.
 

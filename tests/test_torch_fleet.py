@@ -30,7 +30,6 @@ import time
 from types import SimpleNamespace
 
 import pytest
-import torch
 
 from socceraction_tpu.obs import context as jcontext
 from socceraction_tpu.obs import endpoint as jendpoint
@@ -801,10 +800,14 @@ def _obsctl(argv):
 def port_logs(tmp_path_factory):
     """A front run log and two replica run logs written by the port: the
     front mints a request and ships ``to_wire()``; replica 0 rebuilds it
-    with ``from_wire`` and rates it through the smoke's ``rate_request``
-    on the CPU; each replica log embeds a registry of its own requests."""
+    with ``from_wire`` and its ``RatingService`` rates it on the CPU (a
+    one-game request from the smoke's ``game_request``, entering where
+    ``rate`` arrives once it has packed its frame, as phase 15's replicas
+    do); each replica log embeds a registry of its own requests."""
     import chip_smoke
     from socceraction_tpu_torch.core.synthetic import synthetic_batch
+    from socceraction_tpu_torch.serve import RatingService
+    from socceraction_tpu_torch.serve import service as serve_service
 
     tmp = tmp_path_factory.mktemp('port-logs')
     paths = {name: str(tmp / name / 'obs.jsonl') for name in ('front', 'replica-0', 'replica-1')}
@@ -814,10 +817,12 @@ def port_logs(tmp_path_factory):
         headers = json.loads(json.dumps(ctx.to_wire()))
         t0 = time.perf_counter()
     model = chip_smoke.make_model('cpu', (8,))
-    batch = synthetic_batch(1, 128, seed=4, device='cpu')
+    req = chip_smoke.game_request(synthetic_batch(1, 128, seed=4, device='cpu'), 0)
     with ttrace.RunLog(paths['replica-0'], registry=_replica_registry(PKGS['torch'], seed=21, n=4)):
         back = tcontext.RequestContext.from_wire(headers)
-        chip_smoke.rate_request(model, batch, back, torch.device('cpu'))
+        with RatingService(model, max_actions=128, max_batch_size=1) as svc:
+            payload = serve_service._Payload(req.staging, req.gs, keep=(0, req.n), ctx=back)
+            svc._submit(payload, 'rate', back).result(timeout=60)
     with ttrace.RunLog(paths['front'], registry=tmetrics.MetricRegistry()):
         tcontext.record_request_done(ctx, 'ok', time.perf_counter() - t0)
     with ttrace.RunLog(paths['replica-1'], registry=_replica_registry(PKGS['torch'], seed=22, n=6)):

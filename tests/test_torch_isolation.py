@@ -13,7 +13,8 @@
   loaded back through the model registry; so do its scale-out phase, its
   telemetry-plane phase and its serving phase, each in a process of its
   own; the serving phase then runs serving's outer tier (replica lanes,
-  the warm tier's child processes, the frontend) in the same process.
+  the warm tier's child processes, the frontend) in the same process; the
+  seq-serving phase (seq and mixed pairs behind the service) in its own.
 - Entry points run on the GPU unless asked for the CPU: with no GPU and
   no ``device='cpu'`` they raise instead of falling back.
 """
@@ -300,6 +301,8 @@ def test_chip_smoke_fleet_phase_runs_with_blocked_packages(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'isolated' in proc.stdout
     assert 'stale [\'replica-1\'], status degraded' in proc.stdout
+    # each replica's own service answered its requests
+    assert '"serve_requests": 4.0' in proc.stdout
     # the phase cleans up after itself
     assert not (tmp_path / 'build' / 'fleet').exists()
 
@@ -352,6 +355,42 @@ def test_chip_smoke_serve_phase_runs_with_blocked_packages(tmp_path):
     # the phases clean up after themselves
     assert not (tmp_path / 'build' / 'serve').exists()
     assert not (tmp_path / 'build' / 'lanes').exists()
+
+
+#: The smoke's seq-serving phase at a tiny size on the CPU: a seq pair and a
+#: mixed MLP/seq pair behind the rating service, the window bands, a swap
+#: across families and the drill, with pandas, JAX and msgpack blocked.
+_SEQ_SERVE_BLOCKER = _BLOCK + """
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+sizes = chip_smoke.SeqServeSizes(max_actions=256, max_batch_size=4, clients=2, band_requests=2,
+                                 mixed_requests=3, low=100, swap_clients=2, swap_requests=4,
+                                 drill_requests=2)
+model = chip_smoke.make_model('cpu', (8,))
+out = chip_smoke.seq_serve_phase(model, torch.device('cpu'), sizes=sizes)
+assert set(out['launches'].values()) == {0} and out['b1'] is None, out['launches']
+assert set(out['bands']) == {'128', '256'}, sorted(out['bands'])
+assert out['bands']['128']['window_slices'] == out['bands']['128']['flushes'] > 0, out['bands']
+assert out['swap']['by_version']['2'] > 0 and out['swap']['compiled_shapes'] == 6, out['swap']
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print('isolated')
+"""
+
+
+def test_chip_smoke_seq_serve_phase_runs_with_blocked_packages(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, '-c', _SEQ_SERVE_BLOCKER, str(ROOT)],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'isolated' in proc.stdout
+    for part in ('(a) warmup', '(b) window band 128', '(b) window band 256', '(b) mixed pair traffic',
+                 '(c) swap MLP v1 -> seq v2 and rollback', '(d) B1 cannot load under mixed-pair flushes'):
+        assert part in proc.stdout
+    # the phase cleans up after itself
+    assert not (tmp_path / 'build' / 'serve_seq').exists()
 
 
 def test_fleet_replica_fails_without_a_gpu(tmp_path):

@@ -122,3 +122,49 @@ def test_a_shipped_library_loads_and_launches_without_nvcc(cuda, model, tmp_path
     assert sum(REGISTRY.snapshot().value('dispatch/kernel_builds', kernel=k) for k in KERNELS) == builds
     assert cuda_build._paths['gather_matmul'].parent == cache
     np.testing.assert_array_equal(got, want)
+
+
+def _seq_requests(lengths, seed=11):
+    """One-game requests of the given lengths, each a game of a seeded
+    batch cut to its length (masked tail), with a zero goalscore block."""
+    host = synthetic_batch(len(lengths), A, seed=seed, device='cpu')
+    fields = {k: v.numpy() for k, v in host.fields().items()}
+    out = []
+    for g, n in enumerate(lengths):
+        one = {k: v[g : g + 1].copy() for k, v in fields.items()}
+        valid = np.arange(A)[None, :] < n
+        one['mask'] = valid
+        one['n_actions'] = np.array([n], dtype=np.int32)
+        one['row_index'] = np.where(valid, one['row_index'], -1).astype(np.int32)
+        out.append((type(host)(**one), np.zeros((1, A, 3), dtype=np.float32), n))
+    return out
+
+
+@pytest.mark.gpu
+def test_seq_pair_serves_each_window_rung_on_the_card(cuda):
+    """A seq pair behind the service on the card: every (bucket, window
+    rung) shape warmed, a short request cut to the first rung and a long
+    one at the full window, each within 1e-5 of its own reference, B1
+    never launched and no shape added."""
+    model = VAEP(device=cuda).fit_packed(
+        synthetic_batch(4, A, seed=3, device=cuda), learner='seq',
+        tree_params={'embed_dim': 8, 'hidden': 16, 'readout': 16, 'batch_size': 512,
+                     'max_epochs': 1}, random_state=0,
+    )
+    assert model.time_rungs and model._rating_path() == 'seq'
+    reqs = _seq_requests([100, 200])
+    with RatingService(model, max_actions=A, max_batch_size=4) as svc:
+        svc.warmup()
+        warm = svc.compiled_shapes
+        assert warm == len(svc.ladder) * 2  # rungs 128 and 256
+        before = REGISTRY.snapshot().value('seq/window_slices', window='128')
+        tgm.fused_first_layer_quant.launches = 0
+        got = [_submit(svc, r).result(timeout=120) for r in reqs]
+        assert tgm.fused_first_layer_quant.launches == 0
+        assert REGISTRY.snapshot().value('seq/window_slices', window='128') - before == 1
+        assert svc.compiled_shapes == warm
+    for (staging, gs, n), values in zip(reqs, got):
+        batch, overrides = serve_service._upload(staging, gs, cuda)
+        ref = model.rate_batch_reference(batch, dense_overrides=overrides)[0, :n].cpu().numpy()
+        assert values.shape == (n, 3)
+        np.testing.assert_allclose(values, ref, rtol=0, atol=1e-5)

@@ -139,3 +139,149 @@ def test_every_listed_difference_has_its_reason():
     assert all(PORT_MODULES.values())
     assert set(JAX_ONLY) <= set(JAX_MODULES)
     assert set(PORT_ONLY) <= _modules(socceraction_tpu_torch)
+
+
+# -- public class members --------------------------------------------------------------
+
+#: JAX class (its defining module under the package, and name) -> (public
+#: members the port's class does not have as class members, why).
+MEMBER_DIFFERENCES = {
+    'ml.mlp.MLPClassifier': (('mean_', 'std_'), 'the standardization statistics are set on each instance '
+                             'in the port, not declared on the class'),
+    'seq.classifier.SeqClassifier': (('mean_', 'std_'), 'the standardization statistics are set on each '
+                                     'instance in the port, not declared on the class'),
+    'ops.fused.FusedRegistry': (('onehot_specs',), "an internal NamedTuple: the port's registry keeps its "
+                                "one-hot blocks in other fields"),
+    'ops.fused.PreparedPair': (('n_features', 'table_scale', 'total_nbytes', 'w_dense_scale'),
+                               "an internal NamedTuple: the port's serving fold carries its int8 scales and "
+                               'sizes in other fields'),
+}
+
+
+def _public_classes():
+    """``{defining path: (JAX class, port class)}`` of every class a JAX
+    ``__all__`` exports (the names :data:`JAX_ONLY` lists excepted)."""
+    out = {}
+    for path in JAX_MODULES:
+        target = SUBSTITUTES.get(path, (path, None))[0]
+        if target is None:
+            continue
+        jax_mod = _import('socceraction_tpu', path)
+        port_mod = _import('socceraction_tpu_torch', target)
+        for name in getattr(jax_mod, '__all__', ()):
+            if name in JAX_ONLY.get(path, ((), ''))[0]:
+                continue
+            cls = getattr(jax_mod, name)
+            if isinstance(cls, type):
+                key = f"{cls.__module__.split('.', 1)[1]}.{cls.__qualname__}"
+                out.setdefault(key, (cls, getattr(port_mod, name)))
+    return out
+
+
+PUBLIC_CLASSES = _public_classes()
+
+
+def _members(cls):
+    return {n for n in dir(cls) if not n.startswith('_')}
+
+
+def test_the_class_walk_sees_the_exported_classes():
+    assert {'core.batch.ActionBatch', 'core.batch.AtomicActionBatch', 'xthreat_v3.ExpectedThreatV3',
+            'serve.service.RatingService', 'vaep.base.VAEP'} <= set(PUBLIC_CLASSES)
+    assert set(MEMBER_DIFFERENCES) <= set(PUBLIC_CLASSES)
+
+
+@pytest.mark.parametrize('key', sorted(PUBLIC_CLASSES))
+def test_class_has_every_public_member(key):
+    """Every public method, property and class attribute of the JAX class
+    is a member of the port's, less :data:`MEMBER_DIFFERENCES`; a listed
+    difference must still be one."""
+    jax_cls, port_cls = PUBLIC_CLASSES[key]
+    assert isinstance(port_cls, type), f'{key}: the port exports {port_cls!r}'
+    listed = set(MEMBER_DIFFERENCES.get(key, ((), ''))[0])
+    missing = _members(jax_cls) - _members(port_cls)
+    assert missing == listed, f'{key}: missing {sorted(missing - listed)}, listed but present ' \
+                              f'{sorted(listed - missing)}'
+    assert listed <= _members(jax_cls)
+
+
+def test_every_member_difference_has_its_reason():
+    assert all(names and reason for names, reason in MEMBER_DIFFERENCES.values())
+
+
+@pytest.mark.parametrize('backend', ['pandas', 'device'])
+def test_expected_threat_predict_rates_as_rate(spadl_actions, backend):
+    """``predict`` is ``rate``: on the golden game it gives ``rate``'s
+    ratings, and the JAX class's ``predict`` (exactly on the numpy
+    oracle, within 1e-5 on the device backends)."""
+    import numpy as np
+
+    from socceraction_tpu import xthreat as jxt
+    from socceraction_tpu_torch import xthreat as txt
+
+    assert txt.ExpectedThreat.predict is txt.ExpectedThreat.rate
+    if backend == 'pandas':
+        port, jax = txt.ExpectedThreat(backend='pandas'), jxt.ExpectedThreat(backend='pandas')
+    else:
+        port, jax = txt.ExpectedThreat(device='cpu'), jxt.ExpectedThreat(backend='jax')
+    port.fit(spadl_actions)
+    jax.fit(spadl_actions)
+    got = port.predict(spadl_actions)
+    np.testing.assert_array_equal(got, port.rate(spadl_actions))
+    want = jax.predict(spadl_actions)
+    if backend == 'pandas':
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert np.isfinite(got).any()
+
+
+@pytest.mark.parametrize('cls_name', ['ActionBatch', 'AtomicActionBatch'])
+def test_batch_replace_gives_the_fields_jax_gives(cls_name):
+    """``replace`` on the port's batch and on the JAX package's, with the
+    same new fields: the same class back, every field equal, the fields
+    not named shared, the host count of the new lengths, and ``TypeError``
+    for a name that is no field."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from socceraction_tpu import core as jcore
+    from socceraction_tpu_torch import core as tcore
+
+    rng = np.random.default_rng(21)
+    G, A = 3, 8
+    port_cls, jax_cls = getattr(tcore, cls_name), getattr(jcore, cls_name)
+
+    def draw():
+        cols = {}
+        for f in dataclasses.fields(port_cls):
+            shape = (G,) if f.name in ('n_actions', 'game_id') else (G, A)
+            if f.name in ('is_home', 'mask'):
+                cols[f.name] = rng.random(shape) < 0.5
+            elif f.name in port_cls._float_fields:
+                cols[f.name] = rng.normal(size=shape).astype(np.float32)
+            else:
+                cols[f.name] = rng.integers(0, A, size=shape).astype(np.int32)
+        return cols
+
+    cols, new = draw(), draw()
+    named = {k: new[k] for k in ('type_id', 'n_actions', 'mask')}
+    port = port_cls(**{k: torch.from_numpy(v) for k, v in cols.items()})
+    jax = jax_cls(**{k: jnp.asarray(v) for k, v in cols.items()})
+    got = port.replace(**{k: torch.from_numpy(v) for k, v in named.items()})
+    want = jax.replace(**{k: jnp.asarray(v) for k, v in named.items()})
+    assert type(got) is port_cls and type(want) is jax_cls
+    for f in dataclasses.fields(port_cls):
+        np.testing.assert_array_equal(getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name)))
+        if f.name not in named:
+            assert getattr(got, f.name) is getattr(port, f.name)
+    assert got.total_actions == int(new['n_actions'].sum()) == want.total_actions
+    # a replacement that keeps the lengths keeps the host count
+    assert port.replace(mask=got.mask).total_actions == port.total_actions
+    with pytest.raises(TypeError):
+        port.replace(no_such_field=1)
+    with pytest.raises(TypeError):
+        jax.replace(no_such_field=1)
