@@ -11,13 +11,14 @@ configuration":
   ``span_close`` events to the active :class:`RunLog`; every close also
   lands in the flight recorder. Nesting is per thread (the feed's
   prefetch worker gets its own stack). In place of ``jax.named_scope``
-  the region runs under ``torch.profiler.record_function(name)``, so a
-  ``torch.profiler`` trace shows the spans by name. :meth:`Span.sync`
-  records a CUDA event on the current stream and waits on that event at
-  span exit, so the span is charged for its own stream's work and never
-  for unrelated streams (``torch.cuda.synchronize()`` would wait for
-  every stream of the card). :meth:`Span.memory` adds the card's
-  allocator watermarks to the close event.
+  the region runs under ``torch.profiler.record_function(name)`` while a
+  torch profiler is on, so a ``torch.profiler`` trace shows the spans by
+  name. :meth:`Span.sync` records a CUDA event on the current stream and
+  waits on that event at span exit, so the span is charged for its own
+  stream's work and never for unrelated streams
+  (``torch.cuda.synchronize()`` would wait for every stream of the
+  card). :meth:`Span.memory` adds the card's allocator watermarks to the
+  close event.
 - :class:`RunLog` — the run-scoped sink: a rotating ``obs.jsonl`` writer
   that opens with a run manifest (config, selected environment, device
   topology), accepts structured events, can embed metric snapshots, and
@@ -134,10 +135,14 @@ class Span:
 
 
 def _record_function(name: str) -> Any:
-    """``torch.profiler.record_function`` when torch is loaded, else a
-    no-op: a data-prep process that never imported torch stays free of it."""
+    """``torch.profiler.record_function`` while a torch profiler is on,
+    else a no-op. With no profiler on, the range records nothing, yet its
+    entry and exit are two dispatcher calls, about half of a span's cost,
+    so the check (torch's process-wide flag, set on every thread while any
+    of its profilers runs) keeps spans cheap on a hot path. A data-prep
+    process that never imported torch stays free of it."""
     torch = sys.modules.get('torch')
-    if torch is None:
+    if torch is None or not getattr(torch.autograd.profiler, '_is_profiler_enabled', True):
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)
 
@@ -149,10 +154,11 @@ def span(name: str, **attrs: Any) -> Iterator[Span]:
     Records wall duration always; waits at exit for the CUDA events the
     body registered with :meth:`Span.sync`, so the span's wall time then
     covers its own stream's work. The region runs under
-    ``torch.profiler.record_function(name)``. When a :class:`RunLog` is
-    active, ``span_open`` and ``span_close`` events (span id, parent id,
-    duration, error status) are appended to it; every close also lands
-    in the flight recorder.
+    ``torch.profiler.record_function(name)`` while a torch profiler is on
+    (no profiler, no range: the span then costs a few microseconds). When
+    a :class:`RunLog` is active, ``span_open`` and ``span_close`` events
+    (span id, parent id, duration, error status) are appended to it;
+    every close also lands in the flight recorder.
     """
     if not NAME_RE.match(name):
         raise ValueError(

@@ -40,6 +40,7 @@ import torch
 from ..atomic.spadl import config as atomicconfig
 from ..obs.dispatch import instrument
 from ..obs.numerics import guards_enabled, nonfinite_count, note_guard, overflow_count
+from ..obs.trace import span
 from ..spadl import config as spadlconfig
 from .atomic import _ONEHOT_GROUPS, ATOMIC_KERNELS, ATOMIC_WIDTHS, _AtomicStates
 from .features import _WIDTHS, KERNELS, _States, kernel_width
@@ -466,18 +467,21 @@ def _pair_dispatch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The instrumented pair dispatch behind :func:`pair_probs_prepared`:
     its arguments are the tensors and modules it reads, so the dispatch
-    observatory keys it by their shapes."""
+    observatory keys it by their shapes. The feature rows run inside a
+    ``vaep/features`` span and the two hidden chains, sigmoids and guards
+    inside ``vaep/head``; B1's launch sits between them."""
     registry = REGISTRIES[registry_name]
-    s = registry.make_states(batch, k)
-    x_dense, ids = _packed_rows(
-        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
-    )
-    if x_dense.shape[1] != prep.w_dense.data.shape[0]:
-        raise ValueError(
-            f'prepared fold has a {prep.w_dense.data.shape[0]}-column dense '
-            f'sub-kernel but the feature layout ({names!r}, k={k}) emits '
-            f'{x_dense.shape[1]} dense columns'
+    with span('vaep/features'):
+        s = registry.make_states(batch, k)
+        x_dense, ids = _packed_rows(
+            s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
         )
+        if x_dense.shape[1] != prep.w_dense.data.shape[0]:
+            raise ValueError(
+                f'prepared fold has a {prep.w_dense.data.shape[0]}-column dense '
+                f'sub-kernel but the feature layout ({names!r}, k={k}) emits '
+                f'{x_dense.shape[1]} dense columns'
+            )
     # int8 storage expands to a transient f32 table per dispatch; bf16
     # rides into the kernel and is widened there
     int8 = prep.quantize == 'int8'
@@ -485,16 +489,17 @@ def _pair_dispatch(
     w_dense = dequantize(*prep.w_dense) if int8 else prep.w_dense.data
     h = fused_first_layer_quant(tables, w_dense, prep.bias, ids, x_dense)
     h = h.reshape(batch.n_games, batch.max_actions, -1)
-    a = _hidden_chain(mlp_a, h[..., : prep.h_a_width], hidden_dtype)
-    b = _hidden_chain(mlp_b, h[..., prep.h_a_width :], hidden_dtype)
-    pa, pb = torch.sigmoid(a), torch.sigmoid(b)
-    if guards_enabled():
-        # in-dispatch guard, counted on the card beside the outputs and
-        # left there (no host read): nonfinite probabilities, what
-        # callers consume (an Inf logit serves a finite 0/1), and logits
-        # past the sigmoid's saturation; padding games are counted too
-        note_guard('pair_probs', 'probs', nonfinite_count(pa, pb))
-        note_guard('pair_probs', 'logits', overflow_count(a, b), kind='overflow')
+    with span('vaep/head'):
+        a = _hidden_chain(mlp_a, h[..., : prep.h_a_width], hidden_dtype)
+        b = _hidden_chain(mlp_b, h[..., prep.h_a_width :], hidden_dtype)
+        pa, pb = torch.sigmoid(a), torch.sigmoid(b)
+        if guards_enabled():
+            # in-dispatch guard, counted on the card beside the outputs and
+            # left there (no host read): nonfinite probabilities, what
+            # callers consume (an Inf logit serves a finite 0/1), and logits
+            # past the sigmoid's saturation; padding games are counted too
+            note_guard('pair_probs', 'probs', nonfinite_count(pa, pb))
+            note_guard('pair_probs', 'logits', overflow_count(a, b), kind='overflow')
     return pa, pb
 
 

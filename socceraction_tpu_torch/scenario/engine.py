@@ -203,11 +203,14 @@ def rate_scenarios_batch(
     ladder by default) and returns the values as a ``(P, G, A, 3)``
     tensor. Reports under the ``scenario`` metric area: request count by
     verb, dispatch seconds by perturbation bucket (synchronized with the
-    call's device work), and a counterfactual-values throughput gauge.
+    call's device work), and a counterfactual-values throughput gauge. The
+    expansion runs inside a ``scenario/expand`` span, the call inside
+    ``scenario/dispatch``.
     """
     P = grid.n_perturbations
     G, A = batch.n_games, batch.max_actions
-    expanded, overrides = expand_scenarios(batch, grid, dense_overrides=dense_overrides)
+    with span('scenario/expand'):
+        expanded, overrides = expand_scenarios(batch, grid, dense_overrides=dense_overrides)
     counter('scenario/requests', unit='count').inc(1, verb='batch')
     p_bucket = str(bucket_perturbations(P))
     t0 = time.perf_counter()

@@ -72,7 +72,7 @@ from ..core.batch import (
 from ..device import DeviceLike, resolve_device
 from ..ml.learners import LEARNERS, PACKED_LEARNERS
 from ..ml.mlp import MLPClassifier
-from ..obs import counter, gauge, histogram, span
+from ..obs import counter, histogram, span
 from ..ops.features import KERNELS, compute_features
 from ..ops.formula import vaep_values
 from ..ops.fused import (
@@ -985,15 +985,20 @@ class VAEP:
         platform)`` labels (``path`` the path taken, ``platform`` the
         model's device type): the valid-action batch size
         (``vaep/rate_batch_actions``), the dispatch wall
-        (``vaep/rate_batch_seconds``), the ``vaep/rated_actions`` counter
-        and the ``vaep/rate_actions_per_sec`` gauge, and on the seq path
-        ``seq/rated_actions`` and ``seq/rate_seconds``, inside a
-        ``vaep/rate_batch`` span. All are measured at *dispatch*: nothing
-        here waits for the card (the action count is the batch's host
-        count, the path a cached profile entry), so on the card they bound
-        the host's cost, not the card's throughput. The dispatch notes the
-        numeric guards (:mod:`~socceraction_tpu_torch.obs.numerics`) for a
-        later ``drain_guards()``.
+        (``vaep/rate_batch_seconds``) and the ``vaep/rated_actions``
+        counter, and on the seq path ``seq/rated_actions`` and
+        ``seq/rate_seconds``, inside a ``vaep/rate_batch`` span. All are
+        measured at *dispatch*: nothing here waits for the card (the action
+        count is the batch's host count, the path a cached profile entry),
+        so on the card they bound the host's cost, not the card's
+        throughput; the JAX package's ``vaep/rate_actions_per_sec`` gauge,
+        actions over that wall, is left out for that reason. Inside the
+        span the dispatch's stages open spans of their own:
+        ``vaep/pad`` (the bucket pad, when there is one), ``vaep/features``
+        and ``vaep/head`` (the fused paths' feature rows and hidden chain)
+        and ``vaep/formula``. The dispatch notes the numeric guards
+        (:mod:`~socceraction_tpu_torch.obs.numerics`) for a later
+        ``drain_guards()``.
         """
         self._heads()
         path = self._rating_path()
@@ -1006,10 +1011,6 @@ class VAEP:
         histogram('vaep/rate_batch_actions', unit='actions').observe(n_actions, **labels)
         histogram('vaep/rate_batch_seconds', unit='s').observe(dispatch_s, **labels)
         counter('vaep/rated_actions', unit='actions').inc(n_actions, **labels)
-        if dispatch_s > 0:
-            gauge('vaep/rate_actions_per_sec', unit='actions/s').set(
-                n_actions / dispatch_s, **labels
-            )
         if path == 'seq':
             counter('seq/rated_actions', unit='actions').inc(n_actions, platform=labels['platform'])
             histogram('seq/rate_seconds', unit='s').observe(dispatch_s, platform=labels['platform'])
@@ -1025,7 +1026,8 @@ class VAEP:
         path: Optional[str] = None,
     ) -> torch.Tensor:
         """:meth:`rate_batch` without its span and metrics: the dispatch
-        (on ``path``, default :meth:`_rating_path`)."""
+        (on ``path``, default :meth:`_rating_path`), with its ``vaep/pad``
+        and ``vaep/formula`` stage spans."""
         clf_a, clf_b = self._heads()
         names = self._kernel_names()
         path = self._rating_path() if path is None else path
@@ -1033,11 +1035,12 @@ class VAEP:
         n_games = batch.n_games
         target = bucket_games(n_games) if bucket else n_games
         if target != n_games and self._bucketable(batch):
-            batch = pad_batch_games(batch, target)
-            overrides = {
-                name: torch.cat([b, b.new_zeros((target - n_games, *b.shape[1:]))])
-                for name, b in overrides.items()
-            }
+            with span('vaep/pad'):
+                batch = pad_batch_games(batch, target)
+                overrides = {
+                    name: torch.cat([b, b.new_zeros((target - n_games, *b.shape[1:]))])
+                    for name, b in overrides.items()
+                }
         common = dict(
             names=names, k=self.nb_prev_actions, registry=self._registry,
             dense_overrides=overrides,
@@ -1051,7 +1054,8 @@ class VAEP:
             pa, pb = seq_pair_probs(clf_a, clf_b, batch, **common)
         else:
             pa, pb = self._materialized_probs(batch, overrides)
-        return self._formula_kernel(batch, pa, pb)[:n_games]
+        with span('vaep/formula'):
+            return self._formula_kernel(batch, pa, pb)[:n_games]
 
     @torch.no_grad()
     def rate_batch_reference(
