@@ -223,7 +223,12 @@ exits non-zero:
    mixed-pair flushes changes nothing (see :func:`seq_serve_phase`).
 
 Phase 3 also holds B1 at the atomic serving shape (R = 128, D = 46) and B2
-at the atomic statistics shape to their plain versions.
+at the atomic statistics shape to their plain versions, and the feature
+rows (``csrc/feature_rows.cu``) to ``packed_rows_reference`` bit for bit at
+a season cell's 1024 x 1664 chunk in both families; phase 16 holds them
+there too at a scenario fold's shape, with the service's goalscore
+override. The rows' launches are counted on phases 4, 6 to 8 and 10 and
+on phase 16's warm-up and traffic.
 
 Before the last line it prints one JSON object of kernel records
 (``{"kernels": [...]}``); the last line is
@@ -274,6 +279,7 @@ from socceraction_tpu_torch.core.synthetic import (
 from socceraction_tpu_torch.device import DeviceLike, resolve_device
 from socceraction_tpu_torch.ml import mlp as mlp_mod
 from socceraction_tpu_torch.ops import cuda_build
+from socceraction_tpu_torch.ops import feature_rows as fr_op
 from socceraction_tpu_torch.ops import fused as fused_ops
 from socceraction_tpu_torch.ops import gather_matmul as gm
 from socceraction_tpu_torch.ops import segment as seg
@@ -365,6 +371,8 @@ from socceraction_tpu_torch.parallel import vaep as scale_vaep
 
 #: The serving batch: 512 games of 1664 actions (851,968 rows).
 GAMES, ACTIONS = 512, 1664
+#: The feature rows' check: a season cell's chunk, 1024 games of 1664 actions.
+ROWS_GAMES = 1024
 #: The repo's default MLP head widths.
 HIDDEN = (128, 128)
 K = 3
@@ -578,6 +586,41 @@ def main_path_first_layer(model: VAEP, batch: Any) -> Dict[str, Any]:
     }
 
 
+def check_feature_rows(
+    batch: Any, names: Tuple[str, ...], registry: Any,
+    overrides: Optional[Dict[str, torch.Tensor]] = None, reps: int = 20,
+) -> Dict[str, Any]:
+    """The feature rows' kernel against their plain version
+    (``packed_rows_reference``, the eager rows on the same card) on one
+    card batch: ``x_dense`` and the ids bit for bit, the device ms of each
+    (CUDA events), and the least time the kernel's bytes allow at the
+    card's HBM peak (``feature_rows_cost``)."""
+    kw = dict(names=names, k=K, registry=registry, dense_overrides=overrides)
+    got = fr_op.feature_rows(batch, **kw)
+    want = fused_ops.packed_rows_reference(batch, **kw)
+    differing, err = 0, 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f'feature rows: {tuple(g.shape)} {g.dtype}, plain {tuple(w.shape)} {w.dtype}')
+        same = g.view(torch.int32) == w.view(torch.int32)
+        differing += int((~same).sum())
+        gap = (g.double() - w.double()).abs().masked_fill(same, 0.0).nan_to_num(nan=float('inf'))
+        err = max(err, float(gap.max()) if gap.numel() else 0.0)
+    program = fr_op.column_program(registry, names, K)
+    shape = [batch.n_games, batch.max_actions, program.width, K]
+    if differing:
+        raise RuntimeError(f'feature rows at {shape}: {differing} elements differ from the plain '
+                           f'version, max |diff| {err}')
+    ms = time_ms(lambda: fr_op.feature_rows(batch, **kw), reps)
+    plain_ms = time_ms(lambda: fused_ops.packed_rows_reference(batch, **kw), max(2, reps // 4))
+    cost = fr_op.feature_rows_cost(batch.n_games * batch.max_actions, program)
+    bound_ms = cost['bytes'] / PEAK_BYTES_PER_S * 1e3
+    return {'family': program.family, 'shape': shape, 'overrides': sorted(overrides or {}),
+            'differing_elements': differing, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': 'bytes', 'bytes': cost['bytes'],
+            'share_of_bound': bound_ms / ms}
+
+
 @contextlib.contextmanager
 def captured(module: Any, name: str, first_only: bool = False) -> Any:
     """Record ``(args, kwargs, result)`` of the calls of ``module.name`` in
@@ -708,10 +751,12 @@ def rate_main_path(model: VAEP, batch: Any) -> Tuple[torch.Tensor, Dict[str, Any
     (phase 4)."""
     gm.fused_first_layer_quant.launches = 0
     gm.fused_first_layer_quant.plans = {}
+    fr_op.feature_rows.launches = 0
     values = model.rate_batch(batch)
     torch.cuda.synchronize()
     return values, {'gather_matmul': gm.fused_first_layer_quant.launches,
-                    'gather_matmul_plans': dict(gm.fused_first_layer_quant.plans)}
+                    'gather_matmul_plans': dict(gm.fused_first_layer_quant.plans),
+                    'feature_rows': fr_op.feature_rows.launches}
 
 
 def synced_rate_seconds(model: VAEP, batch: Any, reps: int = 5) -> float:
@@ -744,8 +789,9 @@ def serving_phase(model: VAEP, batch: Any, card: str, label: str) -> Dict[str, A
     gives it; the synchronized f32 throughput and a profile of one call."""
     values, launches = rate_main_path(model, batch)
     print(f'{label}: rate_batch {tuple(values.shape)}, launches {launches}')
-    if launches['gather_matmul'] != 1:
-        raise RuntimeError(f"{label}: rate_batch launched gather_matmul {launches['gather_matmul']} times, not once")
+    if launches['gather_matmul'] != 1 or launches['feature_rows'] != 1:
+        raise RuntimeError(f"{label}: rate_batch launched gather_matmul {launches['gather_matmul']} "
+                           f"times and feature_rows {launches['feature_rows']}, not once each")
     if tuple(values.shape) != (batch.n_games, batch.max_actions, 3):
         raise RuntimeError(f'{label}: rate_batch values have shape {tuple(values.shape)}')
     check_against_reference(model, batch, values, label)
@@ -1093,6 +1139,7 @@ def fit_vaep(
         torch.cuda.synchronize()
     gm.fused_first_layer_quant.launches = 0
     seg.segment_sum.launches = 0
+    fr_op.feature_rows.launches = 0
     t0 = time.perf_counter()
     model = model_cls(device=device).fit_packed(
         batch, learner=learner, tree_params=params, random_state=0
@@ -1103,6 +1150,7 @@ def fit_vaep(
     launches = {
         'gather_matmul': gm.fused_first_layer_quant.launches,
         'segment_sum': seg.segment_sum.launches,
+        'feature_rows': fr_op.feature_rows.launches,
     }
     n_train = len(split_rows(batch.n_games * batch.max_actions, 0.25, 0)[0])
     steps = -(-n_train // params['batch_size'])
@@ -1804,15 +1852,20 @@ def scenario_phase(
     grid = end_location_grid(nx, ny)
     P = grid.n_perturbations
     gm.fused_first_layer_quant.launches = 0
+    fr_op.feature_rows.launches = 0
     fold = rate_scenarios_batch(model, batch, grid)
     sync(device)
     fold_launches = gm.fused_first_layer_quant.launches
-    if fold_launches != kernel_launches(1, device):
-        raise RuntimeError(f'{label}: the fold launched gather_matmul {fold_launches} times')
+    fold_rows = fr_op.feature_rows.launches
+    if fold_launches != kernel_launches(1, device) or fold_rows != kernel_launches(1, device):
+        raise RuntimeError(f'{label}: the fold launched gather_matmul {fold_launches} times, '
+                           f'feature_rows {fold_rows}')
     gm.fused_first_layer_quant.launches = 0
+    fr_op.feature_rows.launches = 0
     loop = rate_scenarios_looped(model, batch, grid)
     sync(device)
     loop_launches = gm.fused_first_layer_quant.launches
+    loop_rows = fr_op.feature_rows.launches
     mask = batch.mask[None].expand(P, -1, -1)
     loop_gap = masked_gap(fold, loop, mask)
     sub = ScenarioGrid(field_updates={k: v[:4] for k, v in grid.field_updates.items()})
@@ -1839,6 +1892,7 @@ def scenario_phase(
     record = {
         'perturbations': P, 'games': n_games, 'folded_games': P * n_games, 'values': values,
         'fold_launches': fold_launches, 'loop_launches': loop_launches,
+        'fold_rows_launches': fold_rows, 'loop_rows_launches': loop_rows,
         'fold_vs_loop': loop_gap, 'fold_bitwise_loop': bool(torch.equal(fold, loop)),
         'fold_vs_reference_first4': ref_gap,
         'fold_s': fold_s, 'loop_s': loop_s,
@@ -3908,9 +3962,13 @@ def serve_phase(
     def b1() -> int:
         return gm.fused_first_layer_quant.launches
 
+    # feature_rows launches of (a) and (b): one with each fused flush's B1
+    rows: Dict[str, int] = {}
+
     # -- (a) warm-up: every rung once, past the breaker
     svc = RatingService(model, **shape)
     gm.fused_first_layer_quant.launches = 0
+    fr_op.feature_rows.launches = 0
     walls = []
     for b in svc.ladder:
         sync(device)
@@ -3918,10 +3976,13 @@ def serve_phase(
         svc.warmup((b,))
         walls.append(time.perf_counter() - t0)
     launches['warmup'] = b1()
+    rows['warmup'] = fr_op.feature_rows.launches
     warm_shapes = svc.compiled_shapes
-    if launches['warmup'] != kernel_launches(len(svc.ladder), device) or warm_shapes != len(svc.ladder):
-        raise RuntimeError(f"{label}: warm-up launched B1 {launches['warmup']} times over "
-                           f'{warm_shapes} shapes for the ladder {svc.ladder}')
+    if launches['warmup'] != kernel_launches(len(svc.ladder), device) or warm_shapes != len(svc.ladder) \
+            or rows['warmup'] != launches['warmup']:
+        raise RuntimeError(f"{label}: warm-up launched B1 {launches['warmup']} times and "
+                           f"feature_rows {rows['warmup']} over {warm_shapes} shapes for the "
+                           f'ladder {svc.ladder}')
     print(f'{label}: (a) warmup {json.dumps({"ladder": list(svc.ladder), "wall_s": walls, "b1": launches["warmup"], "compiled_shapes": warm_shapes})}')
 
     # -- (b) traffic: closed-loop clients, one game per request
@@ -3943,6 +4004,7 @@ def serve_phase(
 
     before, takes, snap0 = serve_counts(), count_takes(svc), REGISTRY.snapshot()
     gm.fused_first_layer_quant.launches = 0
+    fr_op.feature_rows.launches = 0
     threads = [threading.Thread(target=client, args=(c,)) for c in range(sizes.clients)]
     t0 = time.perf_counter()
     for t in threads:
@@ -3952,6 +4014,7 @@ def serve_phase(
     sync(device)
     wall = time.perf_counter() - t0
     launches['traffic'] = b1()
+    rows['traffic'] = fr_op.feature_rows.launches
     counts = delta(serve_counts(), before)
     segments = segment_means(snap0, REGISTRY.snapshot())
     flushes = list(takes)
@@ -3959,9 +4022,11 @@ def serve_phase(
         raise RuntimeError(f'{label}: a client failed: {errors[0]!r}')
     n_flushes = len(flushes)
     n_actions = sum(r.n for r in reqs)
-    if launches['traffic'] != kernel_launches(n_flushes, device) or counts['fallback_flushes'] != 0:
-        raise RuntimeError(f"{label}: {launches['traffic']} B1 launches for {n_flushes} fused "
-                           f"flushes, {counts['fallback_flushes']} fallback flushes")
+    if launches['traffic'] != kernel_launches(n_flushes, device) or counts['fallback_flushes'] != 0 \
+            or rows['traffic'] != launches['traffic']:
+        raise RuntimeError(f"{label}: {launches['traffic']} B1 launches and {rows['traffic']} "
+                           f"feature_rows launches for {n_flushes} fused flushes, "
+                           f"{counts['fallback_flushes']} fallback flushes")
     if svc.compiled_shapes != warm_shapes:
         raise RuntimeError(f'{label}: traffic added shapes: {svc.compiled_shapes} after {warm_shapes}')
     ref_gap = fused_gap = 0.0
@@ -4149,17 +4214,23 @@ def serve_phase(
     breaker_before = breaker.to_dict()
     before = serve_counts()
     gm.fused_first_layer_quant.launches = 0
+    # on the card B1's library load fails as dlopen would (the feature rows,
+    # launched first, load theirs), and the wrapper must raise that as a
+    # KernelError; on the CPU, where the wrapper runs its plain version and
+    # loads nothing, the wrapper itself raises
+    patched = (cuda_build, 'load_library') if device.type == 'cuda' else (fused_ops, 'fused_first_layer_quant')
+    real = getattr(*patched)
+    b1_loads = [0]
 
     def no_b1(*args: Any, **kwargs: Any) -> Any:
         if device.type == 'cuda':
+            if args[0] != 'gather_matmul':
+                return real(*args, **kwargs)
+            b1_loads[0] += 1
             raise OSError('libgather_matmul.so: cannot open shared object file (kernel-fault drill)')
+        b1_loads[0] += 1
         raise cuda_build.KernelError('gather_matmul cannot be loaded (kernel-fault drill)')
 
-    # on the card the wrapper's library load fails as dlopen would, and the
-    # wrapper must raise that as a KernelError; on the CPU, where the wrapper
-    # runs its plain version and loads nothing, the wrapper itself raises
-    patched = (cuda_build, 'load_library') if device.type == 'cuda' else (fused_ops, 'fused_first_layer_quant')
-    real = getattr(*patched)
     setattr(*patched, no_b1)
     try:
         fut = submit_request(svc, dreq)
@@ -4171,16 +4242,18 @@ def serve_phase(
     finally:
         setattr(*patched, real)
     counts_fault = delta(serve_counts(), before)
-    if raised is None or breaker.to_dict() != breaker_before or counts_fault['fallback_flushes'] != 0:
-        raise RuntimeError(f'{label}: kernel-fault drill: raised {raised}, breaker '
-                           f'{breaker.to_dict()} (was {breaker_before}), fallback {counts_fault}')
+    if raised is None or not raised.startswith('gather_matmul') or b1_loads[0] < 1 or \
+            breaker.to_dict() != breaker_before or counts_fault['fallback_flushes'] != 0:
+        raise RuntimeError(f'{label}: kernel-fault drill: raised {raised} after {b1_loads[0]} B1 '
+                           f'loads, breaker {breaker.to_dict()} (was {breaker_before}), '
+                           f'fallback {counts_fault}')
     got = submit_request(svc, dreq).result(timeout=300)
     launches['kernel-fault drill'] = b1()
     gap = float(np.abs(got - dref).max())
     if launches['kernel-fault drill'] != kernel_launches(1, device) or gap > SERVE_ATOL:
         raise RuntimeError(f"{label}: after the kernel-fault drill B1 launched "
                            f"{launches['kernel-fault drill']} times, values {gap} off")
-    print(f'{label}: (e) kernel-fault drill {json.dumps({"future_raised": raised, "breaker": breaker.to_dict()["state"], "consecutive_failures": breaker.to_dict()["consecutive_failures"], "fallback_flushes": counts_fault["fallback_flushes"], "health": svc.health()["status"], "b1_after_restore": launches["kernel-fault drill"], "max_abs_err": gap})}')
+    print(f'{label}: (e) kernel-fault drill {json.dumps({"future_raised": raised, "b1_load_attempts": b1_loads[0], "breaker": breaker.to_dict()["state"], "consecutive_failures": breaker.to_dict()["consecutive_failures"], "fallback_flushes": counts_fault["fallback_flushes"], "health": svc.health()["status"], "b1_after_restore": launches["kernel-fault drill"], "max_abs_err": gap})}')
     svc.close()
 
     # -- (f) close(drain=True) resolves what is queued
@@ -4267,11 +4340,17 @@ def serve_phase(
     bare_s = synced_median(lambda: model.rate_batch(ebatch, dense_overrides=eoverrides, bucket=False),
                            device)
     fold_b1 = fold_first_layer(model, ebatch, eoverrides) if device.type == 'cuda' else None
+    # the feature rows of the same fold, with the service's goalscore override
+    fold_rows = check_feature_rows(
+        ebatch, type(model)._default_xfns, fused_ops.REGISTRIES[type(model)._fused_registry],
+        eoverrides,
+    ) if device.type == 'cuda' else None
     del ebatch, eoverrides, expanded
     svc.close()
     timing = {'perturbations': fold.n_perturbations, 'bucket': scen_bucket, 'actions': game.n,
               'flush_s': flush_s, 'values_per_s': fold.n_perturbations * game.n / flush_s,
-              'bare_rate_batch_s': bare_s, 'b1_at_fold_shape': fold_b1}
+              'bare_rate_batch_s': bare_s, 'b1_at_fold_shape': fold_b1,
+              'feature_rows_at_fold_shape': fold_rows, 'feature_rows_launches': rows}
     # one take of 3 rate payloads and a scenario payload: two dispatches
     mix = RatingService(model, **{**shape, 'max_wait_ms': 600_000.0})
     takes = count_takes(mix)
@@ -4390,7 +4469,8 @@ def serve_phase(
         setattr(*patched, real)
     fault = delta(scenario_counts(), before)
     unmoved = svc.breaker.to_dict() == breaker_after
-    if scen_raised is None or not unmoved or fault['fallbacks'] or fault['fallback_flushes']:
+    if scen_raised is None or not scen_raised.startswith('gather_matmul') or not unmoved or \
+            fault['fallbacks'] or fault['fallback_flushes']:
         raise RuntimeError(f'{label}: scenario kernel-fault drill: raised {scen_raised}, breaker '
                            f'{svc.breaker.to_dict()} (was {breaker_after}), {fault}')
     again = submit_scenario(svc, game, sweep).result(timeout=300)
@@ -4899,13 +4979,16 @@ def lanes_phase(
     fb0 = lane_fallbacks(drill)
     dispatcher = drill._dispatcher_for(model)
     gm.fused_first_layer_quant.launches = 0
+    b1_loads = [0]
     if device.type == 'cuda':
-        # the library load fails as dlopen would, on lane 1's stream only
+        # B1's library load fails as dlopen would, on lane 1's stream only
+        # (the feature rows, launched first, load theirs)
         real_load = cuda_build.load_library
         lane_stream = drill._lane_streams[fault_lane]
 
         def load(name: str) -> Any:
-            if torch.cuda.current_stream(device) == lane_stream:
+            if name == 'gather_matmul' and torch.cuda.current_stream(device) == lane_stream:
+                b1_loads[0] += 1
                 raise OSError(f'lib{name}.so: cannot open shared object file (lane fault drill)')
             return real_load(name)
 
@@ -4916,6 +4999,7 @@ def lanes_phase(
 
         def dispatch(replica: int, batch: Any, overrides: Any = None) -> Any:
             if replica == fault_lane:
+                b1_loads[0] += 1
                 raise cuda_build.KernelError('gather_matmul cannot be loaded (lane fault drill)')
             return real_dispatch(replica, batch, overrides)
 
@@ -4936,12 +5020,14 @@ def lanes_phase(
     unmoved = breaker_states() == breakers
     fb = delta(lane_fallbacks(drill), fb0)
     base = solo[0]  # the one-lane service's one-request flush of reqs[0]
-    if raised is None or not unmoved or any(fb.values()) or not np.array_equal(other, base) or \
+    if raised is None or not raised.startswith('gather_matmul') or b1_loads[0] < 1 or not unmoved or \
+            any(fb.values()) or not np.array_equal(other, base) or \
             not np.array_equal(again, base) or launches['kernel-fault drill'] != kernel_launches(2, device):
-        raise RuntimeError(f'{label}: lane kernel-fault drill: raised {raised}, breakers unmoved '
-                           f"{unmoved}, fallbacks {fb}, B1 {launches['kernel-fault drill']}")
+        raise RuntimeError(f'{label}: lane kernel-fault drill: raised {raised} after {b1_loads[0]} '
+                           f"B1 loads, breakers unmoved {unmoved}, fallbacks {fb}, "
+                           f"B1 {launches['kernel-fault drill']}")
     drill.close()
-    print(f'{label}: (a) kernel fault on lane {fault_lane} {json.dumps({"flush_raised": raised, "breakers_unmoved": unmoved, "fallback_flushes": fb, "lane0_bitwise_one_lane": True, "lane1_after_restore_bitwise": True, "b1": launches["kernel-fault drill"]})}')
+    print(f'{label}: (a) kernel fault on lane {fault_lane} {json.dumps({"flush_raised": raised, "b1_load_attempts": b1_loads[0], "breakers_unmoved": unmoved, "fallback_flushes": fb, "lane0_bitwise_one_lane": True, "lane1_after_restore_bitwise": True, "b1": launches["kernel-fault drill"]})}')
 
     # -- a swap lands on every lane or on none
     registry = ModelRegistry(os.path.join(LANES_DIR, 'registry'), device=device)
@@ -6066,16 +6152,20 @@ def seq_serve_phase(
     breaker_before = msvc.breaker.to_dict()
     before = serve_counts()
     attempts = [0]
-
-    def no_b1(*args: Any, **kwargs: Any) -> Any:
-        attempts[0] += 1
-        if device.type == 'cuda':
-            raise OSError('libgather_matmul.so: cannot open shared object file (kernel-fault drill)')
-        raise cuda_build.KernelError('gather_matmul cannot be loaded (kernel-fault drill)')
-
-    # as phase 16 (e): on the card the library load fails, on the CPU the wrapper
+    # as phase 16 (e): on the card B1's library load fails (the seq head's
+    # feature rows still load theirs), on the CPU the wrapper
     patched = (cuda_build, 'load_library') if device.type == 'cuda' else (fused_ops, 'fused_first_layer_quant')
     real = getattr(*patched)
+
+    def no_b1(*args: Any, **kwargs: Any) -> Any:
+        if device.type == 'cuda':
+            if args[0] != 'gather_matmul':
+                return real(*args, **kwargs)
+            attempts[0] += 1
+            raise OSError('libgather_matmul.so: cannot open shared object file (kernel-fault drill)')
+        attempts[0] += 1
+        raise cuda_build.KernelError('gather_matmul cannot be loaded (kernel-fault drill)')
+
     setattr(*patched, no_b1)
     gm.fused_first_layer_quant.launches = 0
     outcomes: List[Any] = []
@@ -6158,6 +6248,14 @@ def main() -> int:
     }
     for rec in checks.values():
         print(f'kernel gather_matmul vs plain ({card}): {json.dumps(rec)}')
+    # the feature rows at a season cell's chunk, in both families
+    row_checks = {}
+    for model_cls in (VAEP, AtomicVAEP):
+        chunk = make_batch(model_cls, ROWS_GAMES, ACTIONS, seed=4, device=device)
+        rec = row_checks[model_cls.__name__] = check_feature_rows(
+            chunk, model_cls._default_xfns, fused_ops.REGISTRIES[model_cls._fused_registry])
+        print(f'kernel feature_rows vs plain ({card}): {json.dumps(rec)}')
+        del chunk
     lap('build and kernel checks')
 
     # -- phase 4, the VAEP serving path: the entry points' default device
@@ -6399,6 +6497,18 @@ def main() -> int:
         "phase19 fit_rows(learner='mlp') (fit and control)": quality['fit_launches']['segment_sum'],
         "phase20 the providers' games rate_batch": providers['segment_launches'],
     }
+    rows_paths = {
+        'rate_batch': serving['launches']['feature_rows'],
+        'atomic rate_batch': atomic_serving['launches']['feature_rows'],
+        'fit_packed': run['launches']['feature_rows'],
+        'atomic fit_packed': atomic_run['launches']['feature_rows'],
+        'seq fit_packed': seq_run['launches']['feature_rows'],
+        'atomic seq fit_packed': aseq['launches']['feature_rows'],
+        'rate_scenarios_batch': scenario['fold_rows_launches'],
+        'rate_scenarios_looped': scenario['loop_rows_launches'],
+        **{f'phase16 {part}': n for part, n in serve_fold['feature_rows_launches'].items()},
+    }
+    row_shapes = list(row_checks.values()) + [serve_fold['feature_rows_at_fold_shape']]
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
     kernels = [{
@@ -6482,6 +6592,24 @@ def main() -> int:
             for rec in seg_checks + rating['kernels']['segment_sum']
         ],
         'ptxas': cuda_build.ptxas_report('segment_sum'),
+    }, {
+        'name': 'feature_rows',
+        'route': 'cuda',
+        'source': 'socceraction_tpu_torch/csrc/feature_rows.cu',
+        # no kernel of the JAX package: XLA fuses its feature transformers
+        'replaces': 'socceraction_tpu_torch/ops/fused.py:packed_rows_reference',
+        'launches': sum(rows_paths.values()),
+        'launches_by_path': rows_paths,
+        'max_abs_err': max(rec['max_abs_err'] for rec in row_shapes),
+        # the standard season chunk, 1024 x 1664
+        'ms': row_checks['VAEP']['ms'],
+        'plain_ms': row_checks['VAEP']['plain_ms'],
+        'bound_ms': row_checks['VAEP']['bound_ms'],
+        'bound_by': 'bytes',
+        # no single PyTorch call computes the rows
+        'library_ms': None,
+        'shapes': row_shapes,
+        'ptxas': cuda_build.ptxas_report('feature_rows'),
     }]
     lap('kernels line')
     print(f'chip_smoke: phase walls (s) {json.dumps(walls)}')

@@ -44,7 +44,6 @@ from __future__ import annotations
 import gc
 import sys
 import threading
-import warnings
 from typing import Any, Dict, List, Optional
 
 from .metrics import REGISTRY, MetricRegistry
@@ -140,16 +139,19 @@ def live_array_census(top: int = 10) -> Dict[str, Any]:
     groups: Dict[Any, List[int]] = {}
     total = 0
     n_arrays = 0
-    with warnings.catch_warnings():
-        # testing the class of some objects (deprecated aliases) warns
-        warnings.simplefilter('ignore')
-        tensors = []
-        for obj in gc.get_objects():
-            try:
-                if isinstance(obj, torch.Tensor) and obj.is_cuda:
-                    tensors.append(obj)
-            except ReferenceError:  # a dead weakref proxy has no class to test
-                continue
+    # one dict lookup an object: the walk visits every object the collector
+    # tracks (a million and more in a long-lived server), and only tensors
+    # cost more. ``type`` reads no ``__class__``, so proxies and deprecated
+    # aliases neither raise nor warn; a proxy's tensor is walked itself.
+    kinds: Dict[type, bool] = {}
+    tensors = []
+    for obj in gc.get_objects():
+        kind = type(obj)
+        is_tensor = kinds.get(kind)
+        if is_tensor is None:
+            is_tensor = kinds[kind] = issubclass(kind, torch.Tensor)
+        if is_tensor and obj.is_cuda:
+            tensors.append(obj)
     for obj in tensors:
         storage = obj.untyped_storage()
         key = (storage.device.index, storage.data_ptr())

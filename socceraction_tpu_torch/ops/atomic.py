@@ -41,6 +41,12 @@ _ONEHOT_GROUPS: Tuple[Tuple[str, Tuple[int, ...]], ...] = tuple(
     (name, tuple(i for i, t in enumerate(atomicconfig.actiontypes) if t == name))
     for name in dict.fromkeys(atomicconfig.actiontypes)
 )
+#: Each type id's one-hot group, its index in :data:`_ONEHOT_GROUPS` (both
+#: 'interception' ids share one).
+GROUP_OF_TYPE: Tuple[int, ...] = tuple(
+    next(g for g, (_, ids) in enumerate(_ONEHOT_GROUPS) if t in ids)
+    for t in range(len(atomicconfig.actiontypes))
+)
 
 
 class _AtomicStates:

@@ -42,7 +42,8 @@ from ..obs.dispatch import instrument
 from ..obs.numerics import guards_enabled, nonfinite_count, note_guard, overflow_count
 from ..obs.trace import span
 from ..spadl import config as spadlconfig
-from .atomic import _ONEHOT_GROUPS, ATOMIC_KERNELS, ATOMIC_WIDTHS, _AtomicStates
+from .atomic import _ONEHOT_GROUPS, ATOMIC_KERNELS, ATOMIC_WIDTHS, GROUP_OF_TYPE, _AtomicStates
+from .feature_rows import feature_rows
 from .features import _WIDTHS, KERNELS, _States, kernel_width
 from .gather_matmul import first_layer_cost, fused_first_layer, fused_first_layer_quant
 from .quant import (
@@ -134,17 +135,13 @@ STANDARD_REGISTRY = FusedRegistry(
 # row gather. Built from the kernel's own group table, so the two agree.
 _N_ATOMIC_GROUPS = len(_ONEHOT_GROUPS)
 _N_ATOMIC_BODYPARTS = len(atomicconfig.bodyparts)
-_ATOMIC_GROUP_OF_TYPE = [0] * len(atomicconfig.actiontypes)
-for _g, (_, _ids) in enumerate(_ONEHOT_GROUPS):
-    for _t in _ids:
-        _ATOMIC_GROUP_OF_TYPE[_t] = _g
 
 
 @functools.lru_cache(maxsize=None)
 def _atomic_group_table(device: torch.device) -> torch.Tensor:
     """The type id -> group table on ``device``, made once per device: a
     copy from the host on every call would wait for the card."""
-    return torch.tensor(_ATOMIC_GROUP_OF_TYPE, dtype=torch.int32, device=device)
+    return torch.tensor(GROUP_OF_TYPE, dtype=torch.int32, device=device)
 
 
 def _atomic_group(type_id: torch.Tensor) -> torch.Tensor:
@@ -382,8 +379,7 @@ def prepare_pair_fold(
     return PreparedPair(t_q, w_q, bias.contiguous(), quantize, int(Wk_a.shape[1]))
 
 
-def _packed_rows(
-    s: Any,
+def packed_rows_reference(
     batch: Any,
     *,
     names: Sequence[str],
@@ -391,12 +387,14 @@ def _packed_rows(
     registry: FusedRegistry,
     dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x_dense (N, D) f32, combo ids (N, k) int32)`` rows of a batch.
+    """The plain PyTorch version of the feature rows, on any device:
+    ``(x_dense (N, D) f32, combo ids (N, k) int32)`` of a batch.
 
-    Dense blocks are concatenated in layout order, with
-    ``dense_overrides[name]`` (``(G, A, width)``) in place of kernel
-    ``name``'s block.
+    The registry's states and dense kernels, their blocks concatenated in
+    layout order, with ``dense_overrides[name]`` (``(G, A, width)``) in
+    place of kernel ``name``'s block.
     """
+    s = registry.make_states(batch, k)
     G, A = batch.n_games, batch.max_actions
     n = G * A
     blocks: List[torch.Tensor] = []
@@ -420,6 +418,24 @@ def _packed_rows(
         [registry.combo_ids(s, i).reshape(n) for i in range(k)], dim=1
     ).to(torch.int32)
     return x_dense, ids
+
+
+def _packed_rows(
+    batch: Any,
+    *,
+    names: Sequence[str],
+    k: int,
+    registry: FusedRegistry,
+    dense_overrides: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x_dense (N, D) f32, combo ids (N, k) int32)`` rows of a batch.
+
+    A CPU batch runs :func:`packed_rows_reference`; a card batch one launch
+    of :func:`~.feature_rows.feature_rows` (``csrc/feature_rows.cu``), with
+    the same bits, or a ``KernelError``: there is no fallback.
+    """
+    rows = packed_rows_reference if batch.device.type == 'cpu' else feature_rows
+    return rows(batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides)
 
 
 def _pair_cost(
@@ -472,9 +488,8 @@ def _pair_dispatch(
     inside ``vaep/head``; B1's launch sits between them."""
     registry = REGISTRIES[registry_name]
     with span('vaep/features'):
-        s = registry.make_states(batch, k)
         x_dense, ids = _packed_rows(
-            s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+            batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
         )
         if x_dense.shape[1] != prep.w_dense.data.shape[0]:
             raise ValueError(
@@ -549,9 +564,8 @@ def _fold_first_layer(
     tables and the dense sub-kernel folded from it, then one launch of
     :func:`~.gather_matmul.fused_first_layer` (kernel B1 on the card)."""
     tables, w_dense = _fold_tables(Wk, train_layout(names, k, registry))
-    s = registry.make_states(batch, k)
     x_dense, ids = _packed_rows(
-        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+        batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
     )
     h = fused_first_layer(tables, w_dense, bias, ids, x_dense)
     return h.reshape(batch.n_games, batch.max_actions, -1)
@@ -653,8 +667,7 @@ def build_train_states(
     formed.
     """
     layout = train_layout(names, k, registry)
-    s = registry.make_states(batch, k)
-    x_dense, ids = _packed_rows(s, batch, names=names, k=k, registry=registry)
+    x_dense, ids = _packed_rows(batch, names=names, k=k, registry=registry)
     weight = batch.mask.reshape(-1).to(torch.float32)
     return TrainStates(x_dense, ids, weight), layout
 

@@ -253,9 +253,8 @@ def _seq_pair_dispatch(
     the shapes of what it reads."""
     registry = REGISTRIES[registry_name]
     layout = train_layout(names, k, registry)
-    s = registry.make_states(batch, k)
     x_dense, ids = _packed_rows(
-        s, batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+        batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
     )
     shape = (batch.n_games, batch.max_actions)
     pa, pb = (

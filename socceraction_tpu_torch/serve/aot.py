@@ -6,7 +6,8 @@ rates its first action. In the JAX package that compiler is XLA, and its
 warm tier ships serialized executables. In the port the only compiled
 artifacts are the shared libraries of the hand-written kernels, which
 :mod:`~socceraction_tpu_torch.ops.cuda_build` builds with ``nvcc`` (one
-per ``csrc/*.cu``: B1's ``gather_matmul`` and B2's ``segment_sum``), so
+per ``csrc/*.cu``: B1's ``gather_matmul``, B2's ``segment_sum`` and the
+feature rows' ``feature_rows``), so
 the port's warm tier ships those libraries:
 
 - :func:`export_serving_aot` — writes each built library into
@@ -76,9 +77,10 @@ AOT_DIRNAME = 'aot'
 #: checkpoint format stamps)
 AOT_FORMAT = 1
 
-#: The kernel libraries a version ships: B1 (every serving flush) and B2
-#: (the learner's statistics), named by their ``csrc/<name>.cu``.
-KERNELS: Tuple[str, ...] = ('gather_matmul', 'segment_sum')
+#: The kernel libraries a version ships: B1 and the feature rows (every
+#: serving flush) and B2 (the learner's statistics), named by their
+#: ``csrc/<name>.cu``.
+KERNELS: Tuple[str, ...] = ('gather_matmul', 'segment_sum', 'feature_rows')
 
 #: Library reads retried under this policy: transient filesystem errors
 #: back off and retry; checksum mismatches (ValueError) are permanent —

@@ -353,6 +353,8 @@ class RatingService:
         self.last_dump_path: Optional[str] = None
         self._dump_lock = threading.Lock()
         self._last_dump_t: Dict[str, float] = {}
+        # the breach dumps' threads, joined by close()
+        self._dumps: List[threading.Thread] = []
         self._overloads: 'deque[float]' = deque()
         self._started_t = time.monotonic()
         self.request_deadline_ms = request_deadline_ms
@@ -878,11 +880,17 @@ class RatingService:
             self._slo.observe_request(kind, wall_s, status)
 
     def _on_slo_breach(self, objective: str, entry: Dict[str, Any]) -> None:
-        """SLO engine breach hook: dump the flight recorder (rate-limited)."""
-        self._maybe_dump(
-            'slo_breach',
-            {'type': 'slo_breach', 'objective': objective, 'evaluation': entry},
-        )
+        """SLO engine breach hook: dump the flight recorder (rate-limited)
+        on a thread of its own. The breach fires inside the evaluation that
+        admission runs, and the bundle's tensor census walks every object
+        the collector tracks: the request that finds the breach does not
+        wait for that walk. :meth:`close` waits for the dump."""
+        trigger = {'type': 'slo_breach', 'objective': objective, 'evaluation': entry}
+        dump = threading.Thread(target=self._maybe_dump, args=('slo_breach', trigger),
+                                name='slo-breach-dump', daemon=True)
+        with self._dump_lock:
+            self._dumps = [t for t in self._dumps if t.is_alive()] + [dump]
+            dump.start()
 
     def _submit(
         self, payload: Any, kind: str, ctx: Optional[RequestContext] = None,
@@ -1652,10 +1660,15 @@ class RatingService:
 
     def close(self, *, drain: bool = True) -> None:
         """Flush (or fail) queued requests and stop the flusher thread; the
-        parity probe, when attached, is closed after its pending probes."""
+        parity probe, when attached, is closed after its pending probes, and
+        a breach's debug bundle is written before this returns."""
         self._batcher.close(drain=drain)
         if self.parity is not None:
             self.parity.close()
+        with self._dump_lock:
+            dumps, self._dumps = self._dumps, []
+        for dump in dumps:
+            dump.join()
 
     def __enter__(self) -> 'RatingService':
         return self

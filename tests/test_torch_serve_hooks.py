@@ -23,6 +23,7 @@ Windows are wide and coalescing is forced, so no pass depends on timing.
 """
 
 import glob
+import threading
 from types import SimpleNamespace
 
 import pandas as pd
@@ -171,6 +172,44 @@ def test_forced_latency_burn_sheds_with_burn_rate_reason(models, tmp_path, verb)
         assert slo[key] == out['jax'][1][key], key
     assert shed_count == out['jax'][2] == 3 and dumped and out['jax'][3]
     assert _value(PKGS['port'], 'serve/debug_dumps', reason='slo_breach') >= 1
+
+
+def test_the_breach_bundle_is_written_outside_admission(models, tmp_path, monkeypatch):
+    """The port writes an SLO breach's debug bundle, whose tensor census
+    walks every object the collector tracks, on a thread of its own: the
+    request that finds the breach is shed without waiting for the bundle,
+    and ``close()`` waits for it."""
+    from socceraction_tpu_torch.serve import service as port_service
+
+    held, release, writers = threading.Event(), threading.Event(), []
+    real = port_service.dump_debug_bundle
+
+    def held_dump(*args, **kwargs):
+        writers.append(threading.current_thread().name)
+        held.set()
+        release.wait(WAIT)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_service, 'dump_debug_bundle', held_dump)
+    p = PKGS['port']
+    svc = _service('port', models, slo=_burning(p), debug_dir=str(tmp_path))
+    closer = threading.Thread(target=svc.close)
+    try:
+        svc.warmup()
+        frame = _frame(5, 80)
+        with pytest.raises(p.SLOShed):
+            for _ in range(10):
+                svc.rate_sync(frame, home_team_id=HOME, timeout=WAIT)
+        assert held.wait(WAIT) and writers == ['slo-breach-dump']
+        assert svc.last_dump_path is None  # shed while the bundle is held
+        closer.start()
+        closer.join(0.2)
+        assert closer.is_alive()
+    finally:
+        release.set()
+    closer.join(WAIT)
+    assert not closer.is_alive()
+    assert glob.glob(str(tmp_path / 'debug-*.tar.gz')) == [svc.last_dump_path]
 
 
 def test_steady_traffic_under_objective_is_never_shed(models):

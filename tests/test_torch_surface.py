@@ -29,6 +29,7 @@ PORT_MODULES = {
     'convert': 'carries JAX checkpoints and parameters into PyTorch (flax msgpack, MLP params)',
     'device': "resolves the entry points' device: the card unless the caller asks for the CPU",
     'ops.cuda_build': 'builds and loads the hand-written CUDA kernels with nvcc',
+    'ops.feature_rows': "writes the fused path's dense feature block and combined ids in one CUDA launch",
     'parallel.collectives': 'torch.distributed collectives in place of the mesh collectives jax lowers',
 }
 
