@@ -16,8 +16,10 @@ import torch
 
 
 def build(config: Dict[str, Any], weights: Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]],
-          mean: torch.Tensor, std: torch.Tensor, device: torch.device) -> Any:
-    """The port's model with the harness's heads, on ``device``."""
+          layout: Any, mean: torch.Tensor, std: torch.Tensor, device: torch.device) -> Any:
+    """The port's model with the harness's heads, on ``device``. The heads
+    read the whole row, so the port's converter takes the full-width
+    standardization and the ``layout`` is not needed."""
     from socceraction_tpu_torch.atomic.vaep.base import AtomicVAEP
     from socceraction_tpu_torch.convert import mlp_from_jax_params
     from socceraction_tpu_torch.vaep.base import VAEP

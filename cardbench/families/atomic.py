@@ -16,8 +16,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import spadl
-from .spadl import FIELD_LENGTH, FIELD_WIDTH, categorical, onehot, shift
+from cardbench.families import Layout, spadl
+from cardbench.families.spadl import FIELD_LENGTH, FIELD_WIDTH, categorical, onehot, shift
 
 ACTIONTYPES = spadl.ACTIONTYPES + [
     'receival', 'interception', 'out', 'offside', 'goal', 'owngoal', 'yellow_card',
@@ -128,12 +128,13 @@ TRANSFORMERS: Dict[str, spadl.Transformer] = {
     'polar': per_state(lambda a, dt: spadl.polar(a['x'], a['y'])),
     'movement_polar': per_state(_movement_polar),
     'direction': per_state(_direction),
-    'goalscore': lambda s, dt: (spadl.goalscore(s[0], *goal_masks(s[0]['type_id']), dt), False),
+    'goalscore': lambda s, dt: ([(0, spadl.goalscore(s[0], *goal_masks(s[0]['type_id']), dt))],
+                                False),
 }
 
 
-def features(f: Dict[str, torch.Tensor], xfns: List[str], k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(G, A, F)`` atomic features and the one-hot column mask
+def features(f: Dict[str, torch.Tensor], xfns: List[str], k: int) -> Tuple[torch.Tensor, Layout]:
+    """``(G, A, F)`` atomic features and their layout
     (:func:`.spadl.features` over this language's transformers)."""
     return spadl.features(f, xfns, k, transformers=TRANSFORMERS, state_fn=states)
 

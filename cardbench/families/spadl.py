@@ -12,7 +12,8 @@ of left-aligned games. They import nothing of the program under test.
   and clocks; end points as noisy displacements of start points).
 - :func:`features` is the ``(G, A, F)`` feature tensor of the named
   transformers at ``k`` game states, in socceraction's column order, in the
-  dtype of the float fields it is given.
+  dtype of the float fields it is given, and its column layout (a
+  :class:`~cardbench.families.Block` for each transformer and state).
 - :func:`values` is the offensive, defensive and total VAEP value.
 """
 
@@ -21,6 +22,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+from cardbench.families import Block, Layout
 
 FIELD_LENGTH = 105.0
 FIELD_WIDTH = 68.0
@@ -142,14 +145,17 @@ def goalscore(a0: Dict[str, torch.Tensor], goals: torch.Tensor, owngoals: torch.
 
 
 States = List[Dict[str, torch.Tensor]]
-#: Each transformer: ``(states, dtype) -> (columns or blocks, one-hot?)``.
-Transformer = Callable[[States, torch.dtype], Tuple[List[torch.Tensor], bool]]
+#: Columns (or blocks of them) that a transformer makes for one game state.
+Columns = List[torch.Tensor]
+#: Each transformer: ``(states, dtype) -> ([(lag, columns), ...], one-hot?)``,
+#: in column order.
+Transformer = Callable[[States, torch.dtype], Tuple[List[Tuple[int, Columns]], bool]]
 
 
-def _per_state(fn: Callable[[Dict[str, torch.Tensor], torch.dtype], List[torch.Tensor]],
+def _per_state(fn: Callable[[Dict[str, torch.Tensor], torch.dtype], Columns],
                is_onehot: bool = False) -> Transformer:
     """socceraction's ``@simple``: the transformer on each state in turn."""
-    return lambda s, dt: ([c for a in s for c in fn(a, dt)], is_onehot)
+    return lambda s, dt: ([(i, fn(a, dt)) for i, a in enumerate(s)], is_onehot)
 
 
 def _type_result(a: Dict[str, torch.Tensor], dt: torch.dtype) -> List[torch.Tensor]:
@@ -164,17 +170,17 @@ def _movement(a: Dict[str, torch.Tensor], dt: torch.dtype) -> List[torch.Tensor]
     return [dx, dy, torch.sqrt(dx * dx + dy * dy)]
 
 
-def _space_delta(s: States, dt: torch.dtype) -> Tuple[List[torch.Tensor], bool]:
-    cols = []
-    for a in s[1:]:
+def _space_delta(s: States, dt: torch.dtype) -> Tuple[List[Tuple[int, Columns]], bool]:
+    groups = []
+    for i, a in enumerate(s[1:], 1):
         dx = a['end_x'] - s[0]['start_x']
         dy = a['end_y'] - s[0]['start_y']
-        cols += [dx, dy, torch.sqrt(dx * dx + dy * dy)]
-    return cols, False
+        groups.append((i, [dx, dy, torch.sqrt(dx * dx + dy * dy)]))
+    return groups, False
 
 
-def _goalscore(s: States, dt: torch.dtype) -> Tuple[List[torch.Tensor], bool]:
-    return goalscore(s[0], *goal_masks(s[0]['type_id'], s[0]['result_id']), dt), False
+def _goalscore(s: States, dt: torch.dtype) -> Tuple[List[Tuple[int, Columns]], bool]:
+    return [(0, goalscore(s[0], *goal_masks(s[0]['type_id'], s[0]['result_id']), dt))], False
 
 
 def _time(a: Dict[str, torch.Tensor], dt: torch.dtype) -> List[torch.Tensor]:
@@ -193,8 +199,10 @@ TRANSFORMERS: Dict[str, Transformer] = {
     'startpolar': _per_state(lambda a, dt: polar(a['start_x'], a['start_y'])),
     'endpolar': _per_state(lambda a, dt: polar(a['end_x'], a['end_y'])),
     'movement': _per_state(_movement),
-    'team': lambda s, dt: ([(a['is_home'] == s[0]['is_home']).to(dt) for a in s[1:]], False),
-    'time_delta': lambda s, dt: ([s[0]['time_seconds'] - a['time_seconds'] for a in s[1:]], False),
+    'team': lambda s, dt: ([(i, [(a['is_home'] == s[0]['is_home']).to(dt)])
+                            for i, a in enumerate(s[1:], 1)], False),
+    'time_delta': lambda s, dt: ([(i, [s[0]['time_seconds'] - a['time_seconds']])
+                                  for i, a in enumerate(s[1:], 1)], False),
     'space_delta': _space_delta,
     'goalscore': _goalscore,
 }
@@ -221,18 +229,20 @@ def _as_block(cols: List[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
 def features(f: Dict[str, torch.Tensor], xfns: Sequence[str], k: int,
              transformers: Dict[str, Transformer] = TRANSFORMERS,
              state_fn: Callable[[Dict[str, torch.Tensor], int], States] = states,
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(G, A, F)`` features in the dtype of ``f['time_seconds']``, and the
-    ``(F,)`` bool mask of one-hot columns."""
+             ) -> Tuple[torch.Tensor, Layout]:
+    """``(G, A, F)`` features in the dtype of ``f['time_seconds']``, and
+    their layout: a block for each transformer and state, in column order."""
     dt = f['time_seconds'].dtype
     s = state_fn(f, k)
-    blocks, kinds = [], []
+    blocks, layout, offset = [], [], 0
     for name in xfns:
-        cols, is_onehot = transformers[name](s, dt)
-        block = _as_block(cols, dt)
-        blocks.append(block)
-        kinds.append(torch.full((block.shape[-1],), is_onehot, dtype=torch.bool))
-    return torch.cat(blocks, -1), torch.cat(kinds)
+        groups, is_onehot = transformers[name](s, dt)
+        for lag, cols in groups:
+            block = _as_block(cols, dt)
+            blocks.append(block)
+            layout.append(Block(name, lag, offset, block.shape[-1], is_onehot))
+            offset += block.shape[-1]
+    return torch.cat(blocks, -1), tuple(layout)
 
 
 # -- values -----------------------------------------------------------------

@@ -47,15 +47,15 @@ def b1_roofline(run: Any) -> Optional[float]:
 
 def mfu(run: Any) -> Optional[float]:
     """% of the card's dense TF32 peak that the model's FLOPs
-    (:func:`yardstick.flops_per_action` per valid action rated) make over
-    the calls after the profiler stopped, from the first one's entry to the
-    last one's end: the step's share of the peak at full speed, which the
-    profiler's own cost on the host would lower."""
+    (:func:`yardstick.flops_per_action`, the head kind's count, per valid
+    action rated) make over the calls after the profiler stopped, from the
+    first one's entry to the last one's end: the step's share of the peak
+    at full speed, which the profiler's own cost on the host would lower."""
     peak = yardstick.peaks(run.device_name)
     calls = [c for c in run.untraced if c.ok]
     if peak is None or not calls or run.trace is None:
         return None
-    flops = yardstick.flops_per_action(run.config) * sum(c.work for c in calls)
+    flops = yardstick.flops_per_action(run.config, run.head) * sum(c.work for c in calls)
     wall = run.untraced[-1].t_end - run.untraced[0].t_entry
     return 100.0 * flops / wall / peak['flops_tf32']
 

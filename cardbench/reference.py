@@ -2,10 +2,11 @@
 
 The reference recomputes a configuration's values from the raw season
 columns and the weights the harness made: the features of the action
-language (:mod:`cardbench.families`), the standardization, both heads
-(:mod:`cardbench.heads`) and the value formula, in float64, in blocks of
-games so that it fits beside the season. It imports nothing of the program
-under test and takes nothing the program made.
+language (:mod:`cardbench.families`) with their column layout, both heads
+(:mod:`cardbench.heads`), each given the raw feature row, the layout and
+the standardization, and the value formula, in float64, in blocks of games
+so that it fits beside the season. It imports nothing of the program under
+test and takes nothing the program made.
 
 A value's gap is its distance to the nearer of the reference's two values:
 from features computed in float64, and from features computed in float32
@@ -19,7 +20,6 @@ mantissa and the products summed in float32.
 
 from __future__ import annotations
 
-import importlib
 from typing import Any, Dict, List, NamedTuple
 
 import torch
@@ -42,7 +42,8 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class Model(NamedTuple):
     """What the reference needs of one configuration: its language and head
-    modules, the configuration, the weights and the standardization."""
+    modules, the configuration, the weights, the standardization and the
+    feature row's layout (:class:`cardbench.families.Block` each)."""
 
     family: Any
     head: Any
@@ -50,16 +51,11 @@ class Model(NamedTuple):
     weights: Dict[str, List[Any]]
     mean: torch.Tensor
     std: torch.Tensor
-
-
-def modules(config: Dict[str, Any]) -> Any:
-    """The action-language and head modules a configuration names."""
-    return (importlib.import_module(f"cardbench.families.{config['family']}"),
-            importlib.import_module(f"cardbench.heads.{config['head']}"))
+    layout: Any
 
 
 def features(family: Any, config: Dict[str, Any], fields: Dict[str, torch.Tensor]) -> Any:
-    """``(features, one-hot mask)`` of a configuration's transformers."""
+    """``(features, layout)`` of a configuration's transformers."""
     return family.features(fields, config['xfns'], config['nb_prev_actions'])
 
 
@@ -72,19 +68,20 @@ def standardization(family: Any, config: Dict[str, Any], fields: Dict[str, torch
                     mask: torch.Tensor) -> Any:
     """float32 means and standard deviations of the features of the valid
     rows of ``fields`` (computed in float64; a constant column gets 1),
-    and the one-hot mask."""
-    x, onehot = features(family, config, cast(fields, torch.float64))
+    and the feature row's layout."""
+    x, layout = features(family, config, cast(fields, torch.float64))
     rows = x[mask]
     std = rows.std(0, unbiased=False)
     std = torch.where(std > 0, std, torch.ones_like(std))
-    return rows.mean(0).float(), std.float(), onehot
+    return rows.mean(0).float(), std.float(), layout
 
 
 def values(model: Model, fields: Dict[str, torch.Tensor], *, feature_dtype: torch.dtype = torch.float64,
            control: bool = False) -> torch.Tensor:
     """``(G, A, 3)`` values of the games in ``fields``: the features in
-    ``feature_dtype``, the rest in float64; with ``control`` everything in
-    float32 with TF32 products."""
+    ``feature_dtype``, the rest (each head's standardization, its layers
+    and the formula) in float64; with ``control`` everything in float32
+    with TF32 products."""
     dtype = torch.float32 if control else torch.float64
     feature_dtype = torch.float32 if control else feature_dtype
     matmul = tf32_matmul if control else torch.matmul
@@ -94,8 +91,9 @@ def values(model: Model, fields: Dict[str, torch.Tensor], *, feature_dtype: torc
     for g0 in range(0, n_games, BLOCK_GAMES):
         f = {n: t[g0:g0 + BLOCK_GAMES] for n, t in fields.items()}
         x, _ = features(model.family, model.config, cast(f, feature_dtype))
-        x = (x.to(dtype) - mean) / std
-        p = [model.head.probs(x, model.weights[col], matmul) for col in model.head.HEADS]
+        x = x.to(dtype)
+        p = [model.head.probs(x, model.weights[col], model.config, model.layout, mean, std, matmul)
+             for col in model.head.HEADS]
         out.append(model.family.values(cast(f, dtype), *p))
         del x
     return torch.cat(out)

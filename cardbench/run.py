@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib
 import json
 import os
 import sys
@@ -85,8 +84,8 @@ def prepare(spec: specmod.Spec, name: str, seed: int, device: torch.device,
     and the loaded caller."""
     cell = spec.workload(name)
     config, traffic = spec.config(cell['config']), spec.traffic(cell['traffic'])
-    family, head = reference.modules(config)
-    adapter = importlib.import_module(f"cardbench.adapters.{config['adapter']}")
+    family, head, adapter = spec.modules(config)
+    head.check(config)
     set_precision()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -94,11 +93,11 @@ def prepare(spec: specmod.Spec, name: str, seed: int, device: torch.device,
     season = trafficmod.make_season(family, traffic, gen, rng, device)
     # the standardization: the reference's features of the season's first games
     sample = slice(0, STAT_GAMES)
-    mean, std, onehot = reference.standardization(
+    mean, std, layout = reference.standardization(
         family, config, {n: t[sample] for n, t in season.fields.items()}, season.mask[sample])
-    weights = head.make(gen, config['hidden'], onehot, std, device)
-    model = reference.Model(family, head, config, weights, mean, std)
-    built = adapter.build(config, weights, mean, std, device) if program else None
+    weights = head.make(gen, config, layout, mean, std, device)
+    model = reference.Model(family, head, config, weights, mean, std, layout)
+    built = adapter.build(config, weights, layout, mean, std, device) if program else None
     load = spec.driver(traffic['kind']).Load(traffic, config, adapter, built, season, family, rng, device)
     return SimpleNamespace(cell=cell, config=config, traffic=traffic, season=season, model=model,
                 load=load)
@@ -141,7 +140,7 @@ def run_cell(spec: specmod.Spec, name: str, seed: int, seconds: float, trace: bo
     correct = judged['answers'] > 0 and all(c['value'] <= c['limit'] for c in checks.values())
 
     # what the metric readers read (cardbench.readers)
-    run = SimpleNamespace(config=config, traffic=traffic, work_unit=load.work_unit,
+    run = SimpleNamespace(config=config, head=model.head, traffic=traffic, work_unit=load.work_unit,
               setup_s=setup_s, wall_s=ran['wall_s'],
               calls=calls, traced=calls[:traced] if traced else [],
               untraced=calls[traced:] if traced else calls, trace=parsed,

@@ -7,7 +7,8 @@ metric is a new file plus a new entry, and no existing file changes:
 
 - ``configs/<config>.json``: the configuration's sizes; its ``family``,
   ``head`` and ``adapter`` name the modules under ``families/``, ``heads/``
-  and ``adapters/`` that hold its reference and its call into the program;
+  and ``adapters/`` that hold its reference and its call into the program
+  (loaded from their files, :meth:`Spec.module`);
 - ``traffic/<traffic>.json``: the mix's parameters (:mod:`cardbench.traffic`);
 - ``drivers/<kind>.py``: the ``Load`` class that calls the program for the
   mixes of that ``kind`` (a subclass of :class:`cardbench.traffic.ClosedLoop`);
@@ -84,7 +85,18 @@ class Spec:
         """The ``read`` function of ``metrics/<metric>.py``."""
         return load_file(self.root / 'cardbench' / 'metrics' / f'{metric}.py').read
 
+    def module(self, kind: str, name: str) -> Any:
+        """The module ``cardbench/<kind>/<name>.py`` of this root: an action
+        language (``families``), a head kind (``heads``), a program adapter
+        (``adapters``) or a traffic kind's driver (``drivers``)."""
+        return load_file(self.root / 'cardbench' / kind / f'{name}.py')
+
+    def modules(self, config: Dict[str, Any]) -> Any:
+        """``(family, head, adapter)``: the modules a configuration names."""
+        return (self.module('families', config['family']), self.module('heads', config['head']),
+                self.module('adapters', config['adapter']))
+
     def driver(self, kind: str) -> Any:
         """The module ``drivers/<kind>.py``, whose ``Load`` calls the program
         for the traffic mixes of that kind."""
-        return load_file(self.root / 'cardbench' / 'drivers' / f'{kind}.py')
+        return self.module('drivers', kind)

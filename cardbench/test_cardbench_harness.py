@@ -10,6 +10,7 @@ from __future__ import annotations
 import ast
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -22,7 +23,14 @@ import torch
 
 from cardbench import reference, run, spec as specmod, testing, trace, traffic, yardstick
 
-CELLS = ('vaep-season-rate', 'atomic-season-rate', 'vaep-scenario-grid')
+_SPEC = specmod.Spec()
+#: Every cell of ``BENCHMARK.json``, those added later too.
+CELLS = tuple(w['name'] for w in _SPEC.bench['workloads'])
+#: The cells whose configuration has MLP heads.
+MLP_CELLS = tuple(w['name'] for w in _SPEC.bench['workloads']
+                  if _SPEC.config(w['config'])['head'] == 'mlp')
+#: The cells accepted before every cell was read from ``BENCHMARK.json``.
+ACCEPTED = ('vaep-season-rate', 'atomic-season-rate', 'vaep-scenario-grid')
 SEED = 2**31 + 11
 
 
@@ -66,6 +74,38 @@ def test_traced_run_reads_the_host_side_on_cpu(tiny):
     assert result['breakdown']['device_ops'] == [] and result['breakdown']['idle_gaps']
 
 
+def mlp_chain(h, layers, matmul):
+    """The MLP heads' layers as the reference ran them on a row it had
+    standardized itself."""
+    for i, (kernel, bias) in enumerate(layers):
+        h = matmul(h, kernel.to(h.dtype)) + bias.to(h.dtype)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return torch.sigmoid(h[..., 0])
+
+
+@pytest.mark.parametrize('cell', MLP_CELLS)
+def test_the_head_seam_keeps_the_mlp_values_bitwise(tiny, cell):
+    """The reference's values through the head seam (the raw row, its
+    layout and the standardization handed to ``heads/mlp.py``) are bitwise
+    those of the standardization computed inline, ``(x - mean) / std``,
+    then the MLP layers: in float64, from float32 features, and the
+    control's, on the whole tiny season (16 games x 128 actions)."""
+    prepared = run.prepare(tiny, cell, SEED, torch.device('cpu'), program=False)
+    m, fields = prepared.model, prepared.season.fields
+    assert m.head is tiny.module('heads', 'mlp')
+    cases = ((torch.float64, torch.float64, torch.matmul, {}),
+             (torch.float64, torch.float32, torch.matmul, {'feature_dtype': torch.float32}),
+             (torch.float32, torch.float32, reference.tf32_matmul, {'control': True}))
+    for dtype, feature_dtype, matmul, how in cases:
+        x, _ = reference.features(m.family, m.config, reference.cast(fields, feature_dtype))
+        x = (x.to(dtype) - m.mean.to(dtype)) / m.std.to(dtype)
+        p = [mlp_chain(x, m.weights[col], matmul) for col in ('scores', 'concedes')]
+        want = m.family.values(reference.cast(fields, dtype), *p)
+        got = reference.values(m, fields, **how)
+        assert got.dtype == dtype and torch.equal(got, want), how
+
+
 def test_seed_fixes_the_inputs_and_the_work(tiny):
     a = run.prepare(tiny, 'vaep-season-rate', SEED, torch.device('cpu'), program=False)
     b = run.prepare(tiny, 'vaep-season-rate', SEED, torch.device('cpu'), program=False)
@@ -100,8 +140,11 @@ def test_b1_counts_by_hand():
     peak = yardstick.peaks('NVIDIA H100 80GB HBM3')
     # the serving shape, every slot valid: bytes-bound at 0.320 ms
     assert yardstick.b1_least_seconds(cfg, 512 * 1664, peak) == pytest.approx(3.20e-4, rel=3e-3)
-    assert yardstick.flops_per_action(cfg) == 2 * 55 * 256 + 3 * 256 + 2 * (2 * 128 * 128 + 2 * 128)
+    mlp = _SPEC.module('heads', 'mlp')
+    assert yardstick.flops_per_action(cfg, mlp) == 2 * 55 * 256 + 3 * 256 + 2 * (2 * 128 * 128 + 2 * 128)
     assert yardstick.peaks('NVIDIA A100-SXM4-40GB') is None
+    assert yardstick.flops_per_action(_SPEC.config('vaep-mlp128'), mlp) == 94976
+    assert yardstick.flops_per_action(_SPEC.config('atomic-vaep-mlp128'), mlp) == 90368
 
 
 def test_configs_state_their_fold_shape(tiny):
@@ -111,15 +154,26 @@ def test_configs_state_their_fold_shape(tiny):
 
     for name in ('vaep-mlp128', 'atomic-vaep-mlp128'):
         cfg = tiny.config(name)
-        family, _ = reference.modules(cfg)
+        family, _, _ = tiny.modules(cfg)
         gen = torch.Generator().manual_seed(1)
         f = reference.cast(family.draw(gen, 2, 16, torch.device('cpu')), torch.float64)
-        x, onehot = reference.features(family, cfg, f)
-        assert x.shape[-1] == cfg['n_features'] and int((~onehot).sum()) == cfg['dense_columns']
+        x, layout = reference.features(family, cfg, f)
+        assert x.shape[-1] == cfg['n_features'] == sum(b.width for b in layout)
+        assert sum(b.width for b in layout if not b.onehot) == cfg['dense_columns']
+        # the blocks tile the row in order: transformer-major, lag-major within
+        assert [b.offset for b in layout] == [sum(a.width for a in layout[:i]) for i in range(len(layout))]
+        assert [b.name for b in layout] == sorted((b.name for b in layout), key=cfg['xfns'].index)
         registry = REGISTRIES['atomic' if cfg['model_class'] == 'AtomicVAEP' else 'standard']
-        layout = train_layout(cfg['xfns'], cfg['nb_prev_actions'], registry)
-        dense = sum(w for _, kind, _, w in layout.spans if kind == 'dense')
+        fold = train_layout(cfg['xfns'], cfg['nb_prev_actions'], registry)
+        dense = sum(w for _, kind, _, w in fold.spans if kind == 'dense')
         assert dense == cfg['dense_columns']
+        # one block of each one-hot transformer at each lag, as wide as the fold's per state
+        for name, kind, _, width in fold.spans:
+            blocks = [b for b in layout if b.name == name]
+            assert all(b.onehot == (kind == 'onehot') for b in blocks)
+            if kind == 'onehot':
+                assert [b.lag for b in blocks] == list(range(cfg['nb_prev_actions']))
+                assert {b.width for b in blocks} == {width // cfg['nb_prev_actions']}
 
 
 # -- metric arithmetic --------------------------------------------------------
@@ -189,12 +243,13 @@ def test_roofline_and_mfu(tiny):
     t = synthetic_trace()
     untraced = [call(10**9, 0.0, t_entry=30.0), call(10**9, 0.0)]
     untraced[-1].t_end = 32.0
-    r = SimpleNamespace(trace=t, config=cfg, device_name='NVIDIA H100 80GB HBM3',
+    mlp = tiny.module('heads', 'mlp')
+    r = SimpleNamespace(trace=t, config=cfg, head=mlp, device_name='NVIDIA H100 80GB HBM3',
                         traced=[call(10**9, 0.0), call(10**9, 0.0)], untraced=untraced)
     peak = yardstick.peaks(r.device_name)
     least = 2 * yardstick.b1_least_seconds(cfg, 10**9, peak)
     assert tiny.reader('b1_roofline.rate')(r) == pytest.approx(100 * least / 2.0)
-    flops = 2e9 * yardstick.flops_per_action(cfg)
+    flops = 2e9 * yardstick.flops_per_action(cfg, mlp)
     assert tiny.reader('mfu.scenario')(r) == pytest.approx(100 * flops / 2.0 / 495e12)
     r.device_name = 'cpu'
     assert tiny.reader('b1_roofline.rate')(r) is None and tiny.reader('mfu.rate')(r) is None
@@ -203,12 +258,11 @@ def test_roofline_and_mfu(tiny):
 # -- discovery ----------------------------------------------------------------
 
 
-def test_cells_find_their_pieces_by_name():
-    s = specmod.Spec()
-    assert [w['name'] for w in s.bench['workloads']] == list(CELLS)
+def check_pieces(s):
+    """Every cell and configuration of ``s`` finds its pieces by name."""
+    names = [w['name'] for w in s.bench['workloads']]
+    assert len(set(names)) == len(names)
     for w in s.bench['workloads']:
-        assert s.config(w['config'])['hidden'] == [128, 128]
-        assert s.traffic(w['traffic'])['season_games'] == 3072
         assert s.limits(w['name'])['max_abs_gap'] > 0
         e2e = s.metrics(w['name'], per_layer=False)
         assert 'setup_s' in {m['name'] for m in e2e} and len(e2e) >= 2
@@ -219,6 +273,26 @@ def test_cells_find_their_pieces_by_name():
         assert callable(s.reader(m['name']))
     for c in s.bench['configs']:
         assert Path(c['file']).name == f"{c['name']}.json"
+        config = s.config(c['name'])
+        family, head, adapter = s.modules(config)
+        head.check(config)
+        if config['head'] == 'mlp':
+            assert config['hidden'] == [128, 128]
+        assert all(callable(f) for f in (family.draw, family.features, family.values, head.make,
+                                         head.probs, head.flops_per_action, adapter.build,
+                                         adapter.batch))
+
+
+def test_cells_find_their_pieces_by_name():
+    s = specmod.Spec()
+    assert set(ACCEPTED) <= set(CELLS)
+    check_pieces(s)
+    for w in s.bench['workloads']:
+        assert s.traffic(w['traffic'])['season_games'] == 3072
+    mlp = s.module('heads', 'mlp')
+    for bad in ({'hidden': []}, {'hidden': [128, 0]}, {'table_rows': None}):
+        with pytest.raises(ValueError):
+            mlp.check({**s.config('vaep-mlp128'), **bad})
 
 
 def test_a_new_config_mix_and_metric_are_new_files_only(tmp_path):
@@ -251,6 +325,72 @@ def test_a_new_config_mix_and_metric_are_new_files_only(tmp_path):
     assert e2e['correct'] and 'rated_actions_per_s' in e2e['metrics']
     traced = run.run_cell(s, 'vaep-k2.rate8', SEED, 0.4, True, torch.device('cpu'))
     assert traced['correct'] and traced['metrics']['calls_per_s.test']['value'] > 0
+
+
+#: A head kind that is not an MLP, and its program, for the seam test.
+NEWKIND = specmod.ROOT / 'cardbench' / 'newkind'
+#: A test-only per-layer metric that reads the head kind's FLOPs count.
+HEAD_FLOPS_METRIC = """
+from cardbench import yardstick
+
+
+def read(run):
+    work = sum(c.work for c in run.calls if c.ok)
+    return yardstick.flops_per_action(run.config, run.head) * work / run.wall_s
+"""
+
+
+def test_a_head_that_is_not_an_mlp_is_new_files_only(tmp_path, monkeypatch):
+    """A test-only head kind over token ids (``newkind/heads/tokens.py``),
+    its program (``newkind/adapters/tokens.py``, plain float32 torch over
+    the port's packed rows), a configuration with other widths, a cell and
+    a per-layer metric: new files plus ``BENCHMARK.json`` entries. The cell
+    is correct and reports its metrics; with one value altered, or with the
+    control in the program's place, it is not."""
+    root = testing.tiny_root(tmp_path)
+    d = root / 'cardbench'
+    for kind in ('heads', 'adapters'):
+        shutil.copy(NEWKIND / kind / 'tokens.py', d / kind / 'tokens.py')
+    cfg = json.loads((d / 'configs/vaep-mlp128.json').read_text())
+    cfg.update(head='tokens', adapter='tokens', embed_dim=8, hidden=[16, 32],
+               tokens=['bodypart_onehot', 'actiontype_onehot', 'result_onehot'])
+    (d / 'configs/vaep-tokens.json').write_text(json.dumps(cfg))
+    cell = 'vaep-tokens.rate'
+    (d / f'cells/{cell}.json').write_text(json.dumps({'limits': {'max_abs_gap': 1e-6}}))
+    (d / 'metrics/head_flops_per_s.test.py').write_text(HEAD_FLOPS_METRIC)
+    bench = json.loads((root / 'BENCHMARK.json').read_text())
+    bench['configs'].append({'name': 'vaep-tokens', 'source': 'test', 'file': 'cardbench/configs/vaep-tokens.json',
+                             'reduced': ['hidden'], 'why': 'test'})
+    bench['workloads'].append({'name': cell, 'config': 'vaep-tokens', 'traffic': 'season-rate',
+                               'chips': 1, 'why': 'test'})
+    (rate,) = [m for m in bench['end_to_end'] if m['name'] == 'rated_actions_per_s']
+    rate['workloads'].append(cell)
+    bench['per_layer'].append({'name': 'head_flops_per_s.test', 'unit': 'FLOP/s', 'better': 'higher',
+                               'source': 'host_clock', 'layer': 'whole step',
+                               'moves': 'rated_actions_per_s', 'workloads': [cell]})
+    (root / 'BENCHMARK.json').write_text(json.dumps(bench))
+    s = specmod.Spec(root)
+    check_pieces(s)
+    head = s.module('heads', 'tokens')
+    # 3 states x 2·(8·16 + 16·16), the readout 2·(16 + 55)·32 + 2·32, two heads
+    assert yardstick.flops_per_action(cfg, head) == 2 * (3 * 2 * (8 * 16 + 16 * 16) + 2 * 71 * 32 + 2 * 32)
+
+    e2e = run.run_cell(s, cell, SEED, 0.4, False, torch.device('cpu'))
+    assert e2e['correct'] and e2e['failed'] == 0, e2e['checks']
+    assert set(e2e['metrics']) == {'rated_actions_per_s', 'call_p95_ms', 'setup_s'}
+    assert 0 < e2e['checks']['max_abs_gap']['value'] <= 1e-6 / 4
+    traced = run.run_cell(s, cell, SEED, 0.4, True, torch.device('cpu'))
+    assert traced['correct'] and traced['metrics']['head_flops_per_s.test']['value'] > 0
+    with monkeypatch.context() as m:
+        testing.plant_fault(m, s, 'altered', run.WARM_CALLS)
+        altered = run.run_cell(s, cell, SEED, 0.3, False, torch.device('cpu'))
+    gap = altered['checks']['max_abs_gap']
+    assert not altered['correct'] and gap['value'] > gap['limit'] and altered['failed'] == 0
+    with monkeypatch.context() as m:
+        testing.plant_control(m, s)
+        control = run.run_cell(s, cell, SEED, 0.3, False, torch.device('cpu'))
+    gap = control['checks']['max_abs_gap']
+    assert not control['correct'] and gap['value'] > gap['limit'] and control['failed'] == 0
 
 
 #: A test-only traffic kind: its own arrivals, so its own window.

@@ -7,7 +7,6 @@ configuration's own.
 
 from __future__ import annotations
 
-import importlib
 import json
 import shutil
 from pathlib import Path
@@ -18,28 +17,27 @@ import torch
 from . import reference
 from .spec import ROOT
 
-#: The traffic parameters a tiny copy replaces.
-TINY = {
-    'season-rate': {'season_games': 16, 'actions': 128, 'valid_low': 90, 'valid_high': 128,
-                    'stratum_games': 8, 'games_per_call': 4, 'samples': 3, 'trace_seconds': 0.3},
-    'scenario-grid': {'season_games': 16, 'actions': 128, 'valid_low': 90, 'valid_high': 128,
-                      'stratum_games': 8, 'games_per_call': 4, 'samples': 3, 'trace_seconds': 0.3,
-                      'grid': {'builder': 'end_location', 'nx': 3, 'ny': 2}},
-}
+#: The traffic parameters a tiny copy replaces in every mix.
+TINY = {'season_games': 16, 'actions': 128, 'valid_low': 90, 'valid_high': 128,
+        'stratum_games': 8, 'games_per_call': 4, 'samples': 3, 'trace_seconds': 0.3}
+#: The parameters of a traffic kind of its own that a tiny copy replaces.
+TINY_KIND = {'scenario': {'grid': {'builder': 'end_location', 'nx': 3, 'ny': 2}}}
+#: The directories of ``cardbench/`` whose files a run finds by name.
+PIECES = ('configs', 'traffic', 'cells', 'metrics', 'drivers', 'families', 'heads', 'adapters')
 
 
 def tiny_root(dest: Path) -> Path:
-    """``BENCHMARK.json`` and the benchmark's data files copied under
-    ``dest``, with each traffic mix cut to :data:`TINY`."""
+    """``BENCHMARK.json`` and the benchmark's files found by name copied
+    under ``dest``, with every traffic mix cut to :data:`TINY` (and
+    :data:`TINY_KIND` for its kind)."""
     dest = Path(dest)
     shutil.copy(ROOT / 'BENCHMARK.json', dest / 'BENCHMARK.json')
-    for kind in ('configs', 'traffic', 'cells', 'metrics', 'drivers'):
+    for kind in PIECES:
         shutil.copytree(ROOT / 'cardbench' / kind, dest / 'cardbench' / kind,
                         ignore=shutil.ignore_patterns('__pycache__'))
-    for name, cut in TINY.items():
-        path = dest / 'cardbench' / 'traffic' / f'{name}.json'
+    for path in (dest / 'cardbench' / 'traffic').glob('*.json'):
         traffic = json.loads(path.read_text())
-        traffic.update(cut)
+        traffic.update(TINY, **TINY_KIND.get(traffic['kind'], {}))
         path.write_text(json.dumps(traffic))
     return dest
 
@@ -50,12 +48,13 @@ def batch_fields(model: reference.Model, batch: Any) -> Dict[str, torch.Tensor]:
 
 def plant_control(monkeypatch: Any, spec: Any) -> None:
     """Put the control (the reference in float32 with TF32 products) in the
-    program's place: the adapter's ``build`` returns the reference model, and
-    the entry of each driver of ``spec`` computes the control's values of the
-    batch it is given."""
-    def build(config, weights, mean, std, device):
-        family, head = reference.modules(config)
-        return reference.Model(family, head, config, weights, mean, std)
+    program's place: the ``build`` of the adapter that each configuration
+    of ``spec`` names returns the reference model, and the entry of each
+    driver of ``spec`` computes the control's values of the batch it is
+    given."""
+    def build(config, weights, layout, mean, std, device):
+        family, head, _ = spec.modules(config)
+        return reference.Model(family, head, config, weights, mean, std, layout)
 
     def rate(model, batch):
         return reference.values(model, batch_fields(model, batch), control=True)
@@ -66,7 +65,8 @@ def plant_control(monkeypatch: Any, spec: Any) -> None:
         values = reference.values(model, fields, control=True)
         return values.reshape(len(next(iter(updates.values()))), batch.n_games, *values.shape[1:])
 
-    monkeypatch.setattr(importlib.import_module('cardbench.adapters.vaep_mlp'), 'build', build)
+    for c in spec.bench['configs']:
+        monkeypatch.setattr(spec.module('adapters', spec.config(c['name'])['adapter']), 'build', build)
     monkeypatch.setattr(spec.driver('rate'), 'entry', rate)
     monkeypatch.setattr(spec.driver('scenario'), 'entry', rate_scenarios)
 

@@ -10,8 +10,9 @@ later change to the program cannot move them:
   the ``(rows, D)`` float32 dense block) and the ``(rows, H)`` float32
   output written once; ``2·rows·D·H`` operations of the dense product plus
   one add per gathered element (``rows·k·H``).
-- The model's FLOPs per valid action: B1's operations, then each head's
-  hidden chain (``2·w_in·w_out`` a layer, the output layer included).
+- The model's FLOPs per valid action: the count of the configuration's
+  head kind (``flops_per_action`` of ``cardbench/heads/<head>.py``; for
+  MLP heads B1's operations, then each head's hidden chain).
 
 Operations are divided by the dense TF32 tensor-core rate, the fastest rate
 at which this card multiplies float32 operands within the parity contract,
@@ -67,8 +68,8 @@ def b1_least_seconds(config: Dict[str, Any], rows: int, peak: Dict[str, float]) 
                b1_ops(config, rows) / peak['flops_tf32'])
 
 
-def flops_per_action(config: Dict[str, Any]) -> float:
-    """The model's FLOPs for one valid action rated."""
-    widths = list(config['hidden']) + [1]
-    chain = sum(2 * a * b for a, b in zip(widths[:-1], widths[1:]))
-    return b1_ops(config, 1) + 2 * chain
+def flops_per_action(config: Dict[str, Any], head: Any) -> float:
+    """The model's FLOPs for one valid action rated, as ``head``, the
+    configuration's head module (``cardbench/heads/<head>.py``), counts
+    them."""
+    return float(head.flops_per_action(config))
