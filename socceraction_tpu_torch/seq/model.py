@@ -26,6 +26,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ml.mlp import _generator
+from ..obs import counter, span
 from ..obs.dispatch import instrument
 from ..obs.numerics import nonfinite_count, note_guard
 from ..ops.fused import (
@@ -196,6 +197,18 @@ def seq_logits(
     """
     emb = table_lookup(module.embed, combo_ids, int(module.embed.shape[0]))
     h = _gru_pass(module, emb)
+    return _readout(module, h, x_dense, dense_mean, dense_std)
+
+
+def _readout(
+    module: SeqModule,
+    h: torch.Tensor,
+    x_dense: torch.Tensor,
+    dense_mean: torch.Tensor,
+    dense_std: torch.Tensor,
+) -> torch.Tensor:
+    """The readout's logits ``(N,)`` of the last hidden state ``h`` beside
+    the dense columns, standardized here."""
     dn = (x_dense - dense_mean) / dense_std
     ro = module.readout
     r1 = torch.relu(torch.cat([h, dn.to(h.dtype)], dim=-1) @ ro.w1 + ro.b1)
@@ -230,10 +243,17 @@ def seq_train_logits(
 ) -> torch.Tensor:
     """Logits ``(N,)`` from full-column statistics (:func:`dense_stats`
     cuts them to the dense columns), after checking that the parameters
-    fit the layout (:func:`check_seq_layout`)."""
+    fit the layout (:func:`check_seq_layout`). The steps of
+    :func:`seq_logits` run inside the ``seq/embed``, ``seq/gru`` and
+    ``seq/readout`` spans (the dense standardization with the readout)."""
     check_seq_layout(module, layout)
     dm, ds = dense_stats(mean, std, layout)
-    return seq_logits(module, x_dense, combo_ids, dense_mean=dm, dense_std=ds)
+    with span('seq/embed'):
+        emb = table_lookup(module.embed, combo_ids, int(module.embed.shape[0]))
+    with span('seq/gru'):
+        h = _gru_pass(module, emb)
+    with span('seq/readout'):
+        return _readout(module, h, x_dense, dm, ds)
 
 
 @functools.partial(instrument, name='seq_pair_probs')
@@ -250,22 +270,30 @@ def _seq_pair_dispatch(
     registry_name: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The instrumented dispatch behind :func:`seq_pair_probs`, keyed by
-    the shapes of what it reads."""
+    the shapes of what it reads. The feature rows run inside a
+    ``vaep/features`` span and both heads, their sigmoids and the guard
+    inside ``vaep/head``, each head's stages in :func:`seq_train_logits`'s
+    spans. The ``seq/gru_rows`` counter adds the rows that enter the
+    recurrence, padding included (``seq/rated_actions`` counts the valid
+    ones)."""
     registry = REGISTRIES[registry_name]
     layout = train_layout(names, k, registry)
-    x_dense, ids = _packed_rows(
-        batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
-    )
+    with span('vaep/features'):
+        x_dense, ids = _packed_rows(
+            batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
+        )
+    counter('seq/gru_rows', unit='rows').inc(ids.shape[0], platform=ids.device.type)
     shape = (batch.n_games, batch.max_actions)
-    pa, pb = (
-        torch.sigmoid(
-            seq_train_logits(module, x_dense, ids, layout=layout, mean=mean, std=std)
-        ).reshape(shape)
-        for module, (mean, std) in ((module_a, stats_a), (module_b, stats_b))
-    )
-    # the JAX package's seq guard: nonfinite probabilities of the whole
-    # (padded) batch, counted on the card and left there
-    note_guard('seq_pair_probs', 'probs', nonfinite_count(pa, pb))
+    with span('vaep/head'):
+        pa, pb = (
+            torch.sigmoid(
+                seq_train_logits(module, x_dense, ids, layout=layout, mean=mean, std=std)
+            ).reshape(shape)
+            for module, (mean, std) in ((module_a, stats_a), (module_b, stats_b))
+        )
+        # the JAX package's seq guard: nonfinite probabilities of the whole
+        # (padded) batch, counted on the card and left there
+        note_guard('seq_pair_probs', 'probs', nonfinite_count(pa, pb))
     return pa, pb
 
 
