@@ -283,6 +283,7 @@ from socceraction_tpu_torch.ops import feature_rows as fr_op
 from socceraction_tpu_torch.ops import fused as fused_ops
 from socceraction_tpu_torch.ops import gather_matmul as gm
 from socceraction_tpu_torch.ops import segment as seg
+from socceraction_tpu_torch.ops import seq_head as sh_op
 from socceraction_tpu_torch.ops import xt as xtops
 from socceraction_tpu_torch.obs import (
     NAME_RE,
@@ -355,6 +356,7 @@ from socceraction_tpu_torch.learn import (
     shadow_replay,
 )
 from socceraction_tpu_torch.ops.profile import preferred_rating_path
+from socceraction_tpu_torch.seq import model as seq_model
 from socceraction_tpu_torch.seq.classifier import SeqClassifier
 from socceraction_tpu_torch.resil import CircuitBreaker, FaultPlan, FaultSpec
 from socceraction_tpu_torch.config import COMPILE_CACHE_ENV, compile_cache_dir
@@ -619,6 +621,61 @@ def check_feature_rows(
             'differing_elements': differing, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': 'bytes', 'bytes': cost['bytes'],
             'share_of_bound': bound_ms / ms}
+
+
+def check_seq_head(chunk: Any, model_cls: Any, reps: int = 10) -> Dict[str, Any]:
+    """The seq head's kernel against its plain version (``seq_logits``, the
+    eager head, on the same card) over a season chunk's feature rows, with
+    a seeded head at the default widths (32, 64, 64): the kernel and the
+    eager float32 head each against the eager head in float64 (the kernel
+    within twice the eager head's error, plus 1e-6: both are float32, their
+    sums in other orders), the device ms of each (CUDA events) and the least
+    time the kernel's multiply-adds allow, the first token's products with
+    ``h = 0`` skipped: as the kernel runs them, three TF32 passes at the
+    tensor cores' dense TF32 peak (``bound_ms``, the share's bound), and as
+    float32 FFMAs (``ffma_bound_ms``). Then a seq pair of two such heads
+    rates the chunk: two launches, one a head."""
+    names, registry = model_cls._default_xfns, fused_ops.REGISTRIES[model_cls._fused_registry]
+    x, ids = fused_ops._packed_rows(chunk, names=names, k=K, registry=registry)
+    (n, d), (e, h, r) = x.shape, (32, 64, 64)
+    module = seq_model.init_seq_params(0, combo_size=registry.combo_size, n_dense=d, embed_dim=e,
+                                       hidden=h, readout=r, device='cpu')
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for prm in module.parameters():
+            if prm.dim() < 2:
+                prm.copy_(0.1 * torch.randn(prm.shape, generator=gen))
+    module = module.to(x.device)
+    mean, std = x.mean(0), x.std(0)
+    std = torch.where(std > 0, std, 1.0)
+    with torch.no_grad():
+        got = sh_op.seq_head(module, x, ids, mean, std)
+        want = seq_model.seq_logits(module, x, ids, dense_mean=mean, dense_std=std)
+        exact = seq_model.seq_logits(copy.deepcopy(module).double(), x.double(), ids,
+                                     dense_mean=mean.double(), dense_std=std.double())
+        err = float((got.double() - exact).abs().max())
+        plain_err = float((want.double() - exact).abs().max())
+        if not err <= 2 * plain_err + 1e-6:
+            raise RuntimeError(f'seq head at {n} rows: {err} from the float64 head, the eager '
+                               f'float32 head {plain_err}')
+        ms = time_ms(lambda: sh_op.seq_head(module, x, ids, mean, std), reps)
+        plain_ms = time_ms(lambda: seq_model.seq_logits(module, x, ids, dense_mean=mean,
+                                                        dense_std=std), max(2, reps // 4))
+    macs = 2 * e * h + (K - 1) * 3 * (e * h + h * h) + (h + d) * r + r
+    bound_ms = 3 * 2 * n * macs / PEAK_TF32_FLOPS * 1e3
+    pair = model_cls(models={'scores': make_seq_head(model_cls, x.device, seed=0),
+                             'concedes': make_seq_head(model_cls, x.device, seed=1)}, device=x.device)
+    sh_op.seq_head.launches = 0
+    pair.rate_batch(chunk)
+    sync(x.device)
+    launches = sh_op.seq_head.launches
+    if launches != 2:
+        raise RuntimeError(f'a seq pair rate_batch at {n} rows launched the seq head {launches} times')
+    return {'family': registry.name, 'shape': {'n': n, 'k': K, 'e': e, 'h': h, 'r': r, 'd': d},
+            'max_abs_err': err, 'plain_max_abs_err': plain_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': 'tf32x3 mma (3 TF32 passes at the dense TF32 peak)',
+            'share_of_bound': bound_ms / ms, 'ffma_bound_ms': 2 * n * macs / PEAK_F32_FLOPS * 1e3,
+            'pair_rate_batch_launches': launches}
 
 
 @contextlib.contextmanager
@@ -2441,7 +2498,10 @@ def rating_phase(
                          'concedes': make_seq_head(VAEP, device)}, device=device)
     if mixed._rating_path() != 'materialized':
         raise RuntimeError(f'{label}: a mixed pair rates on {mixed._rating_path()}')
+    sh_op.seq_head.launches = 0
     values = mixed.rate_batch(batch)
+    sync(device)
+    seq_launches = {'mixed rate_batch': sh_op.seq_head.launches}
     err = float((values - mixed.rate_batch_reference(batch)).abs().max())
     if not (bool(torch.isfinite(values).all()) and err <= 1e-5):
         raise RuntimeError(f'{label}: the mixed pair is {err} from its reference')
@@ -2461,12 +2521,18 @@ def rating_phase(
     plain = head.predict_proba_device(model.compute_features_batch(batch))
     mlp_err = float((probs - plain)[batch.mask].abs().max())
     seq_head = mixed._models['concedes']
+    sh_op.seq_head.launches = 0
     seq_probs = seq_head.predict_proba_device_batch(batch, names=names, k=K)
+    sync(device)
+    seq_launches['seq predict_proba_device_batch'] = sh_op.seq_head.launches
+    if seq_launches != {k: kernel_launches(1, device) for k in seq_launches}:
+        raise RuntimeError(f'{label}: the seq head launched {seq_launches}, one a head wanted')
     states, layout = fused_ops.build_train_states(batch, names=names, k=K)
     seq_plain = seq_head.predict_proba_states(states, layout).reshape(seq_probs.shape)
     seq_err = float((seq_probs - seq_plain)[batch.mask].abs().max())
     if mlp_err > 1e-5 or seq_err > 1e-6:
         raise RuntimeError(f'{label}: predict_proba_device_batch mlp {mlp_err}, seq {seq_err}')
+    record['seq_head_launches'] = seq_launches
     record['predict_proba_device_batch'] = {
         'launches': launches, 'mlp_max_abs_err': mlp_err, 'seq_max_abs_err': seq_err,
         'mlp_median_ms': synced_median(
@@ -5872,8 +5938,10 @@ def seq_serve_phase(
     mlp: VAEP, device: torch.device, card: str = 'CPU', sizes: SeqServeSizes = SeqServeSizes(),
 ) -> Dict[str, Any]:
     """Phase 21: seq and mixed heads behind ``RatingService`` at phase 16's
-    shape. Returns B1's launches by part and B1 at a bucket-64 flush's
-    operands of the swap's MLP version (on a card).
+    shape. Returns B1's launches by part, the seq head's by part (two a
+    seq-pair flush, one a mixed-pair flush, counted from 0 around each part
+    and held to that) and B1 at a bucket-64 flush's operands of the swap's
+    MLP version (on a card).
 
     The seq pair (:func:`seq_pair`) snaps each flush's action axis to its
     window rung; the mixed pair (:func:`mixed_pair`) rates on the
@@ -5898,10 +5966,19 @@ def seq_serve_phase(
                  max_wait_ms=sizes.max_wait_ms, max_queue=sizes.max_queue)
     rungs = window_ladder(A)
     launches: Dict[str, int] = {}
+    seq_launches: Dict[str, int] = {}
     t_phase = time.perf_counter()
 
     def b1() -> int:
         return gm.fused_first_layer_quant.launches
+
+    def seq_heads(part: str, flushes: int, heads: int) -> None:
+        # the seq head's launches since the part's reset: one a seq head a flush
+        seq_launches[part] = sh_op.seq_head.launches
+        want = kernel_launches(heads * flushes, device)
+        if seq_launches[part] != want:
+            raise RuntimeError(f'{label}: {part}: the seq head launched {seq_launches[part]} times '
+                               f'for {flushes} flushes of {heads} seq heads (want {want})')
 
     seq_model = seq_pair(device)
     mixed = mixed_pair(mlp, device)
@@ -5917,7 +5994,7 @@ def seq_serve_phase(
     for name, model in (('seq', seq_model), ('mixed', mixed)):
         svc = RatingService(model, **shape)
         wins = window_counts(rungs)
-        gm.fused_first_layer_quant.launches = 0
+        gm.fused_first_layer_quant.launches = sh_op.seq_head.launches = 0
         with b1_calls() as calls:
             sync(device)
             t0 = time.perf_counter()
@@ -5925,6 +6002,7 @@ def seq_serve_phase(
             sync(device)
             wall = time.perf_counter() - t0
         want = len(svc.ladder) * (len(rungs) if name == 'seq' else 1)
+        seq_heads(f'{name} warmup', want, 2 if name == 'seq' else 1)
         sliced = delta(window_counts(rungs), wins)
         want_sliced = {str(r): float(len(svc.ladder) if name == 'seq' and r < A else 0) for r in rungs}
         if svc.compiled_shapes != want or b1() or calls() or sliced != want_sliced:
@@ -5957,13 +6035,14 @@ def seq_serve_phase(
         def run(reqs: List[ServeRequest] = reqs) -> None:
             out['results'], out['walls'], out['wall'] = timed_clients(svc, reqs, sizes.clients)
 
-        gm.fused_first_layer_quant.launches = 0
+        gm.fused_first_layer_quant.launches = sh_op.seq_head.launches = 0
         with b1_calls() as calls:
             if r == A and device.type == 'cuda':
                 busy = device_busy(run)
             else:
                 run()
         n_calls = calls()
+        seq_heads(f'seq band {r}', len(takes) - first, 2)
         counts = delta(serve_counts(), before)
         sliced = delta(window_counts(rungs), wins)
         flushes = takes[first:]
@@ -5996,10 +6075,11 @@ def seq_serve_phase(
     mreqs = [serve_request(rng16, int(rng16.integers(sizes.low, A + 1)), A)
              for _ in range(sizes.clients * sizes.mixed_requests)]
     before = serve_counts()
-    gm.fused_first_layer_quant.launches = 0
+    gm.fused_first_layer_quant.launches = sh_op.seq_head.launches = 0
     with b1_calls() as calls:
         mresults, mwalls, mwall = timed_clients(msvc, mreqs, sizes.clients)
     n_calls = calls()
+    seq_heads('mixed traffic', len(mtakes), 1)
     launches['mixed traffic'] = b1()
     counts = delta(serve_counts(), before)
     if counts['fallback_flushes'] or b1() or n_calls or msvc.compiled_shapes != warm['mixed']['compiled_shapes']:
@@ -6074,7 +6154,7 @@ def seq_serve_phase(
             started.set()
 
     before, wins = serve_counts(), window_counts(rungs)
-    gm.fused_first_layer_quant.launches = 0
+    gm.fused_first_layer_quant.launches = sh_op.seq_head.launches = 0
     threads = [threading.Thread(target=swap_client, args=(c,)) for c in range(sizes.swap_clients)]
     for t in threads:
         t.start()
@@ -6097,6 +6177,8 @@ def seq_serve_phase(
     back = [submit_request(ssvc, r).result(timeout=300) for r in sreqs[: sizes.swap_clients]]
     # read before the references below, which launch B1 for v1 too
     launches['swap'] = b1()
+    # v2's ladder warmed before it goes live, then v2's flushes
+    seq_heads('swap', len(ssvc.ladder) * len(rungs) + served.count('2'), 2)
     counts = delta(serve_counts(), before)
     by_version = {'1': 0, '2': 0}
     after_swap = 0
@@ -6191,8 +6273,10 @@ def seq_serve_phase(
           f'{json.dumps({"requests": len(outcomes), "raised": len(raised), "b1_load_attempts": attempts[0], "breaker_unmoved": unmoved, "fallback_flushes": counts["fallback_flushes"], "health": msvc.health()["status"], "bitwise_the_undisturbed_values": bitwise, **gaps})}')
     for s in services.values():
         s.close()
-    print(f'{label}: B1 launches {json.dumps(launches)}; phase 21 in {time.perf_counter() - t_phase:.1f} s')
-    return {'launches': launches, 'b1': b1_rec, 'bands': bands, 'mixed': mixed_rec, 'swap': swap}
+    print(f'{label}: B1 launches {json.dumps(launches)}; seq head launches {json.dumps(seq_launches)}; '
+          f'phase 21 in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'seq_head_launches': seq_launches, 'b1': b1_rec, 'bands': bands,
+            'mixed': mixed_rec, 'swap': swap}
 
 
 def main() -> int:
@@ -6249,13 +6333,16 @@ def main() -> int:
     for rec in checks.values():
         print(f'kernel gather_matmul vs plain ({card}): {json.dumps(rec)}')
     # the feature rows at a season cell's chunk, in both families
-    row_checks = {}
+    row_checks, seq_checks = {}, {}
     for model_cls in (VAEP, AtomicVAEP):
         chunk = make_batch(model_cls, ROWS_GAMES, ACTIONS, seed=4, device=device)
         rec = row_checks[model_cls.__name__] = check_feature_rows(
             chunk, model_cls._default_xfns, fused_ops.REGISTRIES[model_cls._fused_registry])
         print(f'kernel feature_rows vs plain ({card}): {json.dumps(rec)}')
+        rec = seq_checks[model_cls.__name__] = check_seq_head(chunk, model_cls)
+        print(f'kernel seq_head vs plain ({card}): {json.dumps(rec)}')
         del chunk
+        torch.cuda.empty_cache()
     lap('build and kernel checks')
 
     # -- phase 4, the VAEP serving path: the entry points' default device
@@ -6509,6 +6596,12 @@ def main() -> int:
         **{f'phase16 {part}': n for part, n in serve_fold['feature_rows_launches'].items()},
     }
     row_shapes = list(row_checks.values()) + [serve_fold['feature_rows_at_fold_shape']]
+    seq_paths = {
+        **{f'seq pair rate_batch, {rec["family"]} season chunk': rec['pair_rate_batch_launches']
+           for rec in seq_checks.values()},
+        **{f'phase 12 {part}': n for part, n in rating['seq_head_launches'].items()},
+        **{f'phase21 {part}': n for part, n in seq_serve['seq_head_launches'].items()},
+    }
     f32 = checks[('standard', torch.float32)]
     sweep = seg_checks[1]
     kernels = [{
@@ -6610,6 +6703,26 @@ def main() -> int:
         'library_ms': None,
         'shapes': row_shapes,
         'ptxas': cuda_build.ptxas_report('feature_rows'),
+    }, {
+        'name': 'seq_head',
+        'route': 'cuda',
+        'source': 'socceraction_tpu_torch/csrc/seq_head.cu',
+        # no kernel of the JAX package: XLA fuses its GRU head
+        'replaces': 'socceraction_tpu_torch/seq/model.py:seq_logits',
+        # the main paths' launches, each counted from 0 around its run
+        'launches': sum(seq_paths.values()),
+        'launches_by_path': seq_paths,
+        'max_abs_err': max(rec['max_abs_err'] for rec in seq_checks.values()),
+        # the standard season chunk, 1024 x 1664
+        'ms': seq_checks['VAEP']['ms'],
+        'plain_ms': seq_checks['VAEP']['plain_ms'],
+        'bound_ms': seq_checks['VAEP']['bound_ms'],
+        'bound_by': seq_checks['VAEP']['bound_by'],
+        'ffma_bound_ms': seq_checks['VAEP']['ffma_bound_ms'],
+        # no single PyTorch call computes the head
+        'library_ms': None,
+        'shapes': list(seq_checks.values()),
+        'ptxas': cuda_build.ptxas_report('seq_head'),
     }]
     lap('kernels line')
     print(f'chip_smoke: phase walls (s) {json.dumps(walls)}')

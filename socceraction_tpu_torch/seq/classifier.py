@@ -24,6 +24,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..obs import counter, histogram
 from ..ml.mlp import AdamState, _fit_loop, _labels, _resolve_states, _weighted_bce
+from ..ops.seq_head import check_widths
 from .model import (
     SeqModule,
     check_seq_layout,
@@ -55,6 +56,11 @@ class SeqClassifier:
         The training knobs of :class:`~socceraction_tpu_torch.ml.mlp.MLPClassifier`.
     device
         Where the head trains and serves: ``cuda`` (default) or ``'cpu'``.
+        On the card a head's logits with no gradient wanted are one launch
+        of :func:`~socceraction_tpu_torch.ops.seq_head.seq_head`, which
+        takes every width with ``embed_dim + 3·hidden + n_dense + k`` up to
+        about 58,100 (:func:`~socceraction_tpu_torch.ops.seq_head.check_widths`);
+        a fit on the card refuses a wider head before it trains.
 
     Fitted, ``module`` holds the :class:`~.model.SeqModule` and
     ``mean_``/``std_`` the full-column statistics, on ``device``.
@@ -200,6 +206,10 @@ class SeqClassifier:
             std = torch.where(raw_std > 0, raw_std, 1.0)
         self.mean_ = torch.as_tensor(mean, dtype=torch.float32, device=self.device)
         self.std_ = torch.as_tensor(std, dtype=torch.float32, device=self.device)
+        if self.device.type == 'cuda':
+            # the card rates through the kernel: refuse what it cannot run before training
+            check_widths(embed_dim=self.embed_dim, hidden=self.hidden, n_dense=layout.n_dense,
+                         readout=self.readout, k=layout.k)
         module = (
             self.init_params(layout) if init_params is None
             else self._check_init_params(init_params, layout)

@@ -13,6 +13,11 @@ one logit.
 The GRU cell is the JAX package's, not ``torch.nn.GRU``'s: one bias per
 gate, the reset gate applied to ``h`` before its product with ``uh``, and
 ``h = (1 - z)·h + z·hh``.
+
+On the card a head's logits with no gradient wanted (rating, the service's
+flushes, :meth:`SeqClassifier.predict_proba_states`) are one launch of
+:func:`~socceraction_tpu_torch.ops.seq_head.seq_head` (``csrc/seq_head.cu``);
+everywhere else, training included, the eager steps below run.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..ops.fused import (
     table_lookup,
     train_layout,
 )
+from ..ops.seq_head import seq_head
 
 __all__ = [
     'SeqModule',
@@ -232,6 +238,17 @@ def check_seq_layout(module: SeqModule, layout: TrainLayout) -> None:
         )
 
 
+def on_kernel(module: SeqModule, x_dense: torch.Tensor) -> bool:
+    """Whether a head's logits over ``x_dense`` run the kernel: the rows
+    are on the card and no gradient is wanted (grad mode off, or neither
+    the rows nor a parameter requires one)."""
+    if x_dense.device.type != 'cuda':
+        return False
+    return not torch.is_grad_enabled() or not (
+        x_dense.requires_grad or any(p.requires_grad for p in module.parameters())
+    )
+
+
 def seq_train_logits(
     module: SeqModule,
     x_dense: torch.Tensor,
@@ -243,11 +260,16 @@ def seq_train_logits(
 ) -> torch.Tensor:
     """Logits ``(N,)`` from full-column statistics (:func:`dense_stats`
     cuts them to the dense columns), after checking that the parameters
-    fit the layout (:func:`check_seq_layout`). The steps of
-    :func:`seq_logits` run inside the ``seq/embed``, ``seq/gru`` and
-    ``seq/readout`` spans (the dense standardization with the readout)."""
+    fit the layout (:func:`check_seq_layout`). Where :func:`on_kernel`
+    holds, one launch of :func:`~socceraction_tpu_torch.ops.seq_head.seq_head`
+    runs inside the ``seq/gru`` span; else the steps of :func:`seq_logits`
+    run inside the ``seq/embed``, ``seq/gru`` and ``seq/readout`` spans
+    (the dense standardization with the readout)."""
     check_seq_layout(module, layout)
     dm, ds = dense_stats(mean, std, layout)
+    if on_kernel(module, x_dense):
+        with span('seq/gru'):
+            return seq_head(module, x_dense, combo_ids, dm, ds)
     with span('seq/embed'):
         emb = table_lookup(module.embed, combo_ids, int(module.embed.shape[0]))
     with span('seq/gru'):
@@ -275,14 +297,18 @@ def _seq_pair_dispatch(
     inside ``vaep/head``, each head's stages in :func:`seq_train_logits`'s
     spans. The ``seq/gru_rows`` counter adds the rows that enter the
     recurrence, padding included (``seq/rated_actions`` counts the valid
-    ones)."""
+    ones), and ``seq/fused_rows`` those of them the kernel runs (all on the
+    card, none on the CPU)."""
     registry = REGISTRIES[registry_name]
     layout = train_layout(names, k, registry)
     with span('vaep/features'):
         x_dense, ids = _packed_rows(
             batch, names=names, k=k, registry=registry, dense_overrides=dense_overrides
         )
-    counter('seq/gru_rows', unit='rows').inc(ids.shape[0], platform=ids.device.type)
+    rows, platform = ids.shape[0], ids.device.type
+    counter('seq/gru_rows', unit='rows').inc(rows, platform=platform)
+    fused = on_kernel(module_a, x_dense) and on_kernel(module_b, x_dense)
+    counter('seq/fused_rows', unit='rows').inc(rows if fused else 0, platform=platform)
     shape = (batch.n_games, batch.max_actions)
     with span('vaep/head'):
         pa, pb = (

@@ -78,9 +78,9 @@ AOT_DIRNAME = 'aot'
 AOT_FORMAT = 1
 
 #: The kernel libraries a version ships: B1 and the feature rows (every
-#: serving flush) and B2 (the learner's statistics), named by their
-#: ``csrc/<name>.cu``.
-KERNELS: Tuple[str, ...] = ('gather_matmul', 'segment_sum', 'feature_rows')
+#: serving flush), B2 (the learner's statistics) and the seq head (a seq
+#: pair's flushes), named by their ``csrc/<name>.cu``.
+KERNELS: Tuple[str, ...] = ('gather_matmul', 'segment_sum', 'feature_rows', 'seq_head')
 
 #: Library reads retried under this policy: transient filesystem errors
 #: back off and retry; checksum mismatches (ValueError) are permanent —

@@ -30,6 +30,7 @@ PORT_MODULES = {
     'device': "resolves the entry points' device: the card unless the caller asks for the CPU",
     'ops.cuda_build': 'builds and loads the hand-written CUDA kernels with nvcc',
     'ops.feature_rows': "writes the fused path's dense feature block and combined ids in one CUDA launch",
+    'ops.seq_head': "runs a GRU sequence head's embedding, recurrence and readout in one CUDA launch",
     'parallel.collectives': 'torch.distributed collectives in place of the mesh collectives jax lowers',
 }
 
